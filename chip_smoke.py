@@ -12,23 +12,33 @@ Phases (any failure raises and the script exits non-zero):
    an odd n; tolerance max|d| <= 1e-13 max|out| (fp64), 1e-5 (fp32) —
    FMA contraction is the only difference; then both timed at the slice
    shape: device time per call (torch.profiler) and wall time per call
-   back to back (CUDA events);
-4. the icoFoam slice in fp64 at pitzDaily x1 (every solve to 1e-12) for
-   10 steps on cuda and on cpu: U, p, phi agree to 1e-8 relative to their
-   largest magnitude, iteration counts within one per solve;
-5. the main path: icofoam.run in fp32 at pitzDaily x5 (106,000 live cells)
-   for 20 steps; fields finite, the kernel launched at least 3 times per
-   step (launch count reset just before the run);
-6. a JSON line of kernel results, the card's name and power limit, and
+   back to back (CUDA events), beside the least time the card could take;
+4. the icoFoam gdia slice in fp64 at pitzDaily x1 (every solve to 1e-12)
+   for 10 steps on cuda and on cpu: U, p, phi agree to 1e-8 relative to
+   their largest magnitude, iteration counts within one per solve;
+5. the gdia main path: icofoam.run in fp32 at pitzDaily x5 (106,000 live
+   cells) for 20 steps; fields finite and bounded, the kernel launched at
+   least 3 times per step (launch count reset just before the run);
+6. the padded-ELL cavity in fp64, 10 steps each on cuda and on cpu, the
+   same agreement checks as phase 4: the 20x20 tutorial setup (PCG/DIC p,
+   smoothSolver U) and the 48x48 bench setup (PCG with a GAMG
+   preconditioner for p, PBiCGStab/DILU U), every solve to 1e-12;
+7. the ELL main path as bench.py drives the cavity: 384x384 (147,456
+   cells), fp32, bench setup, make_chained_step with a chain of 10, one
+   warm-up window and two timed ones; fields finite, continuity error
+   below 0.1 and Courant number below 10; setup seconds, ms/step,
+   cell-updates/s and iterations per solve beside the card;
+8. a JSON line of kernel results, the card's name and power limit, and
    the result line {"ok": true, "device": {...}} last.
 
-It imports nothing of JAX.
+It imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import json
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -40,6 +50,16 @@ import torch
 _ITER_RE = re.compile(r"Solving for (\w+),.*No Iterations (\d+)")
 SLICE_OFFSETS = (-560, -1, 0, 1, 560)       # pitzDaily x5 lattice: nx = 560
 SLICE_N = 560 * 200
+# the cavity as bench.py runs it by default: p by PCG with a GAMG
+# preconditioner, U by PBiCGStab/DILU
+CAVITY_BENCH = dict(p_solver="PCG", p_precond="GAMG", u_solver="PBiCGStab",
+                    u_precond="DILU")
+CAVITY_N = 384
+CAVITY_CHAIN = 10
+# published H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s and
+# float32 FLOP/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
 
 
 def check(cond, msg):
@@ -122,7 +142,7 @@ def phase_kernel() -> dict:
              (7, 3, 40 * 30 * 20, (-1200, -40, -1, 0, 1, 40, 1200)),
              (5, 3, 100003, (-317, -1, 0, 1, 317))]
     g = torch.Generator().manual_seed(1234)
-    slice_err = ms = plain_ms = None
+    slice_err = ms = plain_ms = bound = None
     for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-13)):
         for K, C, n, offs in cases:
             x = torch.randn(n, generator=g, dtype=dtype).cuda()
@@ -146,12 +166,21 @@ def phase_kernel() -> dict:
                 def plain():
                     return gm.shift_mac_cols_plain(x, coeffs, offs)
                 ms, plain_ms = _device_ms(kernel), _device_ms(plain)
+                # each input read once, the output written once; one
+                # multiply-add per coefficient
+                nbytes = (x.numel() + coeffs.numel() + out.numel()) \
+                    * x.element_size()
+                bound = max((nbytes / HBM_BYTES_PER_S, "bytes"),
+                            (2 * coeffs.numel() / FP32_FLOPS, "operations"))
                 print(f"[3] fp32 slice shape, device time per call: kernel "
-                      f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us")
+                      f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
+                      f"bound {bound[0] * 1e6:.2f} us ({nbytes} bytes, "
+                      f"bound by {bound[1]})")
                 print(f"[3] fp32 slice shape, wall time per call back to "
                       f"back: kernel {_time_ms(kernel) * 1e3:.2f} us, plain "
                       f"{_time_ms(plain) * 1e3:.2f} us")
-    return dict(max_abs_err=slice_err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=slice_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound[0] * 1e3, bound_by=bound[1])
 
 
 def _logged(fn, *args, **kw):
@@ -166,18 +195,17 @@ def _rel(a, b) -> float:
     return float(np.abs(a - b).max() / np.abs(b).max())
 
 
-def phase_fp64_agreement(tmp: str):
+def _agreement(tag: str, run_dir: str, n_solves: int):
+    """icofoam.run for 10 fp64 steps on cuda and on cpu: fields agree to
+    1e-8 relative to their largest magnitude, iteration counts within one
+    per solve. Returns the cuda run's case."""
     from rapidcfd_tpu_torch.solvers import icofoam
-    from rapidcfd_tpu_torch.utils.casegen import pitz_daily_ico_case
-    d = f"{tmp}/pitz1"
-    pitz_daily_ico_case(d, scale=1, tight_tol=True)
     outs = {}
     for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        outs[dev] = _logged(icofoam.run, d, device=torch.device(dev),
+        outs[dev] = _logged(icofoam.run, run_dir, device=torch.device(dev),
                             dtype=torch.float64, write=False, max_steps=10)
-        print(f"[4] fp64 pitzDaily x1, 10 steps on {dev}: "
-              f"{time.perf_counter() - t0:.2f} s")
+        print(f"{tag} 10 steps on {dev}: {time.perf_counter() - t0:.2f} s")
     (gc, gU, gp, gphi), g_its, _ = outs["cuda"]
     (cc, cU, cp, cphi), c_its, _ = outs["cpu"]
     maps = cc.maps
@@ -186,22 +214,32 @@ def phase_fp64_agreement(tmp: str):
                   maps.cells_to_file(cU.data.numpy())),
         "p": _rel(maps.cells_to_file(gp.data.cpu().numpy()),
                   maps.cells_to_file(cp.data.numpy())),
-        "phi": _rel(maps.faces_to_file(gphi.data.cpu().numpy()),
-                    maps.faces_to_file(cphi.data.numpy())),
+        "phi": _rel(maps.faces_to_file(gphi.data.cpu().numpy(), flux=True),
+                    maps.faces_to_file(cphi.data.numpy(), flux=True)),
     }
-    print(f"[4] cuda vs cpu, relative max|d|: "
+    print(f"{tag} cuda vs cpu, relative max|d|: "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     check(all(v <= 1e-8 for v in errs.values()),
-          f"fp64 cuda and cpu runs disagree: {errs}")
-    check(len(g_its) == len(c_its) == 50, "unexpected number of solves")
+          f"{tag} fp64 cuda and cpu runs disagree: {errs}")
+    check(len(g_its) == len(c_its) == n_solves,
+          f"{tag} unexpected number of solves")
     diffs = [(i, a, b) for i, (a, b) in enumerate(zip(g_its, c_its))
              if a != b]
     for i, a, b in diffs:
-        print(f"[4] solve {i} ({a[0]}): cuda {a[1]} iterations, cpu {b[1]}")
+        print(f"{tag} solve {i} ({a[0]}): cuda {a[1]} iterations, "
+              f"cpu {b[1]}")
     check(all(a[0] == b[0] and abs(a[1] - b[1]) <= 1 for _, a, b in diffs),
-          "iteration counts differ by more than one")
-    print(f"[4] iteration counts: {len(diffs)} of {len(g_its)} solves "
+          f"{tag} iteration counts differ by more than one")
+    print(f"{tag} iteration counts: {len(diffs)} of {len(g_its)} solves "
           f"differ (by one)")
+    return gc
+
+
+def phase_fp64_agreement(tmp: str):
+    from rapidcfd_tpu_torch.utils.casegen import pitz_daily_ico_case
+    d = f"{tmp}/pitz1"
+    pitz_daily_ico_case(d, scale=1, tight_tol=True)
+    _agreement("[4] fp64 pitzDaily x1,", d, 50)
 
 
 def phase_main_path(tmp: str, smi: str) -> int:
@@ -255,6 +293,110 @@ def phase_main_path(tmp: str, smi: str) -> int:
     return launches
 
 
+def _gamg_sizes(case) -> list[int]:
+    """Cells per level of the p solver's GAMG hierarchy (the one the
+    run built; it is cached per mesh)."""
+    from rapidcfd_tpu_torch.linalg.gamg import build_hierarchy, gamg_shape
+    n_coarsest, merge_levels = gamg_shape(case.solver_controls("p"))
+    levels = build_hierarchy(case.mesh, n_coarsest=n_coarsest,
+                             merge_levels=merge_levels)
+    return [case.mesh.n_cells] + [lv.n_coarse for lv in levels]
+
+
+def phase_cavity_agreement(tmp: str):
+    from rapidcfd_tpu_torch.utils.casegen import cavity_case
+    d = f"{tmp}/cavity20"
+    cavity_case(d, n=20, delta_t=0.005, end_time=1.0, tight_tol=True)
+    case = _agreement("[6] fp64 cavity 20x20 tutorial,", d, 50)
+    check(case.mesh.gdia is None, "the cavity did not take the ELL path")
+    d = f"{tmp}/cavity48"
+    cavity_case(d, n=48, delta_t=0.005 * 20 / 48, end_time=1.0,
+                tight_tol=True, **CAVITY_BENCH)
+    case = _agreement("[6] fp64 cavity 48x48 bench,", d, 50)
+    print(f"[6] cavity 48x48 GAMG hierarchy, cells per level: "
+          f"{_gamg_sizes(case)}")
+
+
+def phase_cavity_main(tmp: str, smi: str) -> int:
+    """The cavity as bench.py:104-182 drives it. Returns the shift-MAC
+    launches counted over the run (the ELL path has no call of it)."""
+    from rapidcfd_tpu_torch.fields.field import Dimensioned
+    from rapidcfd_tpu_torch.ops import fvc, gdia_mac
+    from rapidcfd_tpu_torch.solvers import icofoam
+    from rapidcfd_tpu_torch.solvers.case import Case
+    from rapidcfd_tpu_torch.utils.casegen import cavity_case
+    from rapidcfd_tpu_torch.utils.logging import captured
+    n = CAVITY_N
+    d = f"{tmp}/cavity{n}"
+    dt = 0.005 * 20 / n * 0.5
+    t0 = time.perf_counter()
+    pmesh = cavity_case(d, n=n, delta_t=dt, end_time=1e9, write_mesh=False,
+                        **CAVITY_BENCH)
+    t_case = time.perf_counter() - t0
+    gdia_mac.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with captured():
+        case = Case(d, device=torch.device("cuda"), dtype=torch.float32,
+                    pmesh=pmesh)
+        nu = Dimensioned.from_entry(
+            case.transport_properties().lookup("nu", required=True), "nu")
+        piso = case.algo_dict("PISO")
+        step = icofoam.make_chained_step(
+            case, nu, int(piso.scalar("nCorrectors", 2)),
+            int(piso.scalar("nNonOrthogonalCorrectors", 0)),
+            int(piso.scalar("pRefCell", 0)),
+            float(piso.scalar("pRefValue", 0)), chain=CAVITY_CHAIN)
+        U, p = case.read_field("U"), case.read_field("p")
+        phi = fvc.flux(case.mesh, U)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    mesh = case.mesh
+    check(mesh.gdia is None and mesh.n_cells == n * n,
+          f"expected {n * n} cells on the ELL path")
+    ss = case.setup_seconds
+    print(f"[7] cavity {n}x{n} fp32 bench setup, {mesh.n_cells} cells, "
+          f"K = {mesh.K}: case {t_case:.2f} s, setup {t_setup:.2f} s (RCM "
+          f"{ss['rcm']:.2f} s, geometry and ELL {ss['mesh']:.2f} s, upload "
+          f"{ss['upload']:.2f} s, GAMG agglomeration "
+          f"{ss['agglomeration']:.2f} s); GAMG cells per level "
+          f"{_gamg_sizes(case)}")
+    windows, stats = [], []
+    for w in range(3):        # one warm-up window, then two timed ones
+        t0 = time.perf_counter()
+        U, p, phi, st = step(U, p, phi, dt)
+        torch.cuda.synchronize()
+        stats.append(st)
+        if w:
+            windows.append(time.perf_counter() - t0)
+    launches = gdia_mac.LAUNCHES
+    for f in (U, p, phi):
+        check(bool(torch.isfinite(f.data).all()), f"{f.name} not finite")
+    check(U.data.shape == (mesh.n_cells, 3) and p.data.shape
+          == (mesh.n_cells,) and phi.data.shape == (mesh.n_faces,),
+          "unexpected shapes")
+    cont = max(float(st["cont"][0].max()) for st in stats)
+    co = max(float(st["co"][1].max()) for st in stats)
+    check(cont < 0.1 and co < 10.0,
+          f"run not bounded: continuity {cont}, Courant {co}")
+    its = {k: torch.cat([perf[2].flatten() for st in stats
+                         for perf in st[k]]).double()
+           for k in ("p_perf", "u_perf")}
+    p_its, u_its = its["p_perf"], its["u_perf"]
+    med = statistics.median(windows)
+    ms = 1e3 * med / CAVITY_CHAIN
+    print(f"[7] {len(stats) * CAVITY_CHAIN} steps: max continuity error "
+          f"{cont:.3e}, max Courant {co:.4f}; p iterations per solve mean "
+          f"{p_its.mean():.2f} max {int(p_its.max())}, U mean "
+          f"{u_its.mean():.2f} max {int(u_its.max())} (card: {smi})")
+    print(f"[7] windows of {CAVITY_CHAIN} steps: "
+          + ", ".join(f"{1e3 * w / CAVITY_CHAIN:.3f}" for w in windows)
+          + f" ms/step; median {ms:.3f} ms/step, "
+          f"{mesh.n_cells * CAVITY_CHAIN / med:.1f} cell-updates/s "
+          f"(card: {smi})")
+    print(f"[7] shift-MAC launches in the cavity run: {launches}")
+    return launches
+
+
 def main():
     smi = phase_setup()
     phase_build()
@@ -262,12 +404,15 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         phase_fp64_agreement(tmp)
         launches = phase_main_path(tmp, smi)
+        phase_cavity_agreement(tmp)
+        phase_cavity_main(tmp, smi)
     print(json.dumps({"kernels": [{
         "name": "shift_mac", "route": "cuda",
         "source": "rapidcfd_tpu_torch/csrc/shift_mac.cu",
         "replaces": "rapidcfd_tpu/ops/pallas_gdia.py:67",
         "launches": launches, "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"]}]}))
+        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "library_ms": None}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,7 @@ SOLVERS = {
 
 
 def main(argv=None):
-    from rapidcfd_tpu.utils.dictionary import parse_file
+    from .utils.dictionary import parse_file
 
     from . import resolve_device, solver_dtype
     ap = argparse.ArgumentParser(prog="rapidcfd_tpu_torch")

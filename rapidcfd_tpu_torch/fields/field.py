@@ -17,7 +17,7 @@ from typing import Any, Optional
 
 import torch
 
-from rapidcfd_tpu.utils.dimensions import DimensionSet, dimless
+from ..utils.dimensions import DimensionSet, dimless
 
 
 @dataclass(frozen=True)

@@ -10,8 +10,8 @@ import os
 import numpy as np
 import torch
 
-from rapidcfd_tpu.utils.dictionary import foamfile_header, parse_file
-from rapidcfd_tpu.utils.dimensions import DimensionSet
+from ..utils.dictionary import foamfile_header, parse_file
+from ..utils.dimensions import DimensionSet
 
 from ..mesh.mesharrays import MeshArrays, MeshMaps
 from .bcs import Calculated, make_bc
@@ -144,9 +144,9 @@ def write_vol_field(field: VolField, case_dir: str, time: str,
 
 def write_surface_field(sf: SurfaceField, case_dir: str, time: str,
                         mesh: MeshArrays, maps: MeshMaps, prec: int = 8):
-    """Write a SurfaceField (e.g. phi) as a surfaceScalarField file in
-    file face order (padded dummy faces are dropped)."""
-    data = maps.faces_to_file(sf.data.detach().cpu().numpy())
+    """Write a face flux (e.g. phi) as a surfaceScalarField file in file
+    face order and orientation (padded dummy faces are dropped)."""
+    data = maps.faces_to_file(sf.data.detach().cpu().numpy(), flux=True)
     n_int = maps.n_file_faces - mesh.n_boundary
     lines = [foamfile_header("surfaceScalarField", sf.name or "phi", time),
              f"\ndimensions      {_dims_str(sf.dims)};\n\n",
@@ -165,8 +165,9 @@ def write_surface_field(sf: SurfaceField, case_dir: str, time: str,
 
 def read_surface_field(case_dir: str, time: str, name: str,
                        mesh: MeshArrays, maps: MeshMaps) -> SurfaceField:
-    """Read a surfaceScalarField written by write_surface_field (or the
-    reference): internal values + per-patch boundary values."""
+    """Read a face flux written by write_surface_field (or the
+    reference): internal values + per-patch boundary values, turned to
+    the device orientation."""
     npdt = _NP_DTYPE[mesh.dtype]
     d = parse_file(os.path.join(case_dir, time, name))
     dims = d.lookup("dimensions", required=True)
@@ -182,5 +183,5 @@ def read_surface_field(case_dir: str, time: str, name: str,
         start = n_int + patch.bstart
         data[start:start + patch.size] = _parse_value(
             pd.lookup("value"), patch.size, npdt)
-    return SurfaceField(torch.as_tensor(maps.faces_to_device(data),
+    return SurfaceField(torch.as_tensor(maps.faces_to_device(data, flux=True),
                                         device=mesh.device), dims, name)

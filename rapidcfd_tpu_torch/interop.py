@@ -1,8 +1,8 @@
 """Carry state from the JAX package into the port.
 
-Each function takes an object of the JAX package (a MeshArrays, VolField,
-SurfaceField or FvMatrix) and rebuilds the port's counterpart on a given
-device and dtype. Arrays are read through the numpy array protocol
+Each function takes an object of the JAX package (a MeshArrays with its
+GAMG levels, VolField, SurfaceField or FvMatrix) and rebuilds the port's
+counterpart on a given device and dtype. Arrays are read through the numpy array protocol
 (`np.asarray`), so this module never imports jax; the caller holds the
 JAX objects. The tests use it to feed both packages identical inputs.
 """
@@ -14,9 +14,11 @@ import torch
 
 from .fields.bcs import BC_TYPES
 from .fields.field import SurfaceField, VolField
+from .linalg.gamg import Level
 from .mesh.gdia import GaussPlanes, GdiaInfo, gauss_planes_from_numpy
-from .mesh.mesharrays import MeshArrays, Patch
+from .mesh.mesharrays import MeshArrays, Patch, _bnd_segments
 from .ops.fvmatrix import FvMatrix
+from .utils.dimensions import DimensionSet
 
 _BC_BY_CLASS = {cls.__name__: cls for cls in BC_TYPES.values()}
 
@@ -53,11 +55,23 @@ def gauss_planes(src, *, device, dtype) -> GaussPlanes:
                                    device=device, dtype=dtype)
 
 
+def dims(src) -> DimensionSet:
+    """The port's DimensionSet of a JAX DimensionSet."""
+    return DimensionSet(*src.as_tuple())
+
+
+def levels(src, *, device, dtype) -> tuple[Level, ...]:
+    """GAMG levels of the JAX package (numpy arrays) as the port's."""
+    return tuple(Level.from_arrays(lv, device=device, dtype=dtype)
+                 for lv in src)
+
+
 def mesh_arrays(src, *, device, dtype) -> MeshArrays:
-    """MeshArrays of a JAX gdia-mode mesh (with its GdiaInfo and
-    GaussPlanes)."""
-    if src.gdia is None or src.gauss is None:
-        raise ValueError("only gdia-mode meshes are ported")
+    """MeshArrays of a JAX mesh: a gdia-mode mesh (with its GdiaInfo and
+    GaussPlanes) or a padded-ELL mesh (with its GAMG levels, when
+    attached). The structured-box layout is not ported."""
+    if src.structured is not None:
+        raise ValueError("the structured-box layout is not ported")
 
     def f(name):
         return tensor(getattr(src, name), device=device, dtype=dtype)
@@ -65,6 +79,25 @@ def mesh_arrays(src, *, device, dtype) -> MeshArrays:
     def opt(name):
         v = getattr(src, name)
         return None if v is None else f(name)
+    bnd = {}
+    if src.bnd_cells is not None:
+        uniq, seg = _bnd_segments(np.asarray(src.bnd_cells),
+                                  np.asarray(src.bnd_sel),
+                                  int(src.n_faces - src.n_internal))
+        bnd = dict(bnd_cells=f("bnd_cells"), bnd_sel=f("bnd_sel"),
+                   bnd_uniq=tensor(uniq, device=device),
+                   bnd_seg=tensor(seg, device=device))
+    if src.gdia is None:
+        layout = dict(
+            cell_faces=f("cell_faces"), cell_sign=f("cell_sign"),
+            cell_nbr=f("cell_nbr"), ell_coeff_idx=f("ell_coeff_idx"),
+            internal_mask=f("internal_mask"), K=int(src.K),
+            gamg=(None if src.gamg is None else
+                  levels(src.gamg, device=device, dtype=dtype)))
+    else:
+        layout = dict(
+            gdia=gdia_info(src.gdia, device=device, dtype=dtype),
+            gauss=gauss_planes(src.gauss, device=device, dtype=dtype))
     return MeshArrays(
         owner=f("owner"), neighbour=f("neighbour"), Sf=f("Sf"),
         mag_sf=f("mag_sf"), Cf=f("Cf"), C=f("C"), V=f("V"),
@@ -76,10 +109,7 @@ def mesh_arrays(src, *, device, dtype) -> MeshArrays:
         n_internal=int(src.n_internal),
         patches=tuple(Patch(p.name, p.type, p.start, p.size, p.bstart)
                       for p in src.patches),
-        gdia=gdia_info(src.gdia, device=device, dtype=dtype),
-        gauss=gauss_planes(src.gauss, device=device, dtype=dtype),
-        V_assemble=f("V_assemble" if src.V_assemble is not None else "V"),
-        bnd_cells=opt("bnd_cells"), bnd_sel=opt("bnd_sel"))
+        V_assemble=opt("V_assemble"), **layout, **bnd)
 
 
 def _bc(src_bc):
@@ -98,7 +128,7 @@ def vol_field(src, *, device, dtype) -> VolField:
     return VolField(
         tensor(src.data, device=device, dtype=dtype),
         tensor(src.bvalues, device=device, dtype=dtype),
-        tuple(_bc(b) for b in src.bcs), src.dims, src.name,
+        tuple(_bc(b) for b in src.bcs), dims(src.dims), src.name,
         tuple(bd(d) for d in src.bcdata),
         None if src.old is None else vol_field(src.old, device=device,
                                                dtype=dtype))
@@ -106,7 +136,7 @@ def vol_field(src, *, device, dtype) -> VolField:
 
 def surface_field(src, *, device, dtype) -> SurfaceField:
     return SurfaceField(tensor(src.data, device=device, dtype=dtype),
-                        src.dims, src.name)
+                        dims(src.dims), src.name)
 
 
 def fv_matrix(src, *, device, dtype) -> FvMatrix:
@@ -120,7 +150,7 @@ def fv_matrix(src, *, device, dtype) -> FvMatrix:
         internal_coeffs=tuple(t(a) for a in src.internal_coeffs),
         boundary_coeffs=tuple(t(a) for a in src.boundary_coeffs),
         psi=vol_field(src.psi, device=device, dtype=dtype), V=t(src.V),
-        dims=src.dims, symmetric=bool(src.symmetric),
+        dims=dims(src.dims), symmetric=bool(src.symmetric),
         ref_cell=int(np.asarray(src.ref_cell)) if ref else None,
         ref_value=float(np.asarray(src.ref_value)) if ref else None,
         ref_weight=float(np.asarray(src.ref_weight)) if ref else None,

@@ -1,7 +1,9 @@
 """lduMatrix preconditioners (port of rapidcfd_tpu/linalg/
-preconditioners.py). As in the reference, the sequential triangular
-preconditioners DIC/DILU alias to the pointwise-parallel AINV
-(DICPreconditioner.C:41-57, DILUPreconditioner.C:48-56)."""
+preconditioners.py): none, diagonal and AINV. As in the reference, the
+sequential triangular preconditioners DIC/DILU alias to the
+pointwise-parallel AINV (DICPreconditioner.C:41-57,
+DILUPreconditioner.C:48-56). GAMG (one V-cycle) is built in
+linalg/solvers.py."""
 
 from __future__ import annotations
 
@@ -16,6 +18,15 @@ def _safe_recip(diag):
                        torch.zeros_like(diag))
 
 
+def none_precond(mesh, m, diag):
+    return lambda r: r
+
+
+def diagonal_precond(mesh, m, diag):
+    rd = _safe_recip(diag)
+    return lambda r: rd * r
+
+
 def ainv_precond(mesh, m, diag):
     """Sparse approximate inverse: w = D^-1 r - D^-1 O D^-1 r (one
     off-diagonal product; reference: AINVPreconditioner.C:49-110)."""
@@ -28,8 +39,9 @@ def ainv_precond(mesh, m, diag):
     return apply
 
 
-PRECONDITIONERS = {name: ainv_precond
-                   for name in ("AINV", "DIC", "DILU", "FDIC")}
+PRECONDITIONERS = {"none": none_precond, "diagonal": diagonal_precond,
+                   **{name: ainv_precond
+                      for name in ("AINV", "DIC", "DILU", "FDIC")}}
 
 
 def make_preconditioner(name: str, mesh, m, diag):

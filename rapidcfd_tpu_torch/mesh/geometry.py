@@ -1,8 +1,9 @@
 """Mesh geometry: face centres/areas, cell centres/volumes, interpolation
-coefficients — a numpy copy of rapidcfd_tpu/mesh/geometry.py (the same
-algorithms as the reference's primitiveMesh and surfaceInterpolation, so
-the two packages build bit-identical geometry). Host-side, run once at
-mesh load."""
+coefficients, and the bandwidth-reducing renumbering — a numpy copy of
+rapidcfd_tpu/mesh/geometry.py (the same algorithms as the reference's
+primitiveMesh, surfaceInterpolation and bandCompression, so the two
+packages build bit-identical geometry). Host-side, run once at mesh
+load."""
 
 from __future__ import annotations
 
@@ -124,3 +125,74 @@ def interpolation_coeffs(mesh: PolyMesh, C: np.ndarray, Cf: np.ndarray,
         b_nonorth_delta_coeffs=b_nonorth_delta_coeffs,
         b_delta=bdelta,
     )
+
+
+def cuthill_mckee(mesh: PolyMesh, reverse: bool = True) -> np.ndarray:
+    """Bandwidth-reducing cell renumbering (scipy's reverse Cuthill-McKee;
+    the reference's bandCompression, src/OpenFOAM/meshes/bandCompression/
+    bandCompression.H:27-34). Returns perm with perm[new] = old."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    nc = mesh.n_cells
+    n_int = mesh.n_internal_faces
+    own = mesh.owner[:n_int]
+    nei = mesh.neighbour
+    a = sp.coo_matrix(
+        (np.ones(2 * n_int),
+         (np.concatenate([own, nei]), np.concatenate([nei, own]))),
+        shape=(nc, nc)).tocsr()
+    perm = reverse_cuthill_mckee(a, symmetric_mode=True)
+    if not reverse:
+        perm = perm[::-1].copy()
+    return np.asarray(perm, dtype=np.int64)
+
+
+def renumber_mesh(mesh: PolyMesh, perm: np.ndarray):
+    """Apply a cell permutation (perm[new] = old) and restore the
+    owner-sorted upper-triangular face ordering of the polyMesh format.
+
+    Returns (mesh, face_perm, face_flip): face_perm[new] = old face
+    (boundary faces keep their place), face_flip[new] is True where the
+    face was reversed to keep owner < neighbour, so that a face flux on
+    the new mesh is the negative of the file's."""
+    nc = mesh.n_cells
+    n_int = mesh.n_internal_faces
+    inv = np.empty(nc, dtype=np.int64)
+    inv[perm] = np.arange(nc)
+
+    own = inv[mesh.owner]
+    nei = inv[mesh.neighbour]
+
+    # ensure owner < neighbour on internal faces (flip face if swapped)
+    flip = own[:n_int] > nei
+    new_own = own.copy()
+    new_own[:n_int] = np.where(flip, nei, own[:n_int])
+    new_nei = np.where(flip, own[:n_int], nei)
+
+    # re-sort internal faces by (owner, neighbour); boundary faces stay put
+    order = np.lexsort((new_nei, new_own[:n_int]))
+
+    fp, off = mesh.face_points, mesh.face_offsets
+    new_fp_chunks = []
+    sizes = np.diff(off)
+    new_sizes = np.concatenate([sizes[order], sizes[n_int:]])
+    for fi in order:
+        pts = fp[off[fi]:off[fi + 1]]
+        if flip[fi]:
+            pts = pts[::-1]
+        new_fp_chunks.append(pts)
+    new_fp_chunks.append(fp[off[n_int]:])
+    new_fp = np.concatenate(new_fp_chunks)
+    new_off = np.zeros(len(new_sizes) + 1, dtype=np.int64)
+    np.cumsum(new_sizes, out=new_off[1:])
+
+    final_own = np.concatenate([new_own[:n_int][order], new_own[n_int:]])
+    final_nei = new_nei[order]
+    out = PolyMesh(mesh.points, new_fp, new_off, final_own, final_nei,
+                   mesh.patches)
+    face_perm = np.concatenate(
+        [order, np.arange(n_int, mesh.n_faces)]).astype(np.int64)
+    face_flip = np.concatenate([flip[order],
+                                np.zeros(mesh.n_faces - n_int, bool)])
+    return out, face_perm, face_flip

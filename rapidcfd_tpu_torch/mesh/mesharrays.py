@@ -1,20 +1,31 @@
 """MeshArrays — the static device mesh (port of rapidcfd_tpu/mesh/
-mesharrays.py). This slice ports the generalized-DIA lattice layout
-(`build_gdia_mesh_arrays`, mesh/gdia.py); the padded-ELL build, RCM
-renumbering, the structured-box layout and AMI come with later slices, so
-MeshArrays carries no ELL connectivity yet.
+mesharrays.py). Two layouts:
+
+- the padded ELL (`build_mesh_arrays`): cells renumbered by reverse
+  Cuthill-McKee, every cell owns K face slots with the face, its sign
+  (+1 owner, -1 neighbour), the cell across it and the index of its LDU
+  coefficient in [upper | lower | 0]; every finite-volume gather is a
+  dense (nCells, K) indexed load and a reduction over K;
+- the generalized-DIA lattice (`build_gdia_mesh_arrays`, mesh/gdia.py)
+  for masked-lattice meshes.
+
+The structured-box layout and cyclic/AMI coupling are TPU layouts or
+later slices and are not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from .gdia import GaussPlanes, GdiaInfo, build_gauss_planes
-from .geometry import (cell_centres_and_vols, face_centres_and_areas,
-                       interpolation_coeffs)
+from .geometry import (cell_centres_and_vols, cuthill_mckee,
+                       face_centres_and_areas, interpolation_coeffs,
+                       renumber_mesh)
 from .polymesh import PolyMesh
 
 
@@ -34,13 +45,13 @@ class Patch:
 
 @dataclass(frozen=True)
 class MeshArrays:
-    # face-indexed geometry/topology (internal faces = lattice planes)
+    # face-indexed geometry/topology
     owner: torch.Tensor          # (nFaces,) int64
     neighbour: torch.Tensor      # (nInternal,) int64
     Sf: torch.Tensor             # (nFaces, 3)
     mag_sf: torch.Tensor         # (nFaces,)
     Cf: torch.Tensor             # (nFaces, 3)
-    # cell-indexed geometry (cells = lattice slots)
+    # cell-indexed geometry
     C: torch.Tensor              # (nCells, 3)
     V: torch.Tensor              # (nCells,)
     # interpolation coefficients (internal faces)
@@ -55,15 +66,30 @@ class MeshArrays:
     n_faces: int
     n_internal: int
     patches: tuple
-    gdia: GdiaInfo
-    gauss: GaussPlanes
-    # per-slot assembly volume (ghost/dead slots 0)
-    V_assemble: torch.Tensor
+    # ELL connectivity (None on gdia meshes)
+    cell_faces: torch.Tensor | None = None     # (nCells, K) int64, pad 0
+    cell_sign: torch.Tensor | None = None      # (nCells, K) +1/-1/0
+    cell_nbr: torch.Tensor | None = None       # (nCells, K) int64, pad self
+    ell_coeff_idx: torch.Tensor | None = None  # (nCells, K) into [up|lo|0]
+    internal_mask: torch.Tensor | None = None  # (nCells, K) 1.0 internal
+    K: int = 0
+    # generalized-DIA lattice embedding and its Gauss planes, or None
+    gdia: GdiaInfo | None = None
+    gauss: GaussPlanes | None = None
+    # per-slot assembly volume (gdia ghost/dead slots 0); None = V
+    V_assemble: torch.Tensor | None = None
     # batched boundary fold: bnd_cells[i] = face-cell of boundary face
-    # bnd_sel[i] (bstart order, sorted by cell); None when every patch is
-    # empty
+    # bnd_sel[i] (bstart order, sorted by cell); bnd_uniq are the distinct
+    # boundary cells and bnd_seg (len(bnd_uniq), M) the boundary faces of
+    # each (bstart indices, padded with n_boundary). All None when every
+    # patch is empty.
     bnd_cells: torch.Tensor | None = None
     bnd_sel: torch.Tensor | None = None
+    bnd_uniq: torch.Tensor | None = None
+    bnd_seg: torch.Tensor | None = None
+    # GAMG agglomeration hierarchy (tuple of linalg.gamg.Level) attached by
+    # linalg.precompute.attach_solver_layouts, or None
+    gamg: tuple | None = None
 
     @property
     def device(self) -> torch.device:
@@ -75,11 +101,14 @@ class MeshArrays:
 
     @property
     def V_asm(self) -> torch.Tensor:
-        return self.V_assemble
+        return self.V if self.V_assemble is None else self.V_assemble
 
     @property
     def n_boundary(self) -> int:
         return self.n_faces - self.n_internal
+
+    def replace(self, **kw) -> "MeshArrays":
+        return dataclasses.replace(self, **kw)
 
     def patch_face_cells(self, p: Patch) -> torch.Tensor:
         return self.owner[p.start:p.start + p.size]
@@ -89,21 +118,32 @@ class MeshArrays:
         """data at the patch's face cells."""
         return data.index_select(0, self.patch_face_cells(p))
 
-    def add_at_patch_cells(self, p: Patch, data: torch.Tensor,
-                           vals: torch.Tensor) -> torch.Tensor:
-        """data[faceCells(p)] += vals."""
-        return data.index_add(0, self.patch_face_cells(p), vals)
-
     def add_at_boundary_cells(self, data: torch.Tensor,
-                              bvals: torch.Tensor) -> torch.Tensor:
+                              bvals: torch.Tensor, dim: int = 0
+                              ) -> torch.Tensor:
         """data[faceCells] += bvals over every non-empty patch at once
-        (bvals in bstart order): the per-cell sums of the boundary values
-        are formed first and then added, as the JAX segment sum does."""
-        if self.bnd_cells is None:
+        (bvals in bstart order along `dim`). Each boundary cell's values
+        are summed first, in bnd_cells order, and added once: the sorted
+        segment sum of the JAX package, with no two adds to one cell (so
+        the result does not depend on the order of atomics on the card)."""
+        if self.bnd_seg is None:
             return data
-        vals = bvals.index_select(0, self.bnd_sel)
-        add = torch.zeros_like(data).index_add_(0, self.bnd_cells, vals)
-        return data + add
+        pad = list(bvals.shape)
+        pad[dim] = 1
+        ext = torch.cat([bvals, bvals.new_zeros(pad)], dim)
+        idx = (slice(None),) * dim + (self.bnd_seg,)
+        sums = ext[idx].sum(dim + 1)
+        return data.index_add(dim, self.bnd_uniq, sums)
+
+    def add_at_patches(self, data: torch.Tensor, items) -> torch.Tensor:
+        """data[faceCells(p)] += vals over a list of (patch, vals) of
+        non-empty patches, through add_at_boundary_cells."""
+        if not items:
+            return data
+        b = data.new_zeros((self.n_boundary,) + tuple(data.shape[1:]))
+        for p, v in items:
+            b[p.bstart:p.bstart + p.size] = v
+        return self.add_at_boundary_cells(data, b)
 
     def patch_mag_sf(self, p: Patch) -> torch.Tensor:
         return self.mag_sf[p.start:p.start + p.size]
@@ -123,17 +163,31 @@ class MeshArrays:
 class MeshMaps:
     """Orderings between on-disk and device layouts (perm[new] = old).
     cell_primary: bool mask of device slots that uniquely own a file cell
-    (ghost slots mirror their primary; dead slots must not write back).
-    n_file_faces: faces on disk (padded dummy faces map to this sentinel
-    in face_perm)."""
+    (gdia ghost slots mirror their primary; dead slots must not write
+    back; all True on ELL meshes). n_file_faces: faces on disk (gdia
+    padded dummy faces map to this sentinel in face_perm). face_sign:
+    -1.0 at device faces whose orientation is the reverse of the file's
+    (renumbering or lattice re-orientation), +1.0 elsewhere; a face flux
+    changes sign with it."""
     cell_perm: np.ndarray
     face_perm: np.ndarray
     cell_primary: np.ndarray
     n_file_faces: int
+    face_sign: np.ndarray | None = None
 
     @property
     def n_file_cells(self) -> int:
         return int(self.cell_perm[self.cell_primary].max()) + 1
+
+    def device_cell(self, file_cell: int) -> int:
+        """The device row (the primary slot on gdia meshes) of a file-order
+        cell label such as fvSolution's pRefCell."""
+        rows = np.nonzero((self.cell_perm == file_cell)
+                          & self.cell_primary)[0]
+        if rows.size != 1:
+            raise ValueError(f"cell {file_cell} is not a cell of the mesh "
+                             f"({self.n_file_cells} cells)")
+        return int(rows[0])
 
     def cells_to_device(self, file_order: np.ndarray) -> np.ndarray:
         return file_order[self.cell_perm]
@@ -145,14 +199,27 @@ class MeshMaps:
         out[perm] = dev_order[self.cell_primary]
         return out
 
-    def faces_to_device(self, file_order: np.ndarray) -> np.ndarray:
-        """Dummy (padded) faces read 0."""
+    def _sign(self, data: np.ndarray) -> np.ndarray:
+        return self.face_sign.reshape((-1,) + (1,) * (data.ndim - 1))
+
+    def faces_to_device(self, file_order: np.ndarray,
+                        flux: bool = False) -> np.ndarray:
+        """Dummy (padded) faces read 0. flux=True: the data is a face flux
+        and takes the device orientation."""
         ext = np.concatenate(
             [file_order, np.zeros((1,) + file_order.shape[1:],
                                   file_order.dtype)])
-        return ext[self.face_perm]
+        out = ext[self.face_perm]
+        if flux and self.face_sign is not None:
+            out = out * self._sign(out)
+        return out
 
-    def faces_to_file(self, dev_order: np.ndarray) -> np.ndarray:
+    def faces_to_file(self, dev_order: np.ndarray,
+                      flux: bool = False) -> np.ndarray:
+        """flux=True: the data is a face flux and takes the file's
+        orientation."""
+        if flux and self.face_sign is not None:
+            dev_order = dev_order * self._sign(dev_order)
         real = self.face_perm < self.n_file_faces
         out = np.empty((self.n_file_faces,) + dev_order.shape[1:],
                        dev_order.dtype)
@@ -176,6 +243,30 @@ def _bnd_batch(own: np.ndarray, patches):
     sel = np.concatenate(sel)
     order = np.argsort(cells, kind="stable")
     return cells[order], sel[order]
+
+
+def _bnd_segments(bnd_cells: np.ndarray, bnd_sel: np.ndarray,
+                  n_boundary: int):
+    """(bnd_uniq, bnd_seg): the distinct cells of the sorted bnd_cells and,
+    per cell, its boundary faces as bstart indices in bnd_cells order,
+    padded with n_boundary (a zero slot)."""
+    uniq, start, count = np.unique(bnd_cells, return_index=True,
+                                   return_counts=True)
+    seg = np.full((uniq.size, int(count.max())), n_boundary, np.int64)
+    col = np.arange(bnd_cells.size) - np.repeat(start, count)
+    seg[np.repeat(np.arange(uniq.size), count), col] = bnd_sel
+    return uniq, seg
+
+
+def _bnd_tensors(own: np.ndarray, patches, n_boundary: int, t) -> dict:
+    """The four boundary-fold fields of MeshArrays, as tensors."""
+    bnd_cells, bnd_sel = _bnd_batch(own, patches)
+    if bnd_cells is None:
+        return {}
+    uniq, seg = _bnd_segments(bnd_cells, bnd_sel, n_boundary)
+    idx = torch.int64
+    return dict(bnd_cells=t(bnd_cells, idx), bnd_sel=t(bnd_sel, idx),
+                bnd_uniq=t(uniq, idx), bnd_seg=t(seg, idx))
 
 
 def build_gdia_mesh_arrays(mesh: PolyMesh, lattice: dict, *, device,
@@ -299,7 +390,6 @@ def build_gdia_mesh_arrays(mesh: PolyMesh, lattice: dict, *, device,
     )
 
     V_slot = np.where(primary > 0, V[slot_cell], 0.0)
-    bnd_cells, bnd_sel = _bnd_batch(own_pad, patches)
     idx = torch.int64
     ma = MeshArrays(
         owner=t(own_pad, idx),
@@ -320,13 +410,128 @@ def build_gdia_mesh_arrays(mesh: PolyMesh, lattice: dict, *, device,
         gauss=build_gauss_planes(ginfo, Sf_pad[:n_pl], w_pad,
                                  device=device, dtype=dtype),
         V_assemble=t(V_slot),
-        bnd_cells=None if bnd_cells is None else t(bnd_cells, idx),
-        bnd_sel=None if bnd_sel is None else t(bnd_sel, idx),
+        **_bnd_tensors(own_pad, patches, n_bnd, t),
     )
     # maps: slot -> real cell (ghosts share their primary's cell);
     # padded face -> real face (dummies -> sentinel nf_r)
     face_perm = np.full(n_faces_pad, nf_r, np.int64)
     face_perm[pos] = np.arange(n_int_r)
     face_perm[n_pl:] = np.arange(n_int_r, nf_r)
+    face_sign = np.ones(n_faces_pad)
+    face_sign[pos[flip]] = -1.0
     return ma, mesh, MeshMaps(slot_cell.copy(), face_perm, primary > 0,
-                              nf_r)
+                              nf_r, face_sign)
+
+
+def build_ell(own: np.ndarray, nei: np.ndarray, nc: int, n_int: int,
+              active: np.ndarray) -> dict:
+    """Pack face incidence into the padded ELL layout (host numpy).
+
+    own: (nFaces,) owner cell per face; nei: (nInternal,); active:
+    (nFaces,) bool mask of faces that take part (empty-patch faces do
+    not). Returns cell_faces/cell_sign/cell_nbr/ell_idx/internal_mask/K.
+    """
+    act_f = np.nonzero(active)[0]
+    act_int = act_f[act_f < n_int]
+    cells = np.concatenate([own[act_f], nei[act_int]])
+    faces = np.concatenate([act_f, act_int])
+    signs = np.concatenate([np.ones(act_f.size), -np.ones(act_int.size)])
+    order = np.argsort(cells, kind="stable")
+    cells, faces, signs = cells[order], faces[order], signs[order]
+
+    counts = np.bincount(cells, minlength=nc)
+    K = int(counts.max()) if counts.size else 0
+    starts = np.zeros(nc + 1, dtype=np.int64)
+    np.cumsum(counts, out=starts[1:])
+    slots = np.arange(cells.size) - starts[cells]
+
+    cell_faces = np.zeros((nc, K), dtype=np.int64)
+    cell_sign = np.zeros((nc, K))
+    cell_nbr = np.tile(np.arange(nc)[:, None], (1, K))
+    ell_idx = np.full((nc, K), 2 * n_int, dtype=np.int64)
+    internal_mask = np.zeros((nc, K))
+
+    cell_faces[cells, slots] = faces
+    cell_sign[cells, slots] = signs
+    is_int = faces < n_int
+    safe_f = np.minimum(faces, max(n_int - 1, 0))
+    # owner-side slot of an internal face sees nei[f]; neighbour-side own[f]
+    other = np.where(signs > 0, nei[safe_f] if n_int else cells, own[faces])
+    cell_nbr[cells, slots] = np.where(is_int, other, cells)
+    ell_idx[cells, slots] = np.where(
+        is_int, np.where(signs > 0, faces, n_int + faces), 2 * n_int)
+    internal_mask[cells, slots] = is_int.astype(float)
+    return dict(cell_faces=cell_faces, cell_sign=cell_sign,
+                cell_nbr=cell_nbr, ell_idx=ell_idx,
+                internal_mask=internal_mask, K=K)
+
+
+def build_mesh_arrays(mesh: PolyMesh, *, device, dtype,
+                      timings: dict | None = None
+                      ) -> tuple[MeshArrays, PolyMesh, MeshMaps]:
+    """Host pipeline of the padded-ELL layout: renumber -> geometry -> ELL
+    -> device. Returns (MeshArrays, renumbered PolyMesh, MeshMaps).
+    timings, when given, receives the host seconds of the renumbering
+    ("rcm"), of geometry and ELL ("mesh") and of the copy to the device
+    ("upload")."""
+    coupled = [p.name for p in mesh.patches
+               if p.type in ("cyclic", "cyclicAMI", "cyclicACMI")]
+    if coupled:
+        raise NotImplementedError(
+            f"coupled patches {coupled}: cyclic and AMI interfaces are not "
+            "ported yet")
+    t0 = time.perf_counter()
+    nc0, nf0 = mesh.n_cells, mesh.n_faces
+    cell_perm = np.arange(nc0, dtype=np.int64)
+    face_perm = np.arange(nf0, dtype=np.int64)
+    face_flip = np.zeros(nf0, bool)
+    if mesh.n_internal_faces > 0:
+        cell_perm = cuthill_mckee(mesh)
+        mesh, face_perm, face_flip = renumber_mesh(mesh, cell_perm)
+    t1 = time.perf_counter()
+
+    Cf, Sf = face_centres_and_areas(mesh)
+    C, V = cell_centres_and_vols(mesh, Cf, Sf)
+    coeffs = interpolation_coeffs(mesh, C, Cf, Sf)
+    nc, nf, n_int = mesh.n_cells, mesh.n_faces, mesh.n_internal_faces
+    own, nei = mesh.owner, mesh.neighbour
+    patches = tuple(Patch(p.name, p.type, p.start_face, p.n_faces,
+                          p.start_face - n_int) for p in mesh.patches)
+    # empty-patch faces (2-D cases) take no part in the ELL
+    active = np.ones(nf, dtype=bool)
+    for p in patches:
+        if p.is_empty:
+            active[p.start:p.start + p.size] = False
+    ell = build_ell(own, nei, nc, n_int, active)
+    t2 = time.perf_counter()
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                               device=device)
+
+    idx = torch.int64
+    ma = MeshArrays(
+        owner=t(own, idx), neighbour=t(nei, idx), Sf=t(Sf),
+        mag_sf=t(np.linalg.norm(Sf, axis=1)), Cf=t(Cf), C=t(C), V=t(V),
+        weights=t(coeffs["weights"]),
+        delta_coeffs=t(coeffs["delta_coeffs"]),
+        nonorth_delta_coeffs=t(coeffs["nonorth_delta_coeffs"]),
+        corr_vecs=t(coeffs["corr_vecs"]),
+        b_delta_coeffs=t(coeffs["b_delta_coeffs"]),
+        b_nonorth_delta_coeffs=t(coeffs["b_nonorth_delta_coeffs"]),
+        n_cells=nc, n_faces=nf, n_internal=n_int, patches=patches,
+        cell_faces=t(ell["cell_faces"], idx),
+        cell_sign=t(ell["cell_sign"]),
+        cell_nbr=t(ell["cell_nbr"], idx),
+        ell_coeff_idx=t(ell["ell_idx"], idx),
+        internal_mask=t(ell["internal_mask"]), K=ell["K"],
+        **_bnd_tensors(own, patches, nf - n_int, t),
+    )
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    if timings is not None:
+        timings.update(rcm=t1 - t0, mesh=t2 - t1,
+                       upload=time.perf_counter() - t2)
+    maps = MeshMaps(cell_perm, face_perm, np.ones(nc, bool), nf,
+                    np.where(face_flip, -1.0, 1.0))
+    return ma, mesh, maps

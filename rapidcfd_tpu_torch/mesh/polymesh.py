@@ -12,7 +12,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from rapidcfd_tpu.utils.dictionary import (Dictionary, foamfile_header,
+from ..utils.dictionary import (Dictionary, foamfile_header,
                                            parse_dictionary)
 
 

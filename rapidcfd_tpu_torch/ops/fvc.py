@@ -1,13 +1,15 @@
 """fvc — explicit finite-volume operators returning fields (port of the
-gdia-lattice branches of rapidcfd_tpu/ops/fvc.py). Every operator is a
-plane shift, slice or multiply-add over flat (n_lat,) tensors; the Gauss
-gradient goes through the shift-MAC kernel (ops/gdia_mac.py)."""
+padded-ELL and gdia-lattice branches of rapidcfd_tpu/ops/fvc.py). On ELL
+meshes every operator is a face gather and a reduction over each cell's
+K slots; on gdia meshes a plane shift, slice or multiply-add over flat
+(n_lat,) tensors, with the Gauss gradient through the shift-MAC kernel
+(ops/gdia_mac.py)."""
 
 from __future__ import annotations
 
 import torch
 
-from rapidcfd_tpu.utils.dimensions import dim_length, dim_volume
+from ..utils.dimensions import dim_length, dim_volume
 
 from ..fields.field import SurfaceField, VolField
 from ..mesh import gdia as gd
@@ -41,11 +43,16 @@ def face_values(mesh: MeshArrays, vf: VolField, scheme="linear",
 
 def surface_sum_faces(mesh: MeshArrays, face_data: torch.Tensor,
                       signed: bool = True) -> torch.Tensor:
-    """Per-cell sum of face data (owner +, neighbour - when signed): plane
-    shifts over the internal faces plus one batched boundary fold. The
-    result is folded to primary slots and ghost-synced (cell-field
-    semantics)."""
+    """Per-cell sum of face data (owner +, neighbour - when signed). ELL:
+    out[c] = sum_k sign[c,k] * x[face[c,k]] (the reference's cell-gather
+    functor, fvcSurfaceIntegrate.C:41-100). gdia: plane shifts over the
+    internal faces plus one batched boundary fold, folded to primary
+    slots and ghost-synced (cell-field semantics)."""
     g = mesh.gdia
+    if g is None:
+        gathered = face_data[mesh.cell_faces]
+        w = mesh.cell_sign if signed else mesh.cell_sign.abs()
+        return (gathered * _ext(w, gathered)).sum(1)
     out = gd.surface_sum_internal(g, face_data[:mesh.n_internal], signed)
     out = mesh.add_at_boundary_cells(out, face_data[mesh.n_internal:])
     return gd.sync(g, gd.fold(g, out))
@@ -96,10 +103,8 @@ def _gdia_rows_tail(mesh: MeshArrays, g_, rows, brows):
     boundary-face contributions, fold ghost partials into primaries,
     restore the ghost-sync invariant, divide by cell volumes. rows (C, n);
     brows list of C (nb,) tensors (bstart order) or None."""
-    if brows is not None and mesh.bnd_cells is not None:
-        vals = torch.stack(brows).index_select(1, mesh.bnd_sel)
-        add = torch.zeros_like(rows).index_add_(1, mesh.bnd_cells, vals)
-        rows = rows + add
+    if brows is not None:
+        rows = mesh.add_at_boundary_cells(rows, torch.stack(brows), dim=1)
     y = gd.sync_last(g_, gd.fold_last(g_, rows))
     return y / mesh.V[None, :]
 
@@ -119,15 +124,26 @@ def div(mesh: MeshArrays, a, b=None, scheme="linear") -> VolField:
 
 
 def grad(mesh: MeshArrays, vf: VolField, scheme="linear") -> VolField:
-    """Gauss linear gradient through the precomputed shift-MAC planes,
-    with the boundary normal-gradient correction (reference:
-    gaussGrad.C:51-101 + correctBoundaryConditions).
+    """Gauss linear gradient with the boundary normal-gradient correction
+    (reference: gaussGrad.C:51-101 + correctBoundaryConditions): on ELL
+    meshes face values -> Sf-weighted surface sum -> /V, on gdia meshes
+    through the precomputed shift-MAC planes.
 
     scalar -> vector; vector -> tensor with (grad U)[i,j] = dU_j/dx_i."""
     if scheme != "linear":
         raise NotImplementedError(
             f"grad scheme '{scheme}' is not ported yet (Gauss linear only)")
     g_ = mesh.gdia
+    if g_ is None:
+        fv = face_values(mesh, vf, scheme)
+        if fv.dim() == 1:
+            face_term = mesh.Sf * fv[:, None]                  # (nF, 3)
+        else:
+            face_term = mesh.Sf[:, :, None] * fv[:, None, :]   # (nF, 3, r)
+        summed = surface_sum_faces(mesh, face_term)
+        g = _extrapolated(mesh, summed / _ext(mesh.V, summed),
+                          vf.dims / dim_length, f"grad({vf.name})")
+        return _grad_correct_boundary(mesh, g, vf)
     x = gd.sync(g_, vf.data)
     Sfb = mesh.Sf[mesh.n_internal:]
     if x.dim() == 1:
@@ -172,7 +188,10 @@ def _grad_correct_boundary(mesh: MeshArrays, g: VolField,
 
 
 def face_own_nei(mesh: MeshArrays, data: torch.Tensor):
-    """(owner, neighbour) cell values on the internal (plane) faces."""
+    """(owner, neighbour) cell values on the internal faces."""
+    if mesh.gdia is None:
+        return (data.index_select(0, mesh.owner[:mesh.n_internal]),
+                data.index_select(0, mesh.neighbour))
     return gd.face_own_nei(mesh.gdia, data)
 
 
@@ -188,9 +207,13 @@ def sn_grad(mesh: MeshArrays, vf: VolField) -> SurfaceField:
 
 
 def flux(mesh: MeshArrays, U: VolField) -> SurfaceField:
-    """Volumetric face flux phi = interpolate(U) & Sf (createPhi.H),
-    fused per plane (no (nF, 3) face-value materialization)."""
+    """Volumetric face flux phi = interpolate(U) & Sf (createPhi.H); on
+    gdia meshes fused per plane (no (nF, 3) face-value
+    materialization)."""
     g_ = mesh.gdia
+    if g_ is None:
+        fv = face_values(mesh, U)
+        return SurfaceField((fv * mesh.Sf).sum(-1), U.dims * _AREA, "phi")
     x = gd.sync(g_, U.data)
     internal = gd.flux_mac(g_, mesh.Sf, mesh.weights, x)
     b = (U.bvalues * mesh.Sf[mesh.n_internal:]).sum(-1)

@@ -1,12 +1,12 @@
 """fvm — implicit finite-volume operators returning FvMatrix systems
 (port of rapidcfd_tpu/ops/fvm.py: Euler ddt, Gauss div, orthogonal
-laplacian, with negSumDiag by gdia plane shifts)."""
+laplacian, with negSumDiag as an ELL gather or by gdia plane shifts)."""
 
 from __future__ import annotations
 
 import torch
 
-from rapidcfd_tpu.utils.dimensions import DimensionSet, dim_length, dimless
+from ..utils.dimensions import DimensionSet, dim_length, dimless
 
 from ..fields.field import Dimensioned, SurfaceField, VolField
 from ..mesh import gdia as gd
@@ -19,10 +19,20 @@ _TIME = DimensionSet.of(0, 0, 1)
 _AREA = dim_length ** 2
 
 
+def _pair_gather(mesh: MeshArrays, own_arr, nei_arr):
+    """Per-cell-slot gather where owner slots read own_arr[f] and
+    neighbour slots read nei_arr[f] (the [0..nInt | nInt..2nInt | zero]
+    structure of ell_coeff_idx)."""
+    cat = torch.cat([own_arr, nei_arr, own_arr.new_zeros(1)])
+    return cat[mesh.ell_coeff_idx]
+
+
 def _neg_sum_diag(mesh: MeshArrays, lower, upper):
-    """diag[own] -= lower[f]; diag[nei] -= upper[f] (lduMatrix::negSumDiag)
-    per lattice slot (the fold to primary rows happens in
-    component_system)."""
+    """diag[own] -= lower[f]; diag[nei] -= upper[f] (lduMatrix::negSumDiag):
+    an ELL gather, or per lattice slot on gdia meshes (the fold to primary
+    rows happens in component_system)."""
+    if mesh.gdia is None:
+        return -_pair_gather(mesh, lower, upper).sum(1)
     return gd.neg_sum_diag(mesh.gdia, lower, upper)
 
 

@@ -1,9 +1,10 @@
-"""FvMatrix — the implicit finite-volume system (port of the gdia-lattice
-branches of rapidcfd_tpu/ops/fvmatrix.py).
+"""FvMatrix — the implicit finite-volume system (port of the padded-ELL
+and gdia-lattice branches of rapidcfd_tpu/ops/fvmatrix.py).
 
 LDU semantics as in the reference's fvMatrix : lduMatrix — face-indexed
 lower/upper coefficients, per-patch internal/boundary coefficients, an
-integrated source — with the off-diagonal product as gdia plane shifts.
+integrated source — with the off-diagonal product as an ELL gather or as
+gdia plane shifts.
 
 Sign convention: the assembled expression is E(psi) = M*psi - source; the
 solve is M*psi = source. Patch coefficients: internal_coeffs[p] adds to
@@ -18,7 +19,7 @@ from dataclasses import dataclass
 
 import torch
 
-from rapidcfd_tpu.utils.dimensions import DimensionSet
+from ..utils.dimensions import DimensionSet
 
 from ..fields.field import VolField
 from ..mesh import gdia as gd
@@ -115,22 +116,25 @@ class FvMatrix:
         raise TypeError(f"cannot == fvMatrix with {type(rhs)}")
 
     # -- matrix action -----------------------------------------------------------
-    def offdiag_mv(self, mesh: MeshArrays):
-        """x -> the off-diagonal product, as gdia plane shifts."""
-        return gd.offdiag_mv(mesh.gdia, self.lower, self.upper)
+    def ell_coeffs(self, mesh: MeshArrays) -> torch.Tensor:
+        """(nCells, K) off-diagonal coefficients, gathered from
+        [upper | lower | 0]."""
+        cat = torch.cat([self.upper, self.lower, self.upper.new_zeros(1)])
+        return cat[mesh.ell_coeff_idx]
 
-    @staticmethod
-    def _fold_patches(mesh, data, items):
-        """data[faceCells] += vals over a list of (patch, vals), in one
-        concatenated index_add."""
-        if not items:
-            return data
-        if len(items) == 1:
-            p, v = items[0]
-            return mesh.add_at_patch_cells(p, data, v)
-        cells = torch.cat([mesh.patch_face_cells(p) for p, _ in items])
-        vals = torch.cat([v for _, v in items])
-        return data.index_add(0, cells, vals)
+    def offdiag_mv(self, mesh: MeshArrays):
+        """x -> sum_k coeff[c,k] * x[nbr[c,k]], the off-diagonal product:
+        the (nCells, K) gather on ELL meshes, plane shifts on gdia
+        meshes. x may be (n,) or (n, m)."""
+        if mesh.gdia is not None:
+            return gd.offdiag_mv(mesh.gdia, self.lower, self.upper)
+        ell = self.ell_coeffs(mesh)
+
+        def mv(x):
+            g = x[mesh.cell_nbr]
+            c = ell[..., None] if x.dim() == 2 else ell
+            return (c * g).sum(1)
+        return mv
 
     def component_system_all(self, mesh: MeshArrays):
         """(diag (n,m), source (n,m)) for a column-batched vector solve
@@ -144,8 +148,8 @@ class FvMatrix:
                 continue
             d_items.append((p, ic))
             s_items.append((p, bc))
-        diag = self._fold_patches(mesh, diag, d_items)
-        src = self._fold_patches(mesh, self.source, s_items)
+        diag = mesh.add_at_patches(diag, d_items)
+        src = mesh.add_at_patches(self.source, s_items)
         diag, src = self._gdia_fold_system(mesh, diag, src)
         return diag, self._compat_project(src)
 
@@ -160,17 +164,20 @@ class FvMatrix:
                 continue
             d_items.append((p, ic if cmpt is None else ic[:, cmpt]))
             s_items.append((p, bc if cmpt is None else bc[:, cmpt]))
-        diag = self._fold_patches(mesh, self.diag, d_items)
-        src = self._fold_patches(mesh, src, s_items)
+        diag = mesh.add_at_patches(self.diag, d_items)
+        src = mesh.add_at_patches(src, s_items)
         diag, src = self._gdia_fold_system(mesh, diag, src)
         return diag, self._compat_project(src)
 
     @staticmethod
     def _gdia_fold_system(mesh, diag, src):
-        """Fold per-slot diag/source contributions (ghost rows) into the
-        primary rows and NULL the ghost/dead rows (0*x = 0: inert in every
-        residual sum and in the residual norm factor)."""
+        """gdia meshes: fold per-slot diag/source contributions (ghost
+        rows) into the primary rows and NULL the ghost/dead rows (0*x = 0:
+        inert in every residual sum and in the residual norm factor).
+        The identity on ELL meshes."""
         g = mesh.gdia
+        if g is None:
+            return diag, src
         diag = gd.fold_diag(g, diag)
         src = gd.fold(g, src)
         prim = g.primary.reshape(g.primary.shape + (1,) * (src.dim() - 1))
@@ -197,12 +204,13 @@ class FvMatrix:
         items = [(p, ic.mean(dim=-1) if ic.dim() > 1 else ic)
                  for p, ic in zip(mesh.patches, self.internal_coeffs)
                  if not (p.is_empty or p.size == 0)]
-        diag = self._fold_patches(mesh, self.diag, items)
+        diag = mesh.add_at_patches(self.diag, items)
         g = mesh.gdia
-        diag = gd.sync(g, gd.fold(g, diag))
-        # dead slots have no equation (zero diag): pin A=1 there so rAU
-        # stays finite (0*inf would poison surface sums)
-        diag = diag + g.dead * mesh.V
+        if g is not None:
+            diag = gd.sync(g, gd.fold(g, diag))
+            # dead slots have no equation (zero diag): pin A=1 there so
+            # rAU stays finite (0*inf would poison surface sums)
+            diag = diag + g.dead * mesh.V
         return _extrapolated(mesh, diag / mesh.V,
                              self.dims / (self.psi.dims * _VOL_DIMS),
                              f"A({self.psi.name})")
@@ -214,9 +222,10 @@ class FvMatrix:
         h = self.source - self.offdiag_mv(mesh)(psi)
         items = [(p, bc) for p, bc in zip(mesh.patches, self.boundary_coeffs)
                  if not (p.is_empty or p.size == 0)]
-        h = self._fold_patches(mesh, h, items)
+        h = mesh.add_at_patches(h, items)
         g = mesh.gdia
-        h = gd.sync(g, gd.fold(g, h))
+        if g is not None:
+            h = gd.sync(g, gd.fold(g, h))
         h = h / _ext(mesh.V, h)
         return _extrapolated(mesh, h, self.dims / _VOL_DIMS,
                              f"H({self.psi.name})")

@@ -1,49 +1,59 @@
 """Case — the fvMesh/Time/dictionaries bundle a solver runs on (port of
 rapidcfd_tpu/solvers/case.py).
 
-Loads the polyMesh once, routes a masked-lattice mesh onto the gdia mode
-(the only mesh layout this slice ports; other meshes raise), resolves
-scheme words and per-field solver controls, and reads/writes fields in
-case format. The device and the float width are explicit arguments.
+Loads the polyMesh once (or takes one in memory), routes a masked-lattice
+mesh onto the gdia mode and every other mesh onto the renumbered
+padded-ELL layout, resolves scheme words and per-field solver controls,
+and reads/writes fields in case format. The device and the float width
+are explicit arguments.
 """
 
 from __future__ import annotations
 
 import os
+import time
 
 import torch
 
-from rapidcfd_tpu.utils.dictionary import Dictionary, parse_file
-from rapidcfd_tpu.utils.timecontrol import Time
-
 from ..fields.io import read_vol_field, write_vol_field
 from ..linalg.solvers import SolverControls
-from ..mesh.mesharrays import build_gdia_mesh_arrays
+from ..mesh.mesharrays import build_gdia_mesh_arrays, build_mesh_arrays
 from ..mesh.polymesh import read_polymesh
+from ..utils.dictionary import Dictionary, parse_file
 from ..utils.logging import info
+from ..utils.timecontrol import Time
 from ..utils.unstructured import detect_lattice
 
 
 class Case:
     def __init__(self, case_dir: str, *, device: torch.device,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, pmesh=None, gdia_auto: bool = True):
+        """pmesh injects an in-memory PolyMesh (large benches skip the
+        ascii mesh round-trip); gdia_auto=False sends a masked-lattice
+        mesh to the ELL path too (the JAX package's RCFD_GDIA_AUTO=0)."""
         self.dir = case_dir
         self.device = device
         self.dtype = dtype
         self.time = Time(case_dir)
+        #: host seconds of the set-up stages (mesh build; the GAMG
+        #: hierarchy is added by the solver's make_step)
+        self.setup_seconds: dict[str, float] = {}
         info(f"Create time\n\nCreate mesh for time = {self.time.name}\n")
-        pmesh = read_polymesh(case_dir)
-        lattice = detect_lattice(pmesh)
-        if lattice is None:
-            raise NotImplementedError(
-                f"{case_dir}: the mesh is not a masked lattice; the port "
-                "runs only the gdia lattice mode so far (the padded-ELL "
-                "path for general meshes is not ported yet)")
-        nz_, ny_, nx_ = lattice["shape"]
-        info(f"gdia: lattice {nx_}x{ny_}x{nz_} detected "
-             f"({int(lattice['dead'].sum())} dead slots)\n")
-        self.mesh, self.pmesh, self.maps = build_gdia_mesh_arrays(
-            pmesh, lattice, device=device, dtype=dtype)
+        if pmesh is None:
+            t0 = time.perf_counter()
+            pmesh = read_polymesh(case_dir)
+            self.setup_seconds["read"] = time.perf_counter() - t0
+        lattice = detect_lattice(pmesh) if gdia_auto else None
+        if lattice is not None:
+            nz_, ny_, nx_ = lattice["shape"]
+            info(f"gdia: lattice {nx_}x{ny_}x{nz_} detected "
+                 f"({int(lattice['dead'].sum())} dead slots)\n")
+            self.mesh, self.pmesh, self.maps = build_gdia_mesh_arrays(
+                pmesh, lattice, device=device, dtype=dtype)
+        else:
+            self.mesh, self.pmesh, self.maps = build_mesh_arrays(
+                pmesh, device=device, dtype=dtype,
+                timings=self.setup_seconds)
         self.fv_schemes = parse_file(
             os.path.join(case_dir, "system", "fvSchemes"))
         self.fv_solution = parse_file(

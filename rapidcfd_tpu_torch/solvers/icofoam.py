@@ -83,8 +83,12 @@ def piso_step(mesh, U: VolField, p: VolField, phi: SurfaceField, dt, nu,
 
 def make_step(case: Case, nu, n_correctors: int, n_non_orth: int,
               p_ref_cell: int, p_ref_value: float):
-    """step(U, p, phi, dt) -> (U, p, phi, stats) on the case's mesh."""
-    mesh = case.mesh
+    """step(U, p, phi, dt) -> (U, p, phi, stats) on the case's mesh.
+    p_ref_cell is fvSolution's pRefCell, a cell label of the mesh as
+    written (file order); it is mapped to its device row here. When a
+    solve uses GAMG, its hierarchy is built here (the time goes into
+    case.setup_seconds)."""
+    from ..linalg.precompute import attach_solver_layouts
     kw = dict(
         div_scheme=case.div_scheme("div(phi,U)"),
         lap_corr=case.laplacian_scheme(),
@@ -92,7 +96,11 @@ def make_step(case: Case, nu, n_correctors: int, n_non_orth: int,
         p_controls=case.solver_controls("p"),
         p_final_controls=case.solver_controls("p", final=True),
         n_correctors=n_correctors, n_non_orth=n_non_orth,
-        p_ref_cell=p_ref_cell, p_ref_value=p_ref_value)
+        p_ref_cell=case.maps.device_cell(p_ref_cell),
+        p_ref_value=p_ref_value)
+    mesh = attach_solver_layouts(
+        case.mesh, (kw["u_controls"], kw["p_controls"],
+                    kw["p_final_controls"]), timings=case.setup_seconds)
 
     def step(U, p, phi, dt):
         from ..ops.interpolation import set_current_dt
@@ -100,6 +108,38 @@ def make_step(case: Case, nu, n_correctors: int, n_non_orth: int,
         return piso_step(mesh, U, p, phi, dt, nu, **kw)
 
     return step
+
+
+def make_chained_step(case: Case, nu, n_correctors: int, n_non_orth: int,
+                      p_ref_cell: int, p_ref_value: float, chain: int):
+    """Like make_step, but one call advances `chain` timesteps (the JAX
+    package runs them as one lax.scan program; here a Python loop over
+    the step). Returns (U, p, phi, stats) with every stat stacked along a
+    leading (chain,) axis."""
+    step = make_step(case, nu, n_correctors, n_non_orth, p_ref_cell,
+                     p_ref_value)
+
+    def steps(U, p, phi, dt):
+        window = []
+        for _ in range(chain):
+            U, p, phi, stats = step(U, p, phi, dt)
+            window.append(stats)
+        return U, p, phi, _stack_stats(window)
+
+    return steps
+
+
+def _stack_stats(window):
+    """A list of per-step stats (nested tuples of 0-d tensors and ints)
+    as one structure of (chain,) tensors."""
+    def stack(items):
+        first = items[0]
+        if isinstance(first, dict):
+            return {k: stack([it[k] for it in items]) for k in first}
+        if isinstance(first, tuple):
+            return tuple(stack(list(col)) for col in zip(*items))
+        return torch.stack([torch.as_tensor(x) for x in items])
+    return stack(window)
 
 
 def run(case_dir: str, *, device: torch.device, dtype: torch.dtype,

@@ -259,6 +259,19 @@ def test_solve_matches(env, what):
         _close(t0, j0, "initial residual", tol=1e-10)
 
 
+@pytest.mark.parametrize("ctl", [dict(solver="GAMG"),
+                                 dict(solver="PCG", preconditioner="GAMG")],
+                         ids=["GAMG", "PCG_GAMG"])
+def test_gamg_on_gdia_is_refused(env, ctl):
+    """The JAX package cycles gdia meshes on its structured multigrid,
+    which the port does not have: GAMG there raises instead of running
+    another preconditioner."""
+    tm = interop.fv_matrix(_assemble(env, "j", "laplacian_field"),
+                           device=CPU, dtype=F64)
+    with pytest.raises(NotImplementedError, match="structured multigrid"):
+        tsolvers.solve(env["tmesh"], tm, tsolvers.SolverControls(**ctl))
+
+
 def test_set_reference_matches(env):
     """setReference (forced: p's outlet already fixes the level), the
     compatibility projection of the folded source, and the re-pin after
