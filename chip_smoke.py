@@ -8,11 +8,12 @@ Phases (any failure raises and the script exits non-zero):
    a CUDA card is required;
 2. build the shift-MAC kernel (csrc/shift_mac.cu) from the checkout;
 3. the kernel against its plain torch version on the card, fp32 and fp64,
-   at the pitzDaily x5 slice shape (C = 3 and C = 1), a 3-D offset set and
-   an odd n; tolerance max|d| <= 1e-13 max|out| (fp64), 1e-5 (fp32) —
-   FMA contraction is the only difference; then both timed at the slice
-   shape: device time per call (torch.profiler) and wall time per call
-   back to back (CUDA events), beside the least time the card could take;
+   at the pitzDaily x5 slice shape (C = 3, the Gauss gradient, and C = 1,
+   the divergence contraction), a 3-D offset set and an odd n; tolerance
+   max|d| <= 1e-13 max|out| (fp64), 1e-5 (fp32) — FMA contraction is the
+   only difference; then both forms timed at the slice shape: device time
+   per call (torch.profiler) and wall time per call back to back (CUDA
+   events), beside the least time the card could take;
 4. the icoFoam gdia slice in fp64 at pitzDaily x1 (every solve to 1e-12)
    for 10 steps on cuda and on cpu: U, p, phi agree to 1e-8 relative to
    their largest magnitude, iteration counts within one per solve;
@@ -28,8 +29,20 @@ Phases (any failure raises and the script exits non-zero):
    warm-up window and two timed ones; fields finite, continuity error
    below 0.1 and Courant number below 10; setup seconds, ms/step,
    cell-updates/s and iterations per solve beside the card;
-8. a JSON line of kernel results, the card's name and power limit, and
-   the result line {"ok": true, "device": {...}} last.
+8. simpleFoam pitzDaily x1 (kEpsilon, wall functions, GAMG p on the
+   structured multigrid) in fp64, 3 SIMPLE iterations each on cuda and on
+   cpu, every solve to 1e-12: U, p, phi, k, epsilon and nut agree to 1e-8
+   relative, iteration counts within one per solve;
+9. the simpleFoam main path as bench.py --case pitz drives it: pitzDaily
+   x5 (106,000 live cells), fp32, one warm-up iteration, then two timed
+   windows of 5; fields finite, k and epsilon positive, continuity error
+   below 0.1; ms/step, cell-updates/s over live cells, iterations per
+   solve, set-up seconds and the kernel launches by C (both forms must
+   launch) beside the card;
+10. a JSON line of kernel results (the kernel's two forms, with their
+   launches on the simpleFoam path and on each other path), the card's
+   name and power limit, and the result line {"ok": true, "device":
+   {...}} last.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -142,7 +155,7 @@ def phase_kernel() -> dict:
              (7, 3, 40 * 30 * 20, (-1200, -40, -1, 0, 1, 40, 1200)),
              (5, 3, 100003, (-317, -1, 0, 1, 317))]
     g = torch.Generator().manual_seed(1234)
-    slice_err = ms = plain_ms = bound = None
+    res = {}                # C -> the fp32 slice-shape results
     for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-13)):
         for K, C, n, offs in cases:
             x = torch.randn(n, generator=g, dtype=dtype).cuda()
@@ -157,9 +170,7 @@ def phase_kernel() -> dict:
             check(out.shape == (C, n) and err <= tol * scale,
                   f"kernel disagrees with plain version ({dtype}, K={K}, "
                   f"C={C}, n={n}): {err} > {tol * scale}")
-            if dtype == torch.float32 and (K, C, n) == (5, 3, SLICE_N):
-                slice_err = err
-
+            if dtype == torch.float32 and n == SLICE_N:
                 def kernel():
                     return gm.shift_mac_cols(x, coeffs, offs)
 
@@ -172,15 +183,16 @@ def phase_kernel() -> dict:
                     * x.element_size()
                 bound = max((nbytes / HBM_BYTES_PER_S, "bytes"),
                             (2 * coeffs.numel() / FP32_FLOPS, "operations"))
-                print(f"[3] fp32 slice shape, device time per call: kernel "
-                      f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
-                      f"bound {bound[0] * 1e6:.2f} us ({nbytes} bytes, "
+                print(f"[3] fp32 slice shape C={C}, device time per call: "
+                      f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} "
+                      f"us, bound {bound[0] * 1e6:.2f} us ({nbytes} bytes, "
                       f"bound by {bound[1]})")
-                print(f"[3] fp32 slice shape, wall time per call back to "
-                      f"back: kernel {_time_ms(kernel) * 1e3:.2f} us, plain "
-                      f"{_time_ms(plain) * 1e3:.2f} us")
-    return dict(max_abs_err=slice_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound[0] * 1e3, bound_by=bound[1])
+                print(f"[3] fp32 slice shape C={C}, wall time per call back "
+                      f"to back: kernel {_time_ms(kernel) * 1e3:.2f} us, "
+                      f"plain {_time_ms(plain) * 1e3:.2f} us")
+                res[C] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound[0] * 1e3, bound_by=bound[1])
+    return res
 
 
 def _logged(fn, *args, **kw):
@@ -242,7 +254,7 @@ def phase_fp64_agreement(tmp: str):
     _agreement("[4] fp64 pitzDaily x1,", d, 50)
 
 
-def phase_main_path(tmp: str, smi: str) -> int:
+def phase_main_path(tmp: str, smi: str) -> dict:
     from rapidcfd_tpu_torch.ops import gdia_mac
     from rapidcfd_tpu_torch.solvers import icofoam
     from rapidcfd_tpu_torch.utils.casegen import pitz_daily_ico_case
@@ -251,14 +263,14 @@ def phase_main_path(tmp: str, smi: str) -> int:
     pitz_daily_ico_case(d, scale=5)
     print(f"[5] pitzDaily x5 case written in {time.perf_counter() - t0:.2f} s")
     steps = 20
-    gdia_mac.LAUNCHES = 0
+    gdia_mac.reset_launches()
     t0 = time.perf_counter()
     (case, U, p, phi), its, log = _logged(
         icofoam.run, d, device=torch.device("cuda"), dtype=torch.float32,
         write=False, max_steps=steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = gdia_mac.LAUNCHES
+    launches = dict(gdia_mac.LAUNCHES_BY_C)
     live = int(case.maps.cell_primary.sum())
     print(f"[5] fp32 pitzDaily x5: {case.mesh.n_cells} slots, {live} live "
           f"cells, {len(case.step_seconds)} steps, {wall:.2f} s with setup")
@@ -279,7 +291,7 @@ def phase_main_path(tmp: str, smi: str) -> int:
     check(len(cont) == len(co) == steps, "missing log lines")
     check(max(cont) < 0.1 and max(co) < 10.0,
           f"run not bounded: continuity {max(cont)}, Courant {max(co)}")
-    check(launches >= 3 * steps,
+    check(launches.get(3, 0) >= 3 * steps,
           f"shift-MAC kernel launched {launches} times in {steps} steps")
     st = case.step_seconds
     steady = sorted(st[1:])[len(st[1:]) // 2]
@@ -317,9 +329,10 @@ def phase_cavity_agreement(tmp: str):
           f"{_gamg_sizes(case)}")
 
 
-def phase_cavity_main(tmp: str, smi: str) -> int:
+def phase_cavity_main(tmp: str, smi: str) -> dict:
     """The cavity as bench.py:104-182 drives it. Returns the shift-MAC
-    launches counted over the run (the ELL path has no call of it)."""
+    launches by C counted over the run (the ELL path has no call of
+    it)."""
     from rapidcfd_tpu_torch.fields.field import Dimensioned
     from rapidcfd_tpu_torch.ops import fvc, gdia_mac
     from rapidcfd_tpu_torch.solvers import icofoam
@@ -333,7 +346,7 @@ def phase_cavity_main(tmp: str, smi: str) -> int:
     pmesh = cavity_case(d, n=n, delta_t=dt, end_time=1e9, write_mesh=False,
                         **CAVITY_BENCH)
     t_case = time.perf_counter() - t0
-    gdia_mac.LAUNCHES = 0
+    gdia_mac.reset_launches()
     t0 = time.perf_counter()
     with captured():
         case = Case(d, device=torch.device("cuda"), dtype=torch.float32,
@@ -368,7 +381,7 @@ def phase_cavity_main(tmp: str, smi: str) -> int:
         stats.append(st)
         if w:
             windows.append(time.perf_counter() - t0)
-    launches = gdia_mac.LAUNCHES
+    launches = dict(gdia_mac.LAUNCHES_BY_C)
     for f in (U, p, phi):
         check(bool(torch.isfinite(f.data).all()), f"{f.name} not finite")
     check(U.data.shape == (mesh.n_cells, 3) and p.data.shape
@@ -397,22 +410,166 @@ def phase_cavity_main(tmp: str, smi: str) -> int:
     return launches
 
 
+def _simple_rel_errs(gout, cout):
+    """Relative max|d| per field of two simpleFoam runs (file order;
+    phi in file orientation)."""
+    (gc, gU, gp, gphi, gts), (cc, cU, cp, cphi, cts) = gout, cout
+    maps = cc.maps
+    errs = {}
+    for name, a, b in [("U", gU, cU), ("p", gp, cp),
+                       *[(k, gts[k], cts[k]) for k in sorted(cts)]]:
+        errs[name] = _rel(maps.cells_to_file(a.data.cpu().numpy()),
+                          maps.cells_to_file(b.data.numpy()))
+    errs["phi"] = _rel(maps.faces_to_file(gphi.data.cpu().numpy(),
+                                          flux=True),
+                       maps.faces_to_file(cphi.data.numpy(), flux=True))
+    return errs
+
+
+def phase_simple_agreement(tmp: str):
+    """simpleFoam pitzDaily x1 in fp64 (every solve to 1e-12) for 3 SIMPLE
+    iterations on cuda and on cpu."""
+    from rapidcfd_tpu_torch.solvers import simplefoam
+    from rapidcfd_tpu_torch.utils.casegen import pitz_daily_case
+    d = f"{tmp}/simple1"
+    pitz_daily_case(d, scale=1, tight_tol=True)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        outs[dev] = _logged(simplefoam.run, d, device=torch.device(dev),
+                            dtype=torch.float64, write=False, max_steps=3)
+        print(f"[8] fp64 simpleFoam pitzDaily x1, 3 iterations on {dev}: "
+              f"{time.perf_counter() - t0:.2f} s")
+    (gout, g_its, _), (cout, c_its, _) = outs["cuda"], outs["cpu"]
+    errs = _simple_rel_errs(gout, cout)
+    print("[8] cuda vs cpu, relative max|d|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    check(all(v <= 1e-8 for v in errs.values()),
+          f"fp64 simpleFoam cuda and cpu runs disagree: {errs}")
+    check(len(g_its) == len(c_its) == 3 * 6, "unexpected number of solves")
+    diffs = [(i, a, b) for i, (a, b) in enumerate(zip(g_its, c_its))
+             if a != b]
+    for i, a, b in diffs:
+        print(f"[8] solve {i} ({a[0]}): cuda {a[1]} iterations, cpu {b[1]}")
+    check(all(a[0] == b[0] and abs(a[1] - b[1]) <= 1 for _, a, b in diffs),
+          "simpleFoam iteration counts differ by more than one")
+    print(f"[8] iteration counts: {len(diffs)} of {len(g_its)} solves "
+          f"differ (by one); cuda: {g_its[:6]} ...")
+
+
+SIMPLE_STEPS = 5            # iterations per timed window
+
+
+def phase_simple_main(tmp: str, smi: str) -> dict:
+    """simpleFoam pitzDaily x5 in fp32 as bench.py:184-228 drives it: one
+    warm-up iteration, then two timed windows. Returns the shift-MAC
+    launches by C over the whole drive (counts reset just before)."""
+    from rapidcfd_tpu_torch.models.transport import SinglePhaseTransportModel
+    from rapidcfd_tpu_torch.models.turbulence import make_ras_model
+    from rapidcfd_tpu_torch.ops import fvc, gdia_mac
+    from rapidcfd_tpu_torch.solvers import simplefoam
+    from rapidcfd_tpu_torch.solvers.case import Case
+    from rapidcfd_tpu_torch.solvers.controls import SimpleControl
+    from rapidcfd_tpu_torch.utils.casegen import pitz_daily_case
+    from rapidcfd_tpu_torch.utils.logging import captured
+    d = f"{tmp}/simple5"
+    t0 = time.perf_counter()
+    pitz_daily_case(d, scale=5)
+    t_case = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with captured():
+        case = Case(d, device=torch.device("cuda"), dtype=torch.float32)
+        U, p = case.read_field("U"), case.read_field("p")
+        phi = fvc.flux(case.mesh, U)
+        transport = SinglePhaseTransportModel(case.transport_properties())
+        turb = make_ras_model(case, U)
+        ts = turb.init_state(U)
+        step = simplefoam.make_step(case, transport, turb,
+                                    SimpleControl(case))
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    mesh = case.mesh
+    live = int(case.maps.cell_primary.sum())
+    check(mesh.gdia is not None and live == 106000,
+          f"expected the gdia lattice with 106000 live cells, got {live}")
+    print(f"[9] simpleFoam pitzDaily x5 fp32: {mesh.n_cells} slots, {live} "
+          f"live cells; case written in {t_case:.2f} s, setup "
+          f"{t_setup:.2f} s ({', '.join(f'{k} {v:.2f} s' for k, v in case.setup_seconds.items())})")
+    stats, windows, steps = [], [], 0
+    gdia_mac.reset_launches()
+    with captured():
+        t0 = time.perf_counter()
+        U, p, phi, ts, st = step(U, p, phi, ts)         # warm-up
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        stats.append(st)
+        steps += 1
+        for _ in range(2):
+            t0 = time.perf_counter()
+            for _ in range(SIMPLE_STEPS):
+                U, p, phi, ts, st = step(U, p, phi, ts)
+                stats.append(st)
+                steps += 1
+            torch.cuda.synchronize()
+            windows.append(time.perf_counter() - t0)
+    launches = dict(gdia_mac.LAUNCHES_BY_C)
+    for f in (U, p, phi, *ts.values()):
+        check(bool(torch.isfinite(f.data).all()), f"{f.name} not finite")
+    check(U.data.shape == (mesh.n_cells, 3)
+          and p.data.shape == (mesh.n_cells,), "unexpected shapes")
+    prim = torch.as_tensor(case.maps.cell_primary, device=p.data.device)
+    for name in ("k", "epsilon"):
+        check(bool((ts[name].data[prim] > 0).all()), f"{name} not positive")
+    cont = max(float(s["cont"][0]) for s in stats)
+    check(cont < 0.1, f"continuity error {cont}")
+
+    def its(get):
+        v = [int(get(s)[2]) for s in stats]
+        return f"mean {np.mean(v):.2f} max {max(v)}"
+    med = statistics.median(windows)
+    print(f"[9] {steps} iterations: p {its(lambda s: s['p_perf'][0])}, U "
+          f"{its(lambda s: s['u_perf'][0])}, epsilon "
+          f"{its(lambda s: s['turb']['epsilon'])}, k "
+          f"{its(lambda s: s['turb']['k'])} per solve; max continuity error "
+          f"{cont:.3e}; U max {float(U.data.abs().max()):.3f}, nut max "
+          f"{float(ts['nut'].data.max()):.3e}")
+    print(f"[9] first iteration {t_first * 1e3:.1f} ms; windows of "
+          f"{SIMPLE_STEPS}: "
+          + ", ".join(f"{1e3 * w / SIMPLE_STEPS:.3f}" for w in windows)
+          + f" ms/step; median {1e3 * med / SIMPLE_STEPS:.3f} ms/step, "
+          f"{live * SIMPLE_STEPS / med:.1f} cell-updates/s (card: {smi})")
+    per_step = {c: n / steps for c, n in sorted(launches.items())}
+    print(f"[9] shift-MAC launches in {steps} iterations: {launches} "
+          f"(per iteration {per_step})")
+    for c in (3, 1):
+        check(launches.get(c, 0) > 0,
+              f"the shift-MAC kernel with C = {c} was not launched")
+    return launches
+
+
 def main():
     smi = phase_setup()
     phase_build()
     k = phase_kernel()
     with tempfile.TemporaryDirectory() as tmp:
         phase_fp64_agreement(tmp)
-        launches = phase_main_path(tmp, smi)
+        ico = phase_main_path(tmp, smi)
         phase_cavity_agreement(tmp)
-        phase_cavity_main(tmp, smi)
-    print(json.dumps({"kernels": [{
-        "name": "shift_mac", "route": "cuda",
-        "source": "rapidcfd_tpu_torch/csrc/shift_mac.cu",
-        "replaces": "rapidcfd_tpu/ops/pallas_gdia.py:67",
-        "launches": launches, "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": None}]}))
+        cavity = phase_cavity_main(tmp, smi)
+        phase_simple_agreement(tmp)
+        simple = phase_simple_main(tmp, smi)
+    kernels = []
+    for c, what in ((3, "Gauss gradient"), (1, "divergence contraction")):
+        kernels.append({
+            "name": f"shift_mac C={c} ({what})", "route": "cuda",
+            "source": "rapidcfd_tpu_torch/csrc/shift_mac.cu",
+            "replaces": "rapidcfd_tpu/ops/pallas_gdia.py:67",
+            "launches": simple.get(c, 0), **k[c], "library_ms": None,
+            "launches_by_path": {
+                "simpleFoam pitzDaily x5": simple.get(c, 0),
+                "icoFoam pitzDaily x5": ico.get(c, 0),
+                "icoFoam cavity 384": cavity.get(c, 0)}})
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

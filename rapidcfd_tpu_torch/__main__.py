@@ -17,6 +17,7 @@ import sys
 #: ported solvers: name -> module with run(case_dir, *, device, dtype, write)
 SOLVERS = {
     "icoFoam": "rapidcfd_tpu_torch.solvers.icofoam",
+    "simpleFoam": "rapidcfd_tpu_torch.solvers.simplefoam",
 }
 
 

@@ -10,12 +10,16 @@ Each BC type provides:
 with vbc/gbc derived generically as ``evaluate - vic*psi_c`` and
 ``snGrad(evaluate) - gic*psi_c`` (the reference fvPatchField contract,
 fvPatchField.H:80). Descriptors are frozen dataclasses; their tensor
-parameters live in the field's ``bcdata``. This slice ports calculated,
-fixedValue, zeroGradient and empty; other types raise in `make_bc`.
+parameters live in the field's ``bcdata``. Ported: calculated,
+fixedValue, zeroGradient, empty, and kEpsilon's wall functions
+nutkWallFunction, kqRWallFunction and epsilonWallFunction (the JAX
+package keeps those in models/turbulence.py, which re-exports them here);
+other types raise in `make_bc`.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -152,8 +156,82 @@ class Empty(BC):
     gradient_internal_coeff = value_internal_coeff
 
 
+# ---------------------------------------------------------------------------
+# wall functions (port of rapidcfd_tpu/models/turbulence.py:30-99)
+# ---------------------------------------------------------------------------
+
+_KAPPA = 0.41
+_E = 9.8
+_CMU = 0.09
+_CMU25 = _CMU ** 0.25
+_CMU75 = _CMU ** 0.75
+
+
+def _y_plus_lam(kappa=_KAPPA, e=_E, n=10):
+    """Fixed point of ypl = ln(E*ypl)/kappa, the log-law/laminar
+    crossover (reference: nutWallFunction::yPlusLam)."""
+    ypl = 11.0
+    for _ in range(n):
+        ypl = math.log(max(e * ypl, 1.0 + 1e-6)) / kappa
+    return ypl
+
+
+_YPLUS_LAM = _y_plus_lam()
+
+
+@dataclass(frozen=True)
+class NutkWallFunction(BC):
+    """Turbulent viscosity at the wall from the log law in k (reference:
+    nutkWallFunctionFvPatchScalarField). Evaluated with env = {"k": k,
+    "nu": nu}; without k (field IO) it keeps its current values."""
+    preserves_type = True
+    value_free = True
+    word = "nutkWallFunction"
+
+    def evaluate(self, mesh, patch, field, bd, env=None):
+        from .field import Dimensioned, VolField
+        if env is None or "k" not in env:
+            return field.patch_values(mesh, patch)
+        nu = env["nu"]
+        cells = mesh.patch_face_cells(patch)
+        k_c = env["k"].data[cells]
+        y = 1.0 / mesh.patch_delta_coeffs(patch)
+        if isinstance(nu, VolField):
+            nuw = nu.data[cells]
+        else:
+            nuw = nu.value if isinstance(nu, Dimensioned) else nu
+        y_plus = _CMU25 * torch.sqrt(torch.clamp(k_c, min=0.0)) * y / nuw
+        nutw = nuw * (y_plus * _KAPPA
+                      / torch.log(torch.clamp(_E * y_plus, min=1.0 + 1e-6))
+                      - 1.0)
+        return torch.where(y_plus > _YPLUS_LAM, torch.clamp(nutw, min=0.0),
+                           torch.zeros_like(nutw))
+
+    def value_internal_coeff(self, mesh, patch, field, bd, env=None):
+        return _coeff(mesh, patch, field, 0.0)
+
+    def gradient_internal_coeff(self, mesh, patch, field, bd, env=None):
+        return -mesh.patch_delta_coeffs(patch)
+
+
+@dataclass(frozen=True)
+class KqRWallFunction(ZeroGradient):
+    """k at a wall: zeroGradient (reference: kqRWallFunction)."""
+    word = "kqRWallFunction"
+
+
+@dataclass(frozen=True)
+class EpsilonWallFunction(ZeroGradient):
+    """epsilon at a wall: the patch value follows the wall cell; the
+    wall cells' epsilon and production are imposed by the model
+    (models/turbulence.py KEpsilon._wall_fix, the reference's
+    epsilonWallFunction with its matrix manipulation)."""
+    word = "epsilonWallFunction"
+
+
 BC_TYPES = {cls.word: cls for cls in (Calculated, FixedValue, ZeroGradient,
-                                      Empty)}
+                                      Empty, NutkWallFunction,
+                                      KqRWallFunction, EpsilonWallFunction)}
 
 
 def make_bc(type_word: str, patch_idx: int, pd=None) -> BC:

@@ -1,8 +1,10 @@
 """Carry state from the JAX package into the port.
 
 Each function takes an object of the JAX package (a MeshArrays with its
-GAMG levels, VolField, SurfaceField or FvMatrix) and rebuilds the port's
-counterpart on a given device and dtype. Arrays are read through the numpy array protocol
+GAMG levels, VolField, SurfaceField, FvMatrix or a turbulence model's
+state dict) and rebuilds the port's counterpart on a given device and
+dtype. The structured multigrid levels are built per solve from the
+matrix, so there is nothing of them to carry. Arrays are read through the numpy array protocol
 (`np.asarray`), so this module never imports jax; the caller holds the
 JAX objects. The tests use it to feed both packages identical inputs.
 """
@@ -132,6 +134,13 @@ def vol_field(src, *, device, dtype) -> VolField:
         tuple(bd(d) for d in src.bcdata),
         None if src.old is None else vol_field(src.old, device=device,
                                                dtype=dtype))
+
+
+def turb_state(src, *, device, dtype) -> dict:
+    """A RAS model's state dict (kEpsilon: k, epsilon and nut, with their
+    wall-function BCs) as the port's VolFields."""
+    return {name: vol_field(f, device=device, dtype=dtype)
+            for name, f in src.items()}
 
 
 def surface_field(src, *, device, dtype) -> SurfaceField:

@@ -14,8 +14,9 @@ Agglomeration on the host, cycling on the device:
 - the coarsest level is a dense inverse, computed once per solve and
   applied as a matrix product.
 
-The distributed block hierarchy and the structured geometric multigrid of
-the JAX package are not ported.
+gdia lattice meshes take the structured geometric multigrid instead
+(linalg/structured_mg.py), wrapped in a Krylov solver. The distributed
+block hierarchy of the JAX package is not ported.
 """
 
 from __future__ import annotations
@@ -262,13 +263,6 @@ def build_hierarchy(mesh: MeshArrays, n_coarsest: int = 32,
     (the reference's GAMG mergeLevels)."""
     if mesh.gamg is not None:
         return mesh.gamg
-    if mesh.gdia is not None:
-        # the JAX package cycles gdia meshes on its structured geometric
-        # multigrid, which is not ported: pair agglomeration of the
-        # lattice would give another preconditioner than the reference's
-        raise NotImplementedError(
-            "GAMG on a gdia lattice mesh needs the structured multigrid, "
-            "which is not ported yet")
     # keyed by the identity of the mesh's addressing tensor; the entry
     # holds it weakly and goes when it is collected, so a recycled id
     # cannot alias a stale hierarchy
@@ -382,7 +376,12 @@ def make_vcycle(mesh: MeshArrays, m, amul_fine, diag, controls,
     """The one-V-cycle closure (x, b) -> x' over the mesh's hierarchy.
     scale_correction=False gives a LINEAR operator, usable as a Krylov
     preconditioner (the <c,r>/<c,Ac> line-search scaling is
-    nonlinear)."""
+    nonlinear). On a gdia lattice mesh: the structured geometric V-cycle
+    (linalg/structured_mg.py)."""
+    if mesh.gdia is not None:
+        from .structured_mg import make_structured_vcycle
+        return make_structured_vcycle(mesh, m, amul_fine, diag, controls,
+                                      scale_correction, fixed_scale)
     n_coarsest, merge_levels = gamg_shape(controls)
     levels = build_hierarchy(mesh, n_coarsest=n_coarsest,
                              merge_levels=merge_levels)
@@ -486,8 +485,18 @@ def _vcycle_from_levels(levels, diag, lower, upper, amul_fine, controls,
 
 def gamg_solve(mesh: MeshArrays, m, amul_fine, diag, source, psi0,
                controls):
-    """V-cycle iteration until convergence (fvSolution `solver GAMG`)."""
-    from .solvers import _norm_factor, _Stop, gsum
+    """V-cycle iteration until convergence (fvSolution `solver GAMG`).
+
+    On a gdia lattice mesh the V-cycle preconditions the pure lattice
+    operator (the ghost fold/sync coupling of merged cells is not in its
+    planes), so cycling alone would converge to another fixed point: GAMG
+    is wrapped in a Krylov solver instead, PCG for a symmetric matrix and
+    PBiCGStab otherwise, with one V-cycle as the preconditioner."""
+    from .solvers import _norm_factor, _pbicgstab, _pcg, _Stop, gsum
+    if mesh.gdia is not None:
+        c2 = dataclasses.replace(controls, preconditioner="GAMG")
+        krylov = _pcg if m.symmetric else _pbicgstab
+        return krylov(mesh, amul_fine, m, diag, source, psi0, c2)
     vcycle = make_vcycle(mesh, m, amul_fine, diag, controls, m.symmetric)
     apsi = amul_fine(psi0)
     nf = _norm_factor(amul_fine, psi0, source, apsi, torch.ones_like(psi0))

@@ -19,12 +19,14 @@ def _wants_gamg(c) -> bool:
 def attach_solver_layouts(mesh, controls=(), timings: dict | None = None):
     """mesh with .gamg built for the first of `controls` (SolverControls)
     that selects GAMG as solver or preconditioner, with its
-    nCellsInCoarsestLevel/mergeLevels; mesh itself when none does or the
-    hierarchy is already attached. timings, when given, receives the host
+    nCellsInCoarsestLevel/mergeLevels; mesh itself when none does, the
+    hierarchy is already attached or the mesh is a gdia lattice. timings, when given, receives the host
     seconds of the build ("agglomeration", the copy of the levels to the
     device included)."""
     cand = [c for c in controls if _wants_gamg(c)]
-    if mesh.gamg is not None or not cand:
+    # gdia lattices cycle on the structured multigrid, whose levels are
+    # built per solve from the matrix: nothing to attach
+    if mesh.gamg is not None or not cand or mesh.gdia is not None:
         return mesh
     from .gamg import build_hierarchy, gamg_shape
     t0 = time.perf_counter()

@@ -148,6 +148,11 @@ class MeshArrays:
     def patch_mag_sf(self, p: Patch) -> torch.Tensor:
         return self.mag_sf[p.start:p.start + p.size]
 
+    def patch_active(self, p: Patch) -> torch.Tensor:
+        """1.0 for real patch faces, 0.0 for zero-area padding faces (a
+        scatter over patch_face_cells must skip those)."""
+        return (self.patch_mag_sf(p) > 0).to(self.mag_sf.dtype)
+
     def patch_sf(self, p: Patch) -> torch.Tensor:
         return self.Sf[p.start:p.start + p.size]
 

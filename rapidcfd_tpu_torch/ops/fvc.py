@@ -2,8 +2,8 @@
 padded-ELL and gdia-lattice branches of rapidcfd_tpu/ops/fvc.py). On ELL
 meshes every operator is a face gather and a reduction over each cell's
 K slots; on gdia meshes a plane shift, slice or multiply-add over flat
-(n_lat,) tensors, with the Gauss gradient through the shift-MAC kernel
-(ops/gdia_mac.py)."""
+(n_lat,) tensors, with the Gauss gradient (C = 3) and the divergence
+contraction (C = 1) through the shift-MAC kernel (ops/gdia_mac.py)."""
 
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ import torch
 
 from ..utils.dimensions import dim_length, dim_volume
 
-from ..fields.field import SurfaceField, VolField
+from ..fields.field import Dimensioned, SurfaceField, VolField
 from ..mesh import gdia as gd
 from ..mesh.mesharrays import MeshArrays
 
@@ -123,6 +123,110 @@ def div(mesh: MeshArrays, a, b=None, scheme="linear") -> VolField:
                            f"div({phi.name},{vf.name})"))
 
 
+def div_tensor(mesh: MeshArrays, T: VolField) -> VolField:
+    """fvc::div of a rank-2 tensor field -> vector field: per cell
+    (1/V) sum_f Sf_i T_ij. On gdia meshes the contraction over i runs on
+    the grad planes (three shift-MAC calls with C = 1 per component), cell
+    axis last, with no (nF, 3, 3) face values."""
+    g_ = mesh.gdia
+    if g_ is not None:
+        Tt = gd.sync_last(g_, T.data.permute(1, 2, 0))      # (3, 3, n)
+        Sfb = mesh.Sf[mesh.n_internal:]
+        rows = torch.stack(
+            [sum(gd.gauss_mac1(g_, mesh.gauss, i, Tt[i, c])
+                 for i in range(3)) for c in range(3)])
+        brows = [sum(Sfb[:, i] * T.bvalues[:, i, c] for i in range(3))
+                 for c in range(3)]
+        y = _gdia_rows_tail(mesh, g_, rows, brows)
+        return _extrapolated(mesh, y.T.contiguous(), T.dims / dim_length,
+                             f"div({T.name})")
+    fv = face_values(mesh, T)                           # (nF, 3, 3)
+    face_term = (mesh.Sf[:, :, None] * fv).sum(1)       # (nF, 3)
+    summed = surface_sum_faces(mesh, face_term)
+    return _extrapolated(mesh, summed / _ext(mesh.V, summed),
+                         T.dims / dim_length, f"div({T.name})")
+
+
+def _dev_t(t):
+    """dev(T(t)) of (..., 3, 3) tensors."""
+    tr = t.diagonal(dim1=-2, dim2=-1).sum(-1)
+    eye = torch.eye(3, dtype=t.dtype, device=t.device)
+    return t.transpose(-1, -2) - (tr / 3.0)[..., None, None] * eye
+
+
+def dev_transpose_grad(mesh: MeshArrays, U: VolField) -> VolField:
+    """dev(T(grad(U))) (the explicit part of divDevReff)."""
+    g = grad(mesh, U)
+    return g.with_calculated_bcs(_dev_t(g.data), _dev_t(g.bvalues), g.dims,
+                                 f"devT(grad({U.name}))")
+
+
+def div_dev_t_grad(mesh: MeshArrays, U: VolField, nu_eff) -> VolField:
+    """fvc::div(nuEff * dev(T(grad U))) on gdia meshes, fused: the nine
+    gradient columns stay separate (n,) tensors through the whole
+    pipeline (3 shift-MAC Gauss sums with C = 3, dev and transpose as
+    column permutations, the divergence as 9 contractions with C = 1);
+    only boundary-sized tensors are (nb, 3, 3). Matches
+    div_tensor(dev_transpose_grad(U) * nuEff) to roundoff."""
+    g_ = mesh.gdia
+    planes = mesh.gauss
+    n_int = mesh.n_internal
+    x = gd.sync(g_, U.data)
+    Sfb = mesh.Sf[n_int:]
+
+    # gradient rows G[j*3 + i] = dU_j/dx_i, cell axis last
+    rows = torch.cat([gd.gauss_mac3(g_, planes, x[:, j]) for j in range(3)])
+    brows = [Sfb[:, i] * U.bvalues[:, j] for j in range(3) for i in range(3)]
+    G = _gdia_rows_tail(mesh, g_, rows, brows)               # (9, n)
+
+    def gcol(i, j):
+        return G[j * 3 + i]
+
+    # the gradient at the boundary faces' cells, snGrad-corrected
+    # (gaussGrad::correctBoundaryConditions on the (nb, 3, 3) tile)
+    idx = mesh.owner[n_int:]
+    gb = torch.stack([torch.stack([gcol(i, j)[idx] for j in range(3)], 1)
+                      for i in range(3)], 1)                 # (nb, 3, 3)
+    for bc, bd in zip(U.bcs, U.bcdata):
+        patch = mesh.patches[bc.patch]
+        if patch.is_empty or patch.size == 0:
+            continue
+        nv = mesh.patch_normals(patch)
+        sl = slice(patch.bstart, patch.bstart + patch.size)
+        gc = gb[sl]
+        sngrad = bc.snGrad(mesh, patch, U, bd)
+        ndotg = (nv[:, :, None] * gc).sum(1, keepdim=True)
+        gb[sl] = gc - nv[:, :, None] * ndotg \
+            + nv[:, :, None] * sngrad[:, None, :]
+
+    # T_ic = nuEff * (dU_i/dx_c - delta_ic tr/3), with nuEff ghost-synced
+    if isinstance(nu_eff, Dimensioned):
+        nu_d = nu_b = torch.as_tensor(nu_eff.value, dtype=mesh.dtype,
+                                      device=mesh.device)
+        nu_dims = nu_eff.dims
+    else:
+        nu_d, nu_b = gd.sync(g_, nu_eff.data), nu_eff.bvalues[:, None, None]
+        nu_dims = nu_eff.dims
+    tr = gcol(0, 0) + gcol(1, 1) + gcol(2, 2)
+
+    def T_ic(i, c):
+        t = gcol(c, i)
+        if i == c:
+            t = t - tr / 3.0
+        return nu_d * t
+    Tb = nu_b * _dev_t(gb)
+
+    # divergence: out_c = (1/V) [sum_i planes_i(T_ic) + boundary]
+    rows2 = torch.stack([sum(gd.gauss_mac1(g_, planes, i, T_ic(i, c))
+                             for i in range(3)) for c in range(3)])
+    brows2 = [sum(Sfb[:, i] * Tb[:, i, c] for i in range(3))
+              for c in range(3)]
+    out = _gdia_rows_tail(mesh, g_, rows2, brows2)
+    return _extrapolated(mesh, out.T.contiguous(),
+                         nu_dims * U.dims / dim_length / dim_length,
+                         f"div(devT(grad({U.name})))")
+
+
 def grad(mesh: MeshArrays, vf: VolField, scheme="linear") -> VolField:
     """Gauss linear gradient with the boundary normal-gradient correction
     (reference: gaussGrad.C:51-101 + correctBoundaryConditions): on ELL
@@ -230,3 +334,34 @@ def constrain_hbya(mesh: MeshArrays, hbya: VolField,
             sl = slice(patch.bstart, patch.bstart + patch.size)
             b[sl] = U.bvalues[sl]
     return hbya.replace(bvalues=b)
+
+
+def adjust_phi(mesh: MeshArrays, phi: SurfaceField, U: VolField
+               ) -> SurfaceField:
+    """Balance the boundary flux over the patches whose U is not fixed
+    (reference: cfdTools/general/adjustPhi): their outflow is scaled to
+    match the inflow, so the domain conserves mass. The identity when no
+    patch is adjustable."""
+    zero = torch.zeros((), dtype=phi.data.dtype, device=phi.data.device)
+    fixed_in = adj_in = adj_out = zero
+    adjustable = []
+    for bc, patch in zip(U.bcs, mesh.patches):
+        if patch.size == 0 or patch.is_empty:
+            continue
+        pphi = phi.data[patch.start:patch.start + patch.size]
+        if bc.fixes_value:
+            fixed_in = fixed_in + pphi.sum()
+        else:
+            adjustable.append(patch)
+            adj_in = adj_in + torch.clamp(pphi, max=0.0).sum()
+            adj_out = adj_out + torch.clamp(pphi, min=0.0).sum()
+    if not adjustable:
+        return phi
+    scale = -(fixed_in + adj_in) / torch.where(
+        adj_out == 0.0, torch.full_like(adj_out, 1e-30), adj_out)
+    data = phi.data.clone()
+    for patch in adjustable:
+        sl = slice(patch.start, patch.start + patch.size)
+        pphi = data[sl]
+        data[sl] = torch.where(pphi > 0.0, pphi * scale, pphi)
+    return SurfaceField(data, phi.dims, phi.name)

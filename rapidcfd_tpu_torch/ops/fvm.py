@@ -1,6 +1,7 @@
 """fvm — implicit finite-volume operators returning FvMatrix systems
-(port of rapidcfd_tpu/ops/fvm.py: Euler ddt, Gauss div, orthogonal
-laplacian, with negSumDiag as an ELL gather or by gdia plane shifts)."""
+(port of rapidcfd_tpu/ops/fvm.py: Euler and steadyState ddt, Gauss and
+bounded Gauss div, orthogonal laplacian, the Sp/Su/SuSp sources, with
+negSumDiag as an ELL gather or by gdia plane shifts)."""
 
 from __future__ import annotations
 
@@ -38,13 +39,16 @@ def _neg_sum_diag(mesh: MeshArrays, lower, upper):
 
 def ddt(mesh: MeshArrays, vf: VolField, dt, scheme: str = "Euler"
         ) -> FvMatrix:
-    """fvm::ddt, Euler (reference: EulerDdtScheme::fvmDdt)."""
-    if scheme != "Euler":
+    """fvm::ddt, Euler (reference: EulerDdtScheme::fvmDdt) or steadyState
+    (the zero matrix)."""
+    if scheme not in ("Euler", "steadyState"):
         raise NotImplementedError(f"ddtScheme '{scheme}' is not ported yet "
-                                  "(Euler only)")
+                                  "(Euler, steadyState)")
+    m = FvMatrix.zeros(mesh, vf, vf.dims * _VOL / _TIME, symmetric=True)
+    if scheme == "steadyState":
+        return m
     if vf.old is None:
         raise ValueError(f"ddt({vf.name}): no old-time field stored")
-    m = FvMatrix.zeros(mesh, vf, vf.dims * _VOL / _TIME, symmetric=True)
     diag = mesh.V_asm * (1.0 / dt)
     return m.replace(diag=diag, source=_ext(diag, vf.old.data) * vf.old.data)
 
@@ -53,9 +57,16 @@ def div(mesh: MeshArrays, phi: SurfaceField, vf: VolField,
         scheme="linear", env=None) -> FvMatrix:
     """fvm::div(phi, psi) — Gauss convection (reference:
     gaussConvectionScheme: lower = -w*phi, upper = lower + phi,
-    negSumDiag; boundary via the BC value-coefficient hooks)."""
+    negSumDiag; boundary via the BC value-coefficient hooks). A
+    ('bounded', inner) spec subtracts Sp(div(phi), psi) (reference:
+    boundedConvectionScheme), which keeps transport bounded while the
+    flux is not yet conservative."""
     if isinstance(scheme, tuple) and scheme and scheme[0] == "bounded":
-        raise NotImplementedError("bounded Gauss convection is not ported yet")
+        from . import fvc
+        inner = div(mesh, phi, vf, scheme[1], env)
+        div_phi = fvc.surface_sum_faces(mesh, phi.data) / mesh.V
+        return inner - Sp(mesh, Dimensioned("div(phi)", phi.dims / _VOL,
+                                            div_phi), vf)
     env = dict(env) if env else {}
     env.setdefault("phi", phi)
     w = scheme_weights(mesh, vf, scheme, phi)
@@ -123,3 +134,42 @@ def laplacian(mesh: MeshArrays, gamma, vf: VolField,
         bcs_.append(-gb * gbc)
     return m.replace(diag=diag, lower=g_int, upper=g_int,
                      internal_coeffs=tuple(ics), boundary_coeffs=tuple(bcs_))
+
+
+# ---------------------------------------------------------------------------
+# sources
+# ---------------------------------------------------------------------------
+
+def _coeff(mesh: MeshArrays, x):
+    """(cell data or constant as a tensor, dims) of a source coefficient:
+    a VolField, a Dimensioned or a plain number."""
+    if isinstance(x, VolField):
+        return x.data, x.dims
+    value, dims = (x.value, x.dims) if isinstance(x, Dimensioned) \
+        else (x, dimless)
+    return torch.as_tensor(value, dtype=mesh.dtype, device=mesh.device), dims
+
+
+def Sp(mesh: MeshArrays, sp, vf: VolField) -> FvMatrix:
+    """Implicit source fvm::Sp(sp, psi): E += sp*V*psi."""
+    sp_data, sp_dims = _coeff(mesh, sp)
+    m = FvMatrix.zeros(mesh, vf, sp_dims * vf.dims * _VOL, symmetric=True)
+    return m.replace(diag=mesh.V_asm * sp_data)
+
+
+def Su(mesh: MeshArrays, su, vf: VolField) -> FvMatrix:
+    """Explicit source fvm::Su(su, psi): E += su*V."""
+    su_data, su_dims = _coeff(mesh, su)
+    m = FvMatrix.zeros(mesh, vf, su_dims * _VOL, symmetric=True)
+    return m.replace(source=m.source - _ext(mesh.V_asm, m.source) * su_data)
+
+
+def SuSp(mesh: MeshArrays, sp, vf: VolField) -> FvMatrix:
+    """fvm::SuSp: implicit where it stabilises (sp > 0), explicit
+    otherwise."""
+    sp_data, sp_dims = _coeff(mesh, sp)
+    m = FvMatrix.zeros(mesh, vf, sp_dims * vf.dims * _VOL, symmetric=True)
+    diag = mesh.V_asm * torch.clamp(sp_data, min=0.0)
+    src = -_ext(mesh.V_asm * torch.clamp(sp_data, max=0.0), vf.data) \
+        * vf.data
+    return m.replace(diag=diag, source=src)

@@ -1,5 +1,6 @@
 """FvMatrix — the implicit finite-volume system (port of the padded-ELL
-and gdia-lattice branches of rapidcfd_tpu/ops/fvmatrix.py).
+and gdia-lattice branches of rapidcfd_tpu/ops/fvmatrix.py, relax and
+set_values included).
 
 LDU semantics as in the reference's fvMatrix : lduMatrix — face-indexed
 lower/upper coefficients, per-patch internal/boundary coefficients, an
@@ -252,6 +253,55 @@ class FvMatrix:
                             f"flux({self.psi.name})")
 
     # -- manipulation ------------------------------------------------------------
+    def relax(self, mesh: MeshArrays, alpha: float) -> "FvMatrix":
+        """Under-relax (reference: fvMatrix::relax): make the diagonal at
+        least the sum of the row's off-diagonal magnitudes (patch internal
+        coeffs included), divide it by alpha and compensate the source
+        with the current psi."""
+        if alpha is None or alpha <= 0 or alpha >= 1.0 - 1e-12:
+            return self
+        g = mesh.gdia
+        if g is not None:
+            # ROW sums: row own holds upper, row nei holds lower, so the
+            # arguments are swapped against negSumDiag's column sums
+            sum_off = -gd.neg_sum_diag(g, self.upper.abs(), self.lower.abs())
+        else:
+            sum_off = self.ell_coeffs(mesh).abs().sum(1)
+        items = [(p, ic.abs().mean(dim=-1) if ic.dim() > 1 else ic.abs())
+                 for p, ic in zip(mesh.patches, self.internal_coeffs)
+                 if not (p.is_empty or p.size == 0)]
+        sum_off = mesh.add_at_patches(sum_off, items)
+        d0 = self.diag
+        if g is not None:
+            # dominance on the FOLDED (per-cell) row; the whole change
+            # lands on the primary slot, so the folded diagonal is the
+            # reference's relaxed value
+            d0f = gd.fold(g, d0)
+            sof = gd.fold(g, sum_off)
+            df = torch.where(d0f.abs() < sof, torch.sign(d0f) * sof, d0f)
+            delta = (df / alpha - d0f) * g.primary
+            src = self.source + _ext(delta, self.source) * self.psi.data
+            return self.replace(diag=d0 + delta, source=src)
+        d = torch.where(d0.abs() < sum_off, torch.sign(d0) * sum_off, d0)
+        d = d / alpha
+        src = self.source + _ext(d - d0, self.source) * self.psi.data
+        return self.replace(diag=d, source=src)
+
+    def set_values(self, mesh: MeshArrays, fix_mask, values) -> "FvMatrix":
+        """Fix psi at the masked cells (reference: fvMatrix::setValues):
+        the fixed rows become diag*psi = diag*value, and their columns move
+        into the neighbours' sources, by gathers only.
+        fix_mask: (nCells,) 1.0 where fixed; values: (nCells,) targets."""
+        from .fvc import face_own_nei
+        fix_o, fix_n = face_own_nei(mesh, fix_mask)
+        col = self.offdiag_mv(mesh)(fix_mask * values)
+        src = self.source - _ext(col, self.source)
+        fm = _ext(fix_mask, src)
+        src = src * (1.0 - fm) + fm * _ext(self.diag * values, src)
+        keep = (1.0 - fix_o) * (1.0 - fix_n)
+        return self.replace(upper=self.upper * keep, lower=self.lower * keep,
+                            source=src, symmetric=False)
+
     def set_reference(self, cell: int, value: float, weight: float = 1.0,
                       force: bool = False) -> "FvMatrix":
         """Pin psi at one cell (fvMatrix::setReference), only when no

@@ -11,8 +11,10 @@ loaded with ctypes, launched on the current stream); a CPU tensor goes to
 There is no fallback from one to the other: a CUDA tensor either launches
 the kernel or raises.
 
-`LAUNCHES` counts kernel launches (only where the kernel is launched), so
-a run can show that its main path went through the kernel.
+`LAUNCHES_BY_C` counts kernel launches (only where the kernel is
+launched) by C (3: the Gauss gradient, 1: the divergence contraction),
+so a run can show that its main path went through the kernel in each
+form; `reset_launches()` empties it.
 """
 
 from __future__ import annotations
@@ -34,8 +36,13 @@ _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
 _MAX_K = 8
 _FN = {torch.float32: "shift_mac_f32", torch.float64: "shift_mac_f64"}
 
-#: number of kernel launches since the last reset (set it to 0 to reset)
-LAUNCHES = 0
+#: kernel launches since the last reset_launches(), by C (the
+#: coefficient rows per call)
+LAUNCHES_BY_C: dict[int, int] = {}
+
+
+def reset_launches():
+    LAUNCHES_BY_C.clear()
 
 _LIB = None
 
@@ -143,6 +150,5 @@ def shift_mac_cols(x: torch.Tensor, coeffs: torch.Tensor,
                 ctypes.cast(offs, ctypes.c_void_p), stream)
     if rc != 0:
         raise RuntimeError(f"shift_mac kernel launch failed: CUDA error {rc}")
-    global LAUNCHES
-    LAUNCHES += 1
+    LAUNCHES_BY_C[C] = LAUNCHES_BY_C.get(C, 0) + 1
     return out

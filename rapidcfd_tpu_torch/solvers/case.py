@@ -88,6 +88,18 @@ class Case:
                                        "transportProperties"))
 
     # -- fvSchemes resolution ------------------------------------------------------
+    def ddt_scheme(self):
+        """ddtSchemes.default: a word (Euler, steadyState, ...), or
+        ('CrankNicolson', ocCoeff) for the off-centred form."""
+        d = self.fv_schemes.subdict("ddtSchemes")
+        s = d.lookup("default", "Euler")
+        if isinstance(s, str):
+            return s
+        if s and s[0] in ("CrankNicolson", "CrankNicholson"):
+            return ("CrankNicolson",
+                    float(s[1]) if len(s) > 1 else 1.0)
+        return s[0]
+
     def div_scheme(self, key: str):
         """Resolve e.g. div(phi,U) -> interpolation scheme spec."""
         d = self.fv_schemes.subdict("divSchemes")
@@ -136,3 +148,21 @@ class Case:
 
     def algo_dict(self, name: str) -> Dictionary:
         return self.fv_solution.subdict(name, required=False)
+
+    def relaxation_factor(self, name: str, what: str = "equations",
+                          default: float = 0.0) -> float:
+        """relaxationFactors.<what>.<name> (or its `default`, or the old
+        flat form relaxationFactors.<name>), else `default`."""
+        rf = self.fv_solution.subdict("relaxationFactors", required=False)
+        if not rf:
+            return default
+        sub = rf.subdict(what, required=False)
+        if sub:
+            v = sub.lookup(name)
+            if v is not None:
+                return float(v)
+            v = sub.lookup("default")
+            if v is not None:
+                return float(v)
+        v = rf.lookup(name)
+        return float(v) if v is not None else default

@@ -164,11 +164,22 @@ def _assemble(env, k, which):
                           bvalues=p.bvalues ** 2 + 1.0,
                           dims=_mod(k, JDims, TDims).of(*_TIME))
         return fvm.laplacian(mesh, gamma, env[k + "p"], "orthogonal")
+    if which == "ddt_steady":
+        return fvm.ddt(mesh, env[k + "U"], 1.0, "steadyState")
+    if which == "div_bounded":
+        return fvm.div(mesh, env[k + "phi"], env[k + "U"],
+                       ("bounded", "upwind"))
+    if which in ("Sp", "SuSp"):           # coefficient of mixed sign
+        return getattr(fvm, which)(mesh, env[k + "p"], env[k + "U"])
+    if which == "Su":                     # a source of U's rank
+        return fvm.Su(mesh, env[k + "U"], env[k + "U"])
     raise KeyError(which)
 
 
-@pytest.mark.parametrize("which", ["ddt", "div_linear", "div_upwind",
-                                   "laplacian_nu", "laplacian_field"])
+@pytest.mark.parametrize("which", ["ddt", "ddt_steady", "div_linear",
+                                   "div_upwind", "div_bounded",
+                                   "laplacian_nu", "laplacian_field", "Sp",
+                                   "Su", "SuSp"])
 def test_ell_fvm_coefficients_match(env, which):
     _close_matrix(_assemble(env, "t", which), _assemble(env, "j", which),
                   which)
@@ -190,6 +201,57 @@ def test_ell_fvmatrix_flux_matches(env):
     j = _assemble(env, "j", "laplacian_field")
     t = interop.fv_matrix(j, device=CPU, dtype=F64)
     _close(t.flux(env["tmesh"]).data, j.flux(env["jmesh"]).data, "flux")
+
+
+def _relaxable(env, k, rank):
+    """div(phi, psi) - laplacian(nu, psi), upwind, psi = U or p."""
+    fvm = _mod(k, jfvm, tfvm)
+    vf = env[k + ("U" if rank else "p")]
+    return fvm.div(env[k + "mesh"], env[k + "phi"], vf, "upwind") \
+        - fvm.laplacian(env[k + "mesh"], env[k + "nu"], vf, "orthogonal")
+
+
+@pytest.mark.parametrize("rank", [0, 1], ids=["scalar", "vector"])
+def test_ell_relax_matches(env, rank):
+    t = _relaxable(env, "t", rank).relax(env["tmesh"], 0.7)
+    j = _relaxable(env, "j", rank).relax(env["jmesh"], 0.7)
+    _close_matrix(t, j, "relaxed")
+
+
+def test_ell_set_values_matches(env):
+    rng = np.random.default_rng(78)
+    n = env["tmesh"].n_cells
+    mask = (rng.uniform(size=n) < 0.05).astype(float)
+    vals = rng.standard_normal(n)
+    t = _relaxable(env, "t", 0).set_values(
+        env["tmesh"], torch.from_numpy(mask), torch.from_numpy(vals))
+    j = _relaxable(env, "j", 0).set_values(
+        env["jmesh"], jnp.asarray(mask), jnp.asarray(vals))
+    _close_matrix(t, j, "setValues")
+
+
+def test_ell_adjust_phi_matches(env):
+    """Every cavity patch fixes U: nothing is adjustable, phi stays."""
+    t = tfvc.adjust_phi(env["tmesh"], env["tphi"], env["tU"])
+    _close(t.data, jfvc.adjust_phi(env["jmesh"], env["jphi"],
+                                   env["jU"]).data, "adjustPhi")
+    assert t is env["tphi"]
+
+
+def test_ell_div_dev_t_grad_chain_matches(env):
+    """The generic chain of divDevReff's explicit part on ELL meshes:
+    div_tensor(dev_transpose_grad(U) * nuEff)."""
+    def chain(k):
+        fvc = _mod(k, jfvc, tfvc)
+        mesh, p = env[k + "mesh"], env[k + "p"]
+        nu = p.replace(data=p.data ** 2 + 1e-3,
+                       bvalues=p.bvalues ** 2 + 1e-3,
+                       dims=_mod(k, JDims, TDims).of(*_NU))
+        devt = fvc.dev_transpose_grad(mesh, env[k + "U"])
+        return devt, fvc.div_tensor(mesh, devt * nu)
+    (tdev, tdiv), (jdev, jdiv) = chain("t"), chain("j")
+    _close_field(tdev, jdev, "devT")
+    _close_field(tdiv, jdiv, "div_tensor")
 
 
 def _p_system(env):

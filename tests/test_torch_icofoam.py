@@ -107,10 +107,13 @@ def test_cli_refuses_cuda_without_card(tmp_path):
 
 def test_port_runs_without_jax(tmp_path):
     """Importing rapidcfd_tpu_torch and running 2 steps of pitzDaily (gdia)
-    and of the cavity (ELL, GAMG-preconditioned p) on the CPU pulls no
-    jax module and no module of the JAX package into the process."""
+    and of the cavity (ELL, GAMG-preconditioned p) with icoFoam, and one
+    SIMPLE iteration of the simpleFoam pitzDaily case (kEpsilon, GAMG on
+    the gdia lattice), on the CPU pulls no jax module and no module of
+    the JAX package into the process."""
     d = str(tmp_path / "case")
     c = str(tmp_path / "cavity")
+    s = str(tmp_path / "simple")
     script = f"""
 import sys
 
@@ -132,6 +135,14 @@ for case_dir in ({d!r}, {c!r}):
                                   max_steps=2)
     assert torch.isfinite(U.data).all() and torch.isfinite(p.data).all()
 assert case.mesh.gdia is None and case.mesh.K == 4
+from rapidcfd_tpu_torch.solvers import simplefoam
+from rapidcfd_tpu_torch.utils.casegen import pitz_daily_case
+pitz_daily_case({s!r}, scale=1)
+case, U, p, phi, ts = simplefoam.run({s!r}, device=torch.device("cpu"),
+                                     dtype=torch.float32, write=False,
+                                     max_steps=1)
+assert case.mesh.gdia is not None
+assert all(torch.isfinite(f.data).all() for f in [U, p, *ts.values()])
 print("NEW_FOREIGN_MODULES", sorted(foreign() - before))
 print("JAX_LEFT_OUT", not before and "jax" not in sys.modules)
 print("JAX_PRELOADED", bool(before))

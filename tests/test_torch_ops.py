@@ -31,6 +31,7 @@ from rapidcfd_tpu_torch.mesh.polymesh import read_polymesh
 from rapidcfd_tpu_torch.ops import fvc as tfvc
 from rapidcfd_tpu_torch.ops import fvm as tfvm
 from rapidcfd_tpu_torch.utils.casegen import pitz_daily_ico_case
+from rapidcfd_tpu_torch.utils.dimensions import DimensionSet as TDims
 from rapidcfd_tpu_torch.utils.unstructured import detect_lattice
 
 CPU = torch.device("cpu")
@@ -204,11 +205,23 @@ def _assemble(env, k, which):
                           bvalues=p.bvalues ** 2 + 1.0,
                           dims=DimensionSet.of(0, 0, 1))
         return fvm.laplacian(mesh, gamma, env[k + "p"], "orthogonal")
+    if which == "ddt_steady":
+        return fvm.ddt(mesh, env[k + "U"], 1.0, "steadyState")
+    if which == "div_bounded":
+        return fvm.div(mesh, env[k + "phi"], env[k + "U"],
+                       ("bounded", "upwind"))
+    if which in ("Sp", "SuSp"):           # coefficient of mixed sign
+        return getattr(fvm, which)(mesh, env[k + "p"], env[k + "U"])
+    if which == "Su":                     # a source of U's rank
+        return fvm.Su(mesh, env[k + "U"], env[k + "U"])
     raise KeyError(which)
 
 
-@pytest.mark.parametrize("which", ["ddt", "div_linear", "div_upwind",
-                                   "laplacian_nu", "laplacian_field"])
+_WHICH = ["ddt", "ddt_steady", "div_linear", "div_upwind", "div_bounded",
+          "laplacian_nu", "laplacian_field", "Sp", "Su", "SuSp"]
+
+
+@pytest.mark.parametrize("which", _WHICH)
 def test_fvm_coefficients_match(env, which):
     _close_matrix(_assemble(env, "t", which), _assemble(env, "j", which),
                   which)
@@ -262,14 +275,109 @@ def test_solve_matches(env, what):
 @pytest.mark.parametrize("ctl", [dict(solver="GAMG"),
                                  dict(solver="PCG", preconditioner="GAMG")],
                          ids=["GAMG", "PCG_GAMG"])
-def test_gamg_on_gdia_is_refused(env, ctl):
-    """The JAX package cycles gdia meshes on its structured multigrid,
-    which the port does not have: GAMG there raises instead of running
-    another preconditioner."""
-    tm = interop.fv_matrix(_assemble(env, "j", "laplacian_field"),
-                           device=CPU, dtype=F64)
-    with pytest.raises(NotImplementedError, match="structured multigrid"):
-        tsolvers.solve(env["tmesh"], tm, tsolvers.SolverControls(**ctl))
+def test_gamg_on_gdia_runs(env, ctl):
+    """GAMG on a gdia mesh cycles on the structured multigrid, wrapped in
+    PCG (linalg/gamg.gamg_solve), and reaches the solution PCG/DIC
+    reaches (tests/test_torch_structured_mg.py holds it against the JAX
+    package's V-cycle and solve)."""
+    jm = _assemble(env, "j", "laplacian_field") \
+        == jfvc.div(env["jmesh"], env["jphi"])
+    tm = interop.fv_matrix(jm, device=CPU, dtype=F64)
+    c = dict(tolerance=1e-11, rel_tol=0.0, n_coarsest_cells=32)
+    tx, tperf = tsolvers.solve(env["tmesh"], tm,
+                               tsolvers.SolverControls(**c, **ctl))
+    ref, rperf = tsolvers.solve(
+        env["tmesh"], tm, tsolvers.SolverControls(**c, solver="PCG",
+                                                  preconditioner="DIC"))
+    _close(tx.data, ref.data, "p", tol=1e-8)
+    assert 1 < int(tperf[0][2]) < int(rperf[0][2])
+
+
+# ---------------------------------------------------------------------------
+# the SIMPLE-slice operators: relax, setValues, adjustPhi, the explicit
+# part of divDevReff
+# ---------------------------------------------------------------------------
+
+def _relaxable(env, rank):
+    """div(phi, psi) - laplacian(nu, psi), upwind, psi = U or p."""
+    vf = env["j" + ("U" if rank else "p")]
+    return jfvm.div(env["jmesh"], env["jphi"], vf, "upwind") \
+        - jfvm.laplacian(env["jmesh"], env["jnu"], vf, "orthogonal")
+
+
+@pytest.mark.parametrize("rank", [0, 1], ids=["scalar", "vector"])
+def test_relax_matches(env, rank):
+    """fvMatrix::relax: dominance on the folded row, the change on the
+    primary slot, the source compensated with psi."""
+    j = _relaxable(env, rank)
+    tm = interop.fv_matrix(j, device=CPU, dtype=F64)
+    _close_matrix(tm.relax(env["tmesh"], 0.7), j.relax(env["jmesh"], 0.7),
+                  "relaxed")
+    assert tm.relax(env["tmesh"], 1.0) is tm
+
+
+def test_set_values_matches(env):
+    rng = np.random.default_rng(77)
+    n = env["tmesh"].n_cells
+    prim = np.asarray(env["jmesh"].gdia.primary)
+    mask = (rng.uniform(size=n) < 0.05) * prim
+    vals = rng.standard_normal(n)
+    j = _relaxable(env, 0)
+    t = interop.fv_matrix(j, device=CPU, dtype=F64).set_values(
+        env["tmesh"], torch.from_numpy(mask), torch.from_numpy(vals))
+    j = j.set_values(env["jmesh"], jnp.asarray(mask), jnp.asarray(vals))
+    _close_matrix(t, j, "setValues")
+    assert not t.symmetric
+
+
+def test_adjust_phi_matches(env):
+    """The outlet (zeroGradient U) takes the imbalance of a random flux."""
+    t = tfvc.adjust_phi(env["tmesh"], env["tphi"], env["tU"])
+    j = jfvc.adjust_phi(env["jmesh"], env["jphi"], env["jU"])
+    _close(t.data, j.data, "adjustPhi")
+    assert not torch.equal(t.data, env["tphi"].data)
+
+
+def _nu_eff(env, k):
+    """A positive random viscosity field (nuEff)."""
+    p = env[k + "p"]
+    dims = (DimensionSet if k == "j" else TDims).of(0, 2, -1)
+    return p.replace(data=p.data ** 2 + 1e-3, bvalues=p.bvalues ** 2 + 1e-3,
+                     dims=dims)
+
+
+def test_dev_transpose_grad_matches(env):
+    t = tfvc.dev_transpose_grad(env["tmesh"], env["tU"])
+    _close_field(t, jfvc.dev_transpose_grad(env["jmesh"], env["jU"]), "devT")
+
+
+@pytest.mark.parametrize("path", ["fused", "div_tensor"])
+def test_div_dev_t_grad_matches(env, path):
+    """div(nuEff*dev(T(grad U))): the fused gdia pipeline (3 shift-MAC
+    calls with C = 3, 9 with C = 1) against the JAX package's, and
+    against the chain div_tensor(dev_transpose_grad(U)*nuEff) of both."""
+    j = jfvc.div_dev_t_grad(env["jmesh"], env["jU"], _nu_eff(env, "j"))
+    tm, tU, tnu = env["tmesh"], env["tU"], _nu_eff(env, "t")
+    if path == "fused":
+        t = tfvc.div_dev_t_grad(tm, tU, tnu)
+    else:
+        t = tfvc.div_tensor(tm, tfvc.dev_transpose_grad(tm, tU) * tnu)
+        jt = jfvc.div_tensor(env["jmesh"], jfvc.dev_transpose_grad(
+            env["jmesh"], env["jU"]) * _nu_eff(env, "j"))
+        _close_field(t, jt, "div_tensor")
+    _close_field(t, j, path)
+    assert t.dims.as_tuple() == j.dims.as_tuple()
+
+
+def test_div_dev_t_grad_constant_nu_matches_chain(env):
+    """A constant nuEff (the laminar model's nu): the fused pipeline
+    against the port's own div_tensor chain (the JAX package's fused
+    function takes fields only)."""
+    tm, tU, nu = env["tmesh"], env["tU"], env["tnu"]
+    nu = TDimensioned("nu", TDims.of(0, 2, -1), nu.value)
+    _close_field(tfvc.div_dev_t_grad(tm, tU, nu),
+                 tfvc.div_tensor(tm, tfvc.dev_transpose_grad(tm, tU) * nu),
+                 "constant nu")
 
 
 def test_set_reference_matches(env):

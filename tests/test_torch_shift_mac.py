@@ -63,13 +63,13 @@ def test_plain_matches_pallas_interpret_fp32(C):
 
 def test_cpu_tensor_takes_plain_version_without_launch():
     x, coeffs = _inputs(5, 3, 500, np.float64)
-    before = gdia_mac.LAUNCHES
+    before = sum(gdia_mac.LAUNCHES_BY_C.values())
     out = gdia_mac.shift_mac_cols(torch.from_numpy(x),
                                   torch.from_numpy(coeffs), _OFFSETS[5])
     plain = gdia_mac.shift_mac_cols_plain(torch.from_numpy(x),
                                           torch.from_numpy(coeffs),
                                           _OFFSETS[5])
-    assert gdia_mac.LAUNCHES == before
+    assert sum(gdia_mac.LAUNCHES_BY_C.values()) == before
     assert torch.equal(out, plain)
 
 
@@ -103,8 +103,8 @@ def test_cuda_kernel_matches_plain(dtype, tol):
     x = torch.randn(n, generator=g, dtype=dtype)
     coeffs = torch.randn(5, 3, n, generator=g, dtype=dtype)
     ref = gdia_mac.shift_mac_cols_plain(x, coeffs, offs)
-    before = gdia_mac.LAUNCHES
+    before = sum(gdia_mac.LAUNCHES_BY_C.values())
     out = gdia_mac.shift_mac_cols(x.cuda(), coeffs.cuda(), offs)
     torch.cuda.synchronize()
-    assert gdia_mac.LAUNCHES == before + 1
+    assert sum(gdia_mac.LAUNCHES_BY_C.values()) == before + 1
     assert (out.cpu() - ref).abs().max() <= tol * ref.abs().max()
