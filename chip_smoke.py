@@ -6,14 +6,23 @@ Phases (any failure raises and the script exits non-zero):
 
 1. setup: torch, the card, its power limit, nvcc, whether triton imports;
    a CUDA card is required;
-2. build the shift-MAC kernel (csrc/shift_mac.cu) from the checkout;
-3. the kernel against its plain torch version on the card, fp32 and fp64,
-   at the pitzDaily x5 slice shape (C = 3, the Gauss gradient, and C = 1,
-   the divergence contraction), a 3-D offset set and an odd n; tolerance
-   max|d| <= 1e-13 max|out| (fp64), 1e-5 (fp32) — FMA contraction is the
-   only difference; then both forms timed at the slice shape: device time
-   per call (torch.profiler) and wall time per call back to back (CUDA
-   events), beside the least time the card could take;
+2. build the shift-MAC kernel (csrc/shift_mac.cu) from the checkout and
+   print ptxas's registers, shared memory and spills for every kernel;
+3. the kernel and the baseline kernel (as first written) against its
+   plain torch version on the card, fp32 and fp64, at the pitzDaily x5
+   slice shape (C = 3, the Gauss gradient, and C = 1, the divergence
+   contraction) and at the edges the launcher must handle (n % 4 != 0,
+   misaligned views, |off| >= n, K = 1, tiny n, 3-D offsets, the generic
+   kernel); tolerance max|d| <= 1e-13 max|out| (fp64), 1e-5 (fp32) — FMA
+   contraction is the only difference; then, for both forms at the slice
+   shape, the wall time per call back to back (CUDA events) beside a
+   torch.add of the same length, then device time per call
+   (torch.profiler) of the kernel, the baseline, the plain version and the
+   cuSPARSE CSR product of the same operator, cold (rotating over 75 MB or
+   68 MB of input sets, as the solvers' calls find their inputs) and warm
+   (one input set, in L2), the baseline and the kernel in turns, beside the
+   least time the card could take and the device time of a one-element
+   torch kernel (the floor of any launch);
 4. the icoFoam gdia slice in fp64 at pitzDaily x1 (every solve to 1e-12)
    for 10 steps on cuda and on cpu: U, p, phi agree to 1e-8 relative to
    their largest magnitude, iteration counts within one per solve;
@@ -39,10 +48,13 @@ Phases (any failure raises and the script exits non-zero):
    below 0.1; ms/step, cell-updates/s over live cells, iterations per
    solve, set-up seconds and the kernel launches by C (both forms must
    launch) beside the card;
-10. a JSON line of kernel results (the kernel's two forms, with their
-   launches on the simpleFoam path and on each other path), the card's
-   name and power limit, and the result line {"ok": true, "device":
-   {...}} last.
+10. a JSON line of kernel results (the kernel's two forms: cold times of
+   the kernel, the baseline, the plain version and cuSPARSE as `ms`,
+   `baseline_ms`, `plain_ms` and `library_ms`, held against `bound_ms`,
+   and their warm times as `*warm_ms`, with their launches on the
+   simpleFoam path and on each other path), the card's name and power
+   limit, and the result line
+   {"ok": true, "device": {...}} last.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -107,12 +119,54 @@ def phase_setup() -> str:
     return smi
 
 
+def _ptxas_table(report: str) -> list[str]:
+    """One line per kernel instantiation from nvcc -Xptxas -v: registers,
+    shared memory, stack and spills."""
+    rows, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            rows[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            rows[name].update(stack=m.group(1), spill=f"{m.group(2)}/"
+                              f"{m.group(3)}")
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows[name].update(regs=m.group(1),
+                              smem=smem.group(1) if smem else "0")
+    names = list(rows)
+    demangled = run_cmd(["c++filt", *names]).splitlines()
+    if len(demangled) != len(names):
+        demangled = names
+    out = []
+    for mangled, pretty in zip(names, demangled):
+        pretty = re.sub(r"^void |\(anonymous namespace\)::", "", pretty)
+        pretty = pretty.split("(")[0]
+        r = rows[mangled]
+        out.append(f"{pretty}: {r.get('regs', '?')} registers, "
+                   f"{r.get('smem', '?')} B static smem, stack "
+                   f"{r.get('stack', '?')} B, spill stores/loads "
+                   f"{r.get('spill', '?')} B")
+    return out
+
+
 def phase_build():
     from rapidcfd_tpu_torch.ops import gdia_mac
     t0 = time.perf_counter()
     lib = gdia_mac.build()
     gdia_mac._load()
     print(f"[2] built {lib} in {time.perf_counter() - t0:.2f} s")
+    rows = _ptxas_table(gdia_mac.build_report())
+    check(rows, "no ptxas report")
+    for row in rows:
+        print(f"[2] {row}")
 
 
 def _time_ms(fn, reps=200) -> float:
@@ -148,51 +202,181 @@ def _device_ms(fn, reps=50) -> float:
     return total_us / reps / 1e3
 
 
-def phase_kernel() -> dict:
-    from rapidcfd_tpu_torch.ops import gdia_mac as gm
-    cases = [(5, 3, SLICE_N, SLICE_OFFSETS),
-             (5, 1, SLICE_N, SLICE_OFFSETS),
-             (7, 3, 40 * 30 * 20, (-1200, -40, -1, 0, 1, 40, 1200)),
-             (5, 3, 100003, (-317, -1, 0, 1, 317))]
-    g = torch.Generator().manual_seed(1234)
-    res = {}                # C -> the fp32 slice-shape results
-    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-13)):
-        for K, C, n, offs in cases:
-            x = torch.randn(n, generator=g, dtype=dtype).cuda()
-            coeffs = torch.randn(K, C, n, generator=g, dtype=dtype).cuda()
-            ref = gm.shift_mac_cols_plain(x, coeffs, offs)
-            out = gm.shift_mac_cols(x, coeffs, offs)
-            torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
-            scale = ref.abs().max().item()
-            print(f"[3] {str(dtype)[6:]} K={K} C={C} n={n}: max|d| = "
-                  f"{err:.3e} (limit {tol * scale:.3e})")
-            check(out.shape == (C, n) and err <= tol * scale,
-                  f"kernel disagrees with plain version ({dtype}, K={K}, "
-                  f"C={C}, n={n}): {err} > {tol * scale}")
-            if dtype == torch.float32 and n == SLICE_N:
-                def kernel():
-                    return gm.shift_mac_cols(x, coeffs, offs)
+OFFSETS_3D = (-1200, -40, -1, 0, 1, 40, 1200)       # a 40x30x20 lattice
+OFFSETS_ODD = (-317, -1, 0, 1, 317)
+OFFSETS_SMALL = (-10, -1, 0, 1, 10)
+# the kernel against its plain version: (what, K, C, n, offsets, storage
+# offset of x and coeffs). The slice shapes first, then the edges the
+# kernel's launcher must handle: n % 4 in {1, 2, 3} (no 16-byte rows in
+# fp32; n % 2 == 0 keeps them in fp64), views at storage offset 1
+# (misaligned pointers), |off| >= n, K = 1 with C = 2, n under one block or
+# one pack, the 3-D K = 7 sets, and K and C of the generic kernel only
+KERNEL_CASES = [
+    ("slice", 5, 3, SLICE_N, SLICE_OFFSETS, 0),
+    ("slice", 5, 1, SLICE_N, SLICE_OFFSETS, 0),
+    ("3-D K=7", 7, 3, 40 * 30 * 20, OFFSETS_3D, 0),
+    ("3-D K=7", 7, 1, 40 * 30 * 20, OFFSETS_3D, 0),
+    ("3-D +-4096", 7, 3, 64 * 64 * 16, (-4096, -64, -1, 0, 1, 64, 4096), 0),
+    ("n % 4 = 1", 5, 1, 100001, OFFSETS_ODD, 0),
+    ("n % 4 = 2", 5, 3, 100002, OFFSETS_ODD, 0),
+    ("n % 4 = 3", 5, 3, 100003, OFFSETS_ODD, 0),
+    ("storage offset 1", 5, 1, SLICE_N, SLICE_OFFSETS, 1),
+    ("storage offset 1", 5, 3, SLICE_N, SLICE_OFFSETS, 1),
+    ("|off| >= n", 5, 3, 1000, (-5000, -1000, -1, 0, 1001), 0),
+    ("K=1 C=2", 1, 2, 5000, (3,), 0),
+    ("n under a block", 5, 1, 100, OFFSETS_SMALL, 0),
+    ("n under a pack", 5, 3, 1, OFFSETS_SMALL, 0),
+    ("n under a pack", 5, 1, 6, OFFSETS_SMALL, 0),
+    ("generic K=8 C=5", 8, 5, 3001, (-50, -7, -2, -1, 0, 1, 2, 50), 0),
+    ("generic K=8 C=5", 8, 5, 3000, (-50, -7, -2, -1, 0, 1, 2, 50), 0),
+]
 
-                def plain():
-                    return gm.shift_mac_cols_plain(x, coeffs, offs)
-                ms, plain_ms = _device_ms(kernel), _device_ms(plain)
-                # each input read once, the output written once; one
-                # multiply-add per coefficient
-                nbytes = (x.numel() + coeffs.numel() + out.numel()) \
-                    * x.element_size()
-                bound = max((nbytes / HBM_BYTES_PER_S, "bytes"),
-                            (2 * coeffs.numel() / FP32_FLOPS, "operations"))
-                print(f"[3] fp32 slice shape C={C}, device time per call: "
-                      f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} "
-                      f"us, bound {bound[0] * 1e6:.2f} us ({nbytes} bytes, "
-                      f"bound by {bound[1]})")
-                print(f"[3] fp32 slice shape C={C}, wall time per call back "
-                      f"to back: kernel {_time_ms(kernel) * 1e3:.2f} us, "
-                      f"plain {_time_ms(plain) * 1e3:.2f} us")
-                res[C] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                              bound_ms=bound[0] * 1e3, bound_by=bound[1])
+
+def _kernel_inputs(K, C, n, shift, dtype, g):
+    """x (n,) and coeffs (K, C, n) on the card, as contiguous views at
+    storage offset `shift`."""
+    x = torch.randn(n + shift, generator=g, dtype=dtype, device="cuda")
+    c = torch.randn(K * C * n + shift, generator=g, dtype=dtype,
+                    device="cuda")
+    return x[shift:], c[shift:].view(K, C, n)
+
+
+def _library_matrix(coeffs, offsets):
+    """The same operator as a CSR matrix (rows c*n + s, columns s +
+    offsets[k] inside [0, n), int32 indices) for torch.mv, i.e. cuSPARSE:
+    the yardstick the port never calls."""
+    import warnings
+    K, C, n = coeffs.shape
+    order = sorted(range(K), key=lambda k: offsets[k])    # ascending columns
+    off = torch.tensor([offsets[k] for k in order], device=coeffs.device)
+    cols = torch.arange(n, device=coeffs.device)[:, None] + off    # (n, K)
+    keep = (cols >= 0) & (cols < n)
+    vals = coeffs[order].permute(1, 2, 0)[:, keep]                # (C, nnz)
+    counts = keep.sum(1).repeat(C)
+    crow = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return torch.sparse_csr_tensor(
+            crow.int(), cols[keep].repeat(C).int(), vals.reshape(-1),
+            size=(C * n, n))
+
+
+def phase_kernel(smi: str) -> dict:
+    from rapidcfd_tpu_torch.ops import gdia_mac as gm
+    g = torch.Generator(device="cuda").manual_seed(1234)
+    errs = {}               # C -> max|d| of the kernel at the fp32 slice
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-13)):
+        for what, K, C, n, offs, shift in KERNEL_CASES:
+            x, coeffs = _kernel_inputs(K, C, n, shift, dtype, g)
+            ref = gm.shift_mac_cols_plain(x, coeffs, offs)
+            scale = ref.abs().max().item()
+            worst = []
+            for impl in ("kernel", "baseline"):
+                out = (gm.shift_mac_cols(x, coeffs, offs) if impl == "kernel"
+                       else gm.shift_mac_cols_baseline(x, coeffs, offs))
+                torch.cuda.synchronize()
+                err = (out - ref).abs().max().item()
+                check(out.shape == (C, n) and err <= tol * scale,
+                      f"{impl} kernel disagrees with the plain version "
+                      f"({dtype}, {what}, K={K}, C={C}, n={n}): {err} > "
+                      f"{tol * scale}")
+                worst.append(f"{impl} {err:.2e}")
+                if (impl == "kernel" and dtype == torch.float32
+                        and what == "slice"):
+                    errs[C] = err
+            print(f"[3] {str(dtype)[6:]} {what}, K={K} C={C} n={n}: max|d| "
+                  f"{', '.join(worst)} (limit {tol * scale:.2e})")
+    res = {}
+    for C in (3, 1):
+        x, coeffs = _kernel_inputs(5, C, SLICE_N, 0, torch.float32, g)
+        res[C] = dict(
+            max_abs_err=errs[C],
+            wall_ms=_time_ms(lambda: gm.shift_mac_cols(x, coeffs,
+                                                       SLICE_OFFSETS)),
+            plain_wall_ms=_time_ms(lambda: gm.shift_mac_cols_plain(
+                x, coeffs, SLICE_OFFSETS)),
+            add_wall_ms=_time_ms(lambda: torch.add(x, x)))
+        print(f"[3] fp32 slice shape C={C}, wall time per call back to back:"
+              f" kernel {res[C]['wall_ms'] * 1e3:.2f} us, plain "
+              f"{res[C]['plain_wall_ms'] * 1e3:.2f} us, torch.add of n "
+              f"values {res[C]['add_wall_ms'] * 1e3:.2f} us (card: {smi})")
+    # the wall times above come before any profiler session of the process
+    one = torch.zeros(1, device="cuda")
+    floor = _device_ms(lambda: one.add_(1.0))
+    print(f"[3] device time of a one-element torch kernel: "
+          f"{floor * 1e3:.2f} us (card: {smi})")
+    for C in (3, 1):
+        res[C].update(_time_form(gm, C, smi), floor_ms=floor)
     return res
+
+
+def _time_form(gm, C: int, smi: str) -> dict:
+    """Device time per call at the fp32 slice shape of the kernel, the
+    baseline kernel, the plain version and the cuSPARSE product: cold
+    (calls rotating over enough input sets to exceed the 50 MB L2) and
+    warm (50 calls on one input set, which stays in L2); the baseline and
+    the kernel in turns (baseline, kernel, kernel, baseline)."""
+    K, n, offs = 5, SLICE_N, SLICE_OFFSETS
+    g = torch.Generator(device="cuda").manual_seed(99 + C)
+    nbytes = (n + K * C * n + C * n) * 4       # inputs once, output once
+    n_sets = {1: 24, 3: 8}[C]                  # 75 MB and 68 MB of inputs
+    sets = [_kernel_inputs(K, C, n, 0, torch.float32, g)
+            for _ in range(n_sets)]
+    mats = [_library_matrix(c, offs) for _, c in sets]
+    x0, c0 = sets[0]
+    ref = gm.shift_mac_cols_plain(x0, c0, offs)
+    lib = torch.mv(mats[0], x0).view(C, n)
+    torch.cuda.synchronize()
+    lib_err = (lib - ref).abs().max().item()
+    check(lib_err <= 1e-5 * ref.abs().max().item(),
+          f"cuSPARSE product disagrees with the plain version: {lib_err}")
+    fns = {
+        "kernel": lambda i: gm.shift_mac_cols(*sets[i], offs),
+        "baseline": lambda i: gm.shift_mac_cols_baseline(*sets[i], offs),
+        "plain": lambda i: gm.shift_mac_cols_plain(*sets[i], offs),
+        "library": lambda i: torch.mv(mats[i], sets[i][0]),
+    }
+
+    def timed(name, cold):
+        if not cold:
+            return _device_ms(lambda: fns[name](0), reps=50)
+        turn = iter(range(10 ** 9))
+        return _device_ms(lambda: fns[name](next(turn) % n_sets), reps=48)
+
+    t = {}
+    for cold in (True, False):
+        tag = "cold" if cold else "warm"
+        for name in ("baseline", "kernel", "kernel", "baseline"):
+            t.setdefault((name, tag), []).append(timed(name, cold))
+        for name in ("plain", "library"):
+            t[(name, tag)] = [timed(name, cold)]
+    ms = {k: sum(v) / len(v) for k, v in t.items()}
+    bound = max((nbytes / HBM_BYTES_PER_S, "bytes"),
+                (2 * K * C * n / FP32_FLOPS, "operations"))
+    print(f"[3] fp32 slice shape C={C} (K=5, n={n}), device time per call, "
+          f"us, cold ({n_sets} input sets, {n_sets * nbytes / 1e6:.1f}"
+          f" MB) / warm: bound {bound[0] * 1e6:.2f} ({nbytes} bytes, by "
+          f"{bound[1]}) (card: {smi})")
+    for name in ("baseline", "kernel", "plain", "library"):
+        c, w = t[(name, "cold")], t[(name, "warm")]
+        share = (f"; {bound[0] * 1e3 / ms[(name, 'cold')]:.0%} of the bound "
+                 f"cold")
+        print(f"[3]   {name:9s} " + " / ".join(
+            ", ".join(f"{v * 1e3:.2f}" for v in vals) for vals in (c, w))
+            + (" (turns)" if len(w) > 1 else "") + share)
+    print(f"[3]   cuSPARSE max|d| against plain {lib_err:.2e}")
+    # ms, plain_ms, library_ms, baseline_ms: cold, as the bound assumes
+    return dict(
+        ms=ms[("kernel", "cold")], plain_ms=ms[("plain", "cold")],
+        bound_ms=bound[0] * 1e3, bound_by=bound[1],
+        library_ms=ms[("library", "cold")],
+        baseline_ms=ms[("baseline", "cold")],
+        warm_ms=ms[("kernel", "warm")],
+        plain_warm_ms=ms[("plain", "warm")],
+        library_warm_ms=ms[("library", "warm")],
+        baseline_warm_ms=ms[("baseline", "warm")],
+        turns_ms={f"{name} {tag}": vals for (name, tag), vals in t.items()
+                  if len(vals) > 1})
 
 
 def _logged(fn, *args, **kw):
@@ -550,7 +734,7 @@ def phase_simple_main(tmp: str, smi: str) -> dict:
 def main():
     smi = phase_setup()
     phase_build()
-    k = phase_kernel()
+    k = phase_kernel(smi)
     with tempfile.TemporaryDirectory() as tmp:
         phase_fp64_agreement(tmp)
         ico = phase_main_path(tmp, smi)
@@ -564,7 +748,7 @@ def main():
             "name": f"shift_mac C={c} ({what})", "route": "cuda",
             "source": "rapidcfd_tpu_torch/csrc/shift_mac.cu",
             "replaces": "rapidcfd_tpu/ops/pallas_gdia.py:67",
-            "launches": simple.get(c, 0), **k[c], "library_ms": None,
+            "launches": simple.get(c, 0), **k[c],
             "launches_by_path": {
                 "simpleFoam pitzDaily x5": simple.get(c, 0),
                 "icoFoam pitzDaily x5": ico.get(c, 0),
