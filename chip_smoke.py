@@ -10,19 +10,22 @@ Phases (any failure raises and the script exits non-zero):
    print ptxas's registers, shared memory and spills for every kernel;
 3. the kernel and the baseline kernel (as first written) against its
    plain torch version on the card, fp32 and fp64, at the pitzDaily x5
-   slice shape (C = 3, the Gauss gradient, and C = 1, the divergence
-   contraction) and at the edges the launcher must handle (n % 4 != 0,
+   slice shape (K = 5: C = 3, the Gauss gradient, and C = 1, the
+   divergence contraction), at the polyhedral channel's shape (K = 7,
+   n = 1,024,000, offsets 0, +-1, +-160, +-12,800; both forms), on the
+   Gauss planes of a merged-cell 3-D lattice from the generator (40x20x20,
+   ghost slots) and at the edges the launcher must handle (n % 4 != 0,
    misaligned views, |off| >= n, K = 1, tiny n, 3-D offsets, the generic
    kernel); tolerance max|d| <= 1e-13 max|out| (fp64), 1e-5 (fp32) — FMA
-   contraction is the only difference; then, for both forms at the slice
-   shape, the wall time per call back to back (CUDA events) beside a
-   torch.add of the same length, then device time per call
-   (torch.profiler) of the kernel, the baseline, the plain version and the
-   cuSPARSE CSR product of the same operator, cold (rotating over 75 MB or
-   68 MB of input sets, as the solvers' calls find their inputs) and warm
-   (one input set, in L2), the baseline and the kernel in turns, beside the
-   least time the card could take and the device time of a one-element
-   torch kernel (the floor of any launch);
+   contraction is the only difference; then, for the four timed forms
+   (K, C) in {5, 7} x {3, 1}, the wall time per call back to back (CUDA
+   events) beside a torch.add of the same length, then device time per
+   call (torch.profiler) of the kernel, the baseline, the plain version
+   and the cuSPARSE CSR product of the same operator, cold (rotating over
+   68-205 MB of input and output sets, more than the 50 MB L2, as the
+   solvers' calls find their inputs) and warm (one input set), the
+   baseline and the kernel in turns, beside the least time the card could take and the
+   device time of a one-element torch kernel (the floor of any launch);
 4. the icoFoam gdia slice in fp64 at pitzDaily x1 (every solve to 1e-12)
    for 10 steps on cuda and on cpu: U, p, phi agree to 1e-8 relative to
    their largest magnitude, iteration counts within one per solve;
@@ -46,15 +49,33 @@ Phases (any failure raises and the script exits non-zero):
    x5 (106,000 live cells), fp32, one warm-up iteration, then two timed
    windows of 5; fields finite, k and epsilon positive, continuity error
    below 0.1; ms/step, cell-updates/s over live cells, iterations per
-   solve, set-up seconds and the kernel launches by C (both forms must
-   launch) beside the card;
-10. a JSON line of kernel results (the kernel's two forms: cold times of
+   solve, set-up seconds and the kernel launches by (K, C) (both K = 5
+   forms must launch) beside the card;
+10. simpleFoam kOmegaSST with the corrected laplacian on the polyhedral
+   channel of bench_unstructured.py, fp64, 3 SIMPLE iterations each on
+   cuda and on cpu: the 16x10x10 merged-cell lattice (gdia) and the
+   24x12x12 duct bent by 1.2 rad and graded 4:1 (ELL); U, p, phi, k,
+   omega and nut agree to 1e-8 relative, iteration counts within one;
+11. the main path: bench_unstructured.py's default case, the 160x80x80
+   merged-cell channel (922,638 cells on 1,024,000 lattice slots, gdia,
+   K = 7), fp32, one warm-up iteration, two timed windows of 5 and one
+   profiled iteration; fields finite, k and omega positive, local
+   continuity error below 10 1/s and |U| below 30 m/s (3x the inlet);
+   ms/iteration, cell-updates/s, iterations per solve,
+   kernel launches and device busy share of the profiled iteration,
+   set-up seconds by stage, peak device memory and the shift-MAC launches
+   by (K, C) (both K = 7 forms must launch);
+12. the same on the curved duct at 128x64x64 (472,493 cells, ELL), one
+   warm-up iteration, one timed window of 3 and one profiled iteration;
+   its fields finite, k and omega positive (its first iterations are a
+   transient of the case: no bound on continuity and |U|);
+13. a JSON line of kernel results (the kernel's four forms: cold times of
    the kernel, the baseline, the plain version and cuSPARSE as `ms`,
    `baseline_ms`, `plain_ms` and `library_ms`, held against `bound_ms`,
-   and their warm times as `*warm_ms`, with their launches on the
-   simpleFoam path and on each other path), the card's name and power
-   limit, and the result line
-   {"ok": true, "device": {...}} last.
+   and their warm times as `*warm_ms`, with their launches on their main
+   path, simpleFoam pitzDaily x5 for K = 5 and the channel for K = 7, and
+   on each other path), the card's name and power limit, and the result
+   line {"ok": true, "device": {...}} last.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -75,6 +96,18 @@ import torch
 _ITER_RE = re.compile(r"Solving for (\w+),.*No Iterations (\d+)")
 SLICE_OFFSETS = (-560, -1, 0, 1, 560)       # pitzDaily x5 lattice: nx = 560
 SLICE_N = 560 * 200
+# the polyhedral channel as bench_unstructured.py builds it by default: a
+# 160x80x80 lattice (K = 7: offsets 0, +-1, +-nx, +-nx*ny)
+CHANNEL = dict(nx=160, ny=80, nz=80)
+CHANNEL_BENCH = dict(perturb=0.12, merge_fraction=0.04, seed=3,
+                     write_mesh=False)
+CHANNEL_OFFSETS = (-12800, -160, -1, 0, 1, 160, 12800)
+CHANNEL_N = 160 * 80 * 80
+CHANNEL_CELLS = 922638
+# its curved, graded variant (bench_unstructured.py --curve 1.2 --grade
+# 4.0) at the size of BENCH_nonlattice_r05.json: not a lattice, so ELL
+DUCT = dict(nx=128, ny=64, nz=64, curve=1.2, grade=4.0)
+DUCT_CELLS = 472493
 # the cavity as bench.py runs it by default: p by PCG with a GAMG
 # preconditioner, U by PBiCGStab/DILU
 CAVITY_BENCH = dict(p_solver="PCG", p_precond="GAMG", u_solver="PBiCGStab",
@@ -214,6 +247,8 @@ OFFSETS_SMALL = (-10, -1, 0, 1, 10)
 KERNEL_CASES = [
     ("slice", 5, 3, SLICE_N, SLICE_OFFSETS, 0),
     ("slice", 5, 1, SLICE_N, SLICE_OFFSETS, 0),
+    ("channel slice", 7, 3, CHANNEL_N, CHANNEL_OFFSETS, 0),
+    ("channel slice", 7, 1, CHANNEL_N, CHANNEL_OFFSETS, 0),
     ("3-D K=7", 7, 3, 40 * 30 * 20, OFFSETS_3D, 0),
     ("3-D K=7", 7, 1, 40 * 30 * 20, OFFSETS_3D, 0),
     ("3-D +-4096", 7, 3, 64 * 64 * 16, (-4096, -64, -1, 0, 1, 64, 4096), 0),
@@ -261,10 +296,54 @@ def _library_matrix(coeffs, offsets):
             size=(C * n, n))
 
 
+# the forms timed in phase 3: (K, C) -> (n, offsets, input sets rotated
+# through for the cold times)
+TIMED_FORMS = {
+    (5, 3): (SLICE_N, SLICE_OFFSETS, 8),         # 68 MB with the outputs
+    (5, 1): (SLICE_N, SLICE_OFFSETS, 24),        # 75 MB
+    (7, 3): (CHANNEL_N, CHANNEL_OFFSETS, 2),     # 205 MB
+    (7, 1): (CHANNEL_N, CHANNEL_OFFSETS, 2),     # 74 MB
+}
+
+
+def _kernel_generated_lattice():
+    """The K = 7 forms on the Gauss planes of a merged-cell 3-D lattice
+    from the generator (the channel at 40x20x20: ghost slots, offsets 0,
+    +-1, +-40, +-800) against the plain version."""
+    from rapidcfd_tpu_torch.mesh.mesharrays import build_gdia_mesh_arrays
+    from rapidcfd_tpu_torch.ops import gdia_mac as gm
+    from rapidcfd_tpu_torch.utils.unstructured import unstructured_box
+    lat = {}
+    pmesh = unstructured_box(40, 20, 20, size=(4.0, 1.0, 1.0), perturb=0.12,
+                             merge_fraction=0.04, seed=3, lattice_out=lat)
+    g = torch.Generator(device="cuda").manual_seed(77)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-13)):
+        mesh, _, _ = build_gdia_mesh_arrays(pmesh, lat, device="cuda",
+                                            dtype=dtype)
+        planes = mesh.gauss
+        ghosts = int((mesh.gdia.primary == 0).sum())
+        check(len(planes.offsets) == 7 and ghosts > 0,
+              f"expected a K = 7 lattice with ghost slots, got offsets "
+              f"{planes.offsets} and {ghosts} ghost slots")
+        x = torch.randn(mesh.n_cells, generator=g, dtype=dtype,
+                        device="cuda")
+        for C, coeffs in ((3, planes.coeffs), (1, planes.coeffs_i[1])):
+            ref = gm.shift_mac_cols_plain(x, coeffs, planes.offsets)
+            out = gm.shift_mac_cols(x, coeffs, planes.offsets)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            lim = tol * ref.abs().max().item()
+            check(err <= lim, f"kernel disagrees with the plain version on "
+                  f"the generated lattice ({dtype}, C={C}): {err} > {lim}")
+            print(f"[3] {str(dtype)[6:]} generated merged-cell lattice "
+                  f"40x20x20 ({ghosts} ghost slots), K=7 C={C} offsets "
+                  f"{planes.offsets}: max|d| {err:.2e} (limit {lim:.2e})")
+
+
 def phase_kernel(smi: str) -> dict:
     from rapidcfd_tpu_torch.ops import gdia_mac as gm
     g = torch.Generator(device="cuda").manual_seed(1234)
-    errs = {}               # C -> max|d| of the kernel at the fp32 slice
+    errs = {}          # (K, C) -> max|d| of the kernel at the fp32 slices
     for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-13)):
         for what, K, C, n, offs, shift in KERNEL_CASES:
             x, coeffs = _kernel_inputs(K, C, n, shift, dtype, g)
@@ -282,44 +361,45 @@ def phase_kernel(smi: str) -> dict:
                       f"{tol * scale}")
                 worst.append(f"{impl} {err:.2e}")
                 if (impl == "kernel" and dtype == torch.float32
-                        and what == "slice"):
-                    errs[C] = err
+                        and what in ("slice", "channel slice")):
+                    errs[K, C] = err
             print(f"[3] {str(dtype)[6:]} {what}, K={K} C={C} n={n}: max|d| "
                   f"{', '.join(worst)} (limit {tol * scale:.2e})")
+    _kernel_generated_lattice()
     res = {}
-    for C in (3, 1):
-        x, coeffs = _kernel_inputs(5, C, SLICE_N, 0, torch.float32, g)
-        res[C] = dict(
-            max_abs_err=errs[C],
-            wall_ms=_time_ms(lambda: gm.shift_mac_cols(x, coeffs,
-                                                       SLICE_OFFSETS)),
+    for (K, C), (n, offs, _) in TIMED_FORMS.items():
+        x, coeffs = _kernel_inputs(K, C, n, 0, torch.float32, g)
+        res[K, C] = dict(
+            max_abs_err=errs[K, C],
+            wall_ms=_time_ms(lambda: gm.shift_mac_cols(x, coeffs, offs)),
             plain_wall_ms=_time_ms(lambda: gm.shift_mac_cols_plain(
-                x, coeffs, SLICE_OFFSETS)),
+                x, coeffs, offs)),
             add_wall_ms=_time_ms(lambda: torch.add(x, x)))
-        print(f"[3] fp32 slice shape C={C}, wall time per call back to back:"
-              f" kernel {res[C]['wall_ms'] * 1e3:.2f} us, plain "
-              f"{res[C]['plain_wall_ms'] * 1e3:.2f} us, torch.add of n "
-              f"values {res[C]['add_wall_ms'] * 1e3:.2f} us (card: {smi})")
+        print(f"[3] fp32 K={K} C={C} n={n}, wall time per call back to "
+              f"back: kernel {res[K, C]['wall_ms'] * 1e3:.2f} us, plain "
+              f"{res[K, C]['plain_wall_ms'] * 1e3:.2f} us, torch.add of n "
+              f"values {res[K, C]['add_wall_ms'] * 1e3:.2f} us (card: {smi})")
+        del x, coeffs
     # the wall times above come before any profiler session of the process
     one = torch.zeros(1, device="cuda")
     floor = _device_ms(lambda: one.add_(1.0))
     print(f"[3] device time of a one-element torch kernel: "
           f"{floor * 1e3:.2f} us (card: {smi})")
-    for C in (3, 1):
-        res[C].update(_time_form(gm, C, smi), floor_ms=floor)
+    for (K, C), form in TIMED_FORMS.items():
+        res[K, C].update(_time_form(gm, K, C, *form, smi), floor_ms=floor)
+        torch.cuda.empty_cache()
     return res
 
 
-def _time_form(gm, C: int, smi: str) -> dict:
-    """Device time per call at the fp32 slice shape of the kernel, the
-    baseline kernel, the plain version and the cuSPARSE product: cold
-    (calls rotating over enough input sets to exceed the 50 MB L2) and
-    warm (50 calls on one input set, which stays in L2); the baseline and
-    the kernel in turns (baseline, kernel, kernel, baseline)."""
-    K, n, offs = 5, SLICE_N, SLICE_OFFSETS
-    g = torch.Generator(device="cuda").manual_seed(99 + C)
+def _time_form(gm, K: int, C: int, n: int, offs, n_sets: int,
+               smi: str) -> dict:
+    """Device time per call at fp32 of the kernel, the baseline kernel,
+    the plain version and the cuSPARSE product: cold (calls rotating over
+    `n_sets` input sets, more than the 50 MB L2 holds) and warm (50 calls
+    on one input set; from L2 where it fits); the baseline and the kernel
+    in turns (baseline, kernel, kernel, baseline)."""
+    g = torch.Generator(device="cuda").manual_seed(99 + 10 * K + C)
     nbytes = (n + K * C * n + C * n) * 4       # inputs once, output once
-    n_sets = {1: 24, 3: 8}[C]                  # 75 MB and 68 MB of inputs
     sets = [_kernel_inputs(K, C, n, 0, torch.float32, g)
             for _ in range(n_sets)]
     mats = [_library_matrix(c, offs) for _, c in sets]
@@ -330,6 +410,7 @@ def _time_form(gm, C: int, smi: str) -> dict:
     lib_err = (lib - ref).abs().max().item()
     check(lib_err <= 1e-5 * ref.abs().max().item(),
           f"cuSPARSE product disagrees with the plain version: {lib_err}")
+    del ref, lib
     fns = {
         "kernel": lambda i: gm.shift_mac_cols(*sets[i], offs),
         "baseline": lambda i: gm.shift_mac_cols_baseline(*sets[i], offs),
@@ -353,10 +434,11 @@ def _time_form(gm, C: int, smi: str) -> dict:
     ms = {k: sum(v) / len(v) for k, v in t.items()}
     bound = max((nbytes / HBM_BYTES_PER_S, "bytes"),
                 (2 * K * C * n / FP32_FLOPS, "operations"))
-    print(f"[3] fp32 slice shape C={C} (K=5, n={n}), device time per call, "
-          f"us, cold ({n_sets} input sets, {n_sets * nbytes / 1e6:.1f}"
-          f" MB) / warm: bound {bound[0] * 1e6:.2f} ({nbytes} bytes, by "
-          f"{bound[1]}) (card: {smi})")
+    print(f"[3] fp32 K={K} C={C} n={n}, device time per call, us, cold "
+          f"({n_sets} input sets, {n_sets * nbytes / 1e6:.1f} MB with their "
+          f"outputs) / warm: "
+          f"bound {bound[0] * 1e6:.2f} ({nbytes} bytes, by {bound[1]}) "
+          f"(card: {smi})")
     for name in ("baseline", "kernel", "plain", "library"):
         c, w = t[(name, "cold")], t[(name, "warm")]
         share = (f"; {bound[0] * 1e3 / ms[(name, 'cold')]:.0%} of the bound "
@@ -454,7 +536,7 @@ def phase_main_path(tmp: str, smi: str) -> dict:
         write=False, max_steps=steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(gdia_mac.LAUNCHES_BY_C)
+    launches = dict(gdia_mac.LAUNCHES_BY_KC)
     live = int(case.maps.cell_primary.sum())
     print(f"[5] fp32 pitzDaily x5: {case.mesh.n_cells} slots, {live} live "
           f"cells, {len(case.step_seconds)} steps, {wall:.2f} s with setup")
@@ -475,7 +557,7 @@ def phase_main_path(tmp: str, smi: str) -> dict:
     check(len(cont) == len(co) == steps, "missing log lines")
     check(max(cont) < 0.1 and max(co) < 10.0,
           f"run not bounded: continuity {max(cont)}, Courant {max(co)}")
-    check(launches.get(3, 0) >= 3 * steps,
+    check(launches.get((5, 3), 0) >= 3 * steps,
           f"shift-MAC kernel launched {launches} times in {steps} steps")
     st = case.step_seconds
     steady = sorted(st[1:])[len(st[1:]) // 2]
@@ -565,7 +647,7 @@ def phase_cavity_main(tmp: str, smi: str) -> dict:
         stats.append(st)
         if w:
             windows.append(time.perf_counter() - t0)
-    launches = dict(gdia_mac.LAUNCHES_BY_C)
+    launches = dict(gdia_mac.LAUNCHES_BY_KC)
     for f in (U, p, phi):
         check(bool(torch.isfinite(f.data).all()), f"{f.name} not finite")
     check(U.data.shape == (mesh.n_cells, 3) and p.data.shape
@@ -696,7 +778,7 @@ def phase_simple_main(tmp: str, smi: str) -> dict:
                 steps += 1
             torch.cuda.synchronize()
             windows.append(time.perf_counter() - t0)
-    launches = dict(gdia_mac.LAUNCHES_BY_C)
+    launches = dict(gdia_mac.LAUNCHES_BY_KC)
     for f in (U, p, phi, *ts.values()):
         check(bool(torch.isfinite(f.data).all()), f"{f.name} not finite")
     check(U.data.shape == (mesh.n_cells, 3)
@@ -722,12 +804,267 @@ def phase_simple_main(tmp: str, smi: str) -> dict:
           + ", ".join(f"{1e3 * w / SIMPLE_STEPS:.3f}" for w in windows)
           + f" ms/step; median {1e3 * med / SIMPLE_STEPS:.3f} ms/step, "
           f"{live * SIMPLE_STEPS / med:.1f} cell-updates/s (card: {smi})")
-    per_step = {c: n / steps for c, n in sorted(launches.items())}
-    print(f"[9] shift-MAC launches in {steps} iterations: {launches} "
-          f"(per iteration {per_step})")
+    per_step = {f"K={k} C={c}": n / steps
+                for (k, c), n in sorted(launches.items())}
+    print(f"[9] shift-MAC launches in {steps} iterations by (K, C): "
+          f"{launches} (per iteration {per_step})")
     for c in (3, 1):
-        check(launches.get(c, 0) > 0,
-              f"the shift-MAC kernel with C = {c} was not launched")
+        check(launches.get((5, c), 0) > 0,
+              f"the shift-MAC kernel with K = 5, C = {c} was not launched")
+    return launches
+
+
+def _build_channel(d: str, dims: dict, device, dtype):
+    """The channel (or the curved duct) as bench_unstructured.py builds
+    it: the case written without its mesh, the PolyMesh and lattice
+    embedding in memory, Case(pmesh=, lattice=), kOmegaSST and make_step.
+    Returns (case, state, step, set-up seconds by stage, live cells)."""
+    from rapidcfd_tpu_torch.models.transport import SinglePhaseTransportModel
+    from rapidcfd_tpu_torch.models.turbulence import make_ras_model
+    from rapidcfd_tpu_torch.ops import fvc
+    from rapidcfd_tpu_torch.solvers import simplefoam
+    from rapidcfd_tpu_torch.solvers.case import Case
+    from rapidcfd_tpu_torch.solvers.controls import SimpleControl
+    from rapidcfd_tpu_torch.utils.logging import captured
+    from rapidcfd_tpu_torch.utils.unstructured import (
+        unstructured_channel_case)
+    lattice = {} if not dims.get("curve") else None
+    stages = {}
+    t0 = time.perf_counter()
+    pmesh = unstructured_channel_case(d, end_time=10 ** 9,
+                                      lattice_out=lattice, **dims,
+                                      **CHANNEL_BENCH)
+    stages["generate"] = time.perf_counter() - t0
+    with captured():
+        t0 = time.perf_counter()
+        case = Case(d, device=device, dtype=dtype, pmesh=pmesh,
+                    lattice=lattice)
+        U, p = case.read_field("U"), case.read_field("p")
+        phi = fvc.flux(case.mesh, U)
+        transport = SinglePhaseTransportModel(case.transport_properties())
+        turb = make_ras_model(case, U)
+        ts = turb.init_state(U)
+        step = simplefoam.make_step(case, transport, turb,
+                                    SimpleControl(case))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        stages["case"] = time.perf_counter() - t0
+    stages.update(case.setup_seconds)
+    return case, (U, p, phi, ts), step, stages, pmesh.n_cells
+
+
+def _channel_its(stats) -> list:
+    """A SIMPLE iteration's iteration counts, in the order simpleFoam
+    logs them: Ux, Uy, Uz, p (each corrector), then the turbulence fields
+    by name."""
+    its = [(f"U{c}", int(pf[2])) for c, pf in zip("xyz", stats["u_perf"])]
+    its += [("p", int(pf[2])) for pf in stats["p_perf"]]
+    return its + [(k, int(pf[2])) for k, pf in sorted(stats["turb"].items())]
+
+
+def phase_channel_agreement(tmp: str):
+    """The polyhedral channel (kOmegaSST, corrected laplacian) in fp64 for
+    3 SIMPLE iterations each on cuda and on cpu: the 16x10x10 merged-cell
+    lattice on gdia and the 24x12x12 curved duct on ELL."""
+    from rapidcfd_tpu_torch.utils.logging import captured
+    for tag, dims, layout in (
+            ("channel 16x10x10", dict(nx=16, ny=10, nz=10), "gdia"),
+            ("curved duct 24x12x12", dict(nx=24, ny=12, nz=12, curve=1.2,
+                                          grade=4.0), "ELL")):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            case, (U, p, phi, ts), step, _, _ = _build_channel(
+                f"{tmp}/{tag.split()[0]}_{dev}", dims, torch.device(dev),
+                torch.float64)
+            check((case.mesh.gdia is not None) == (layout == "gdia"),
+                  f"{tag} did not take the {layout} path")
+            its = []
+            with captured():
+                for _ in range(3):
+                    U, p, phi, ts, st = step(U, p, phi, ts)
+                    its += _channel_its(st)
+            outs[dev] = ((case, U, p, phi, ts), its)
+            print(f"[10] fp64 {tag} ({layout}), 3 iterations on {dev}: "
+                  f"{time.perf_counter() - t0:.2f} s with set-up")
+        (gout, g_its), (cout, c_its) = outs["cuda"], outs["cpu"]
+        errs = _simple_rel_errs(gout, cout)
+        print(f"[10] {tag} cuda vs cpu, relative max|d|: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        check(sorted(errs) == ["U", "k", "nut", "omega", "p", "phi"]
+              and all(v <= 1e-8 for v in errs.values()),
+              f"fp64 {tag} cuda and cpu runs disagree: {errs}")
+        check(len(g_its) == len(c_its) == 3 * 7,
+              f"{tag}: unexpected number of solves")
+        diffs = [(i, a, b) for i, (a, b) in enumerate(zip(g_its, c_its))
+                 if a != b]
+        for i, a, b in diffs:
+            print(f"[10] {tag} solve {i} ({a[0]}): cuda {a[1]} iterations, "
+                  f"cpu {b[1]}")
+        check(all(a[0] == b[0] and abs(a[1] - b[1]) <= 1
+                  for _, a, b in diffs),
+              f"{tag}: iteration counts differ by more than one")
+        print(f"[10] {tag} iteration counts: {len(diffs)} of {len(g_its)} "
+              f"solves differ (by one); cuda: {g_its}")
+
+
+def _profiled_iteration(step, state):
+    """One more SIMPLE iteration under torch.profiler (CUDA activity):
+    (new state, stats, kernel launches, device busy seconds, wall
+    seconds, {shift-MAC kernel name: launches})."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        *new, st = step(*state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total", 0.0) for e in kern)
+    mac = {}
+    for e in kern:
+        m = re.search(r"(mac_\w+|ref_kernel)(<[^>]*>)?", e.key)
+        if m:
+            mac[m.group(0)] = mac.get(m.group(0), 0) + int(e.count)
+    return (tuple(new), st, sum(int(e.count) for e in kern), busy / 1e6,
+            wall, mac)
+
+
+def _run_channel_path(tag: str, tmp: str, dims: dict, cells: int,
+                      windows_of: tuple, smi: str, bounded: bool) -> dict:
+    """The fp32 main path of the channel or the duct: set-up, one warm-up
+    iteration, timed windows, then one profiled iteration. `bounded`
+    also holds the run below the channel's divergence bounds. Returns
+    the shift-MAC launches by (K, C) over the warm-up and the windows
+    (counts reset just before)."""
+    from rapidcfd_tpu_torch.ops import gdia_mac
+    from rapidcfd_tpu_torch.utils.logging import captured
+    torch.cuda.reset_peak_memory_stats()
+    case, state, step, stages, live = _build_channel(
+        f"{tmp}/{tag.split()[0]}", dims, torch.device("cuda"),
+        torch.float32)
+    mesh = case.mesh
+    layout = "gdia" if mesh.gdia is not None else f"ELL K={mesh.K}"
+    check(live == cells, f"expected {cells} cells, got {live}")
+    print(f"{tag} fp32: {live} cells on {mesh.n_cells} slots ({layout}); "
+          f"set-up by stage: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items()))
+    n_win, steps_per = windows_of
+    stats, windows, steps = [], [], 0
+    gdia_mac.reset_launches()
+    with captured():
+        t0 = time.perf_counter()
+        *state, st = step(*state)                       # warm-up
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        stats.append(st)
+        steps += 1
+        for _ in range(n_win):
+            t0 = time.perf_counter()
+            for _ in range(steps_per):
+                *state, st = step(*state)
+                stats.append(st)
+                steps += 1
+            torch.cuda.synchronize()
+            windows.append(time.perf_counter() - t0)
+        launches = dict(gdia_mac.LAUNCHES_BY_KC)
+        state, st, n_kernels, busy, t_prof, mac = _profiled_iteration(
+            step, state)
+        stats.append(st)
+    U, p, phi, ts = state
+    for f in (U, p, phi, *ts.values()):
+        check(bool(torch.isfinite(f.data).all()), f"{tag}: {f.name} not "
+              "finite")
+    check(U.data.shape == (mesh.n_cells, 3) and p.data.shape
+          == (mesh.n_cells,) and phi.data.shape == (mesh.n_faces,),
+          f"{tag}: unexpected shapes")
+    prim = torch.as_tensor(case.maps.cell_primary, device=p.data.device)
+    for name in ("k", "omega"):
+        check(bool((ts[name].data[prim] > 0).all()),
+              f"{tag}: {name} not positive")
+    # the channel's scales are u_in = 10 m/s and a 1 m duct; with p to
+    # relTol 0.05 its local continuity error is 0.1-0.4 1/s in the first
+    # iterations (fp64 and fp32 alike), and a diverging run passes u_in/H
+    # = 10 1/s and 3 u_in within a few iterations. The curved duct is
+    # held to finite fields only: its first iterations are a transient of
+    # the case itself (tools/channel_iterations.py at 64x32x32, fp32 and
+    # fp64 alike: continuity errors of 24-141 1/s and |U| up to 27 m/s in
+    # the first 5 iterations, 5 1/s and 10.4 m/s at iteration 25)
+    cont = max(float(s["cont"][0]) for s in stats)
+    u_max = float(U.data.abs().max())
+    check(not bounded or (cont < 10.0 and u_max < 30.0),
+          f"{tag}: run not bounded: continuity error {cont}, |U| {u_max}")
+
+    def its(get):
+        v = [int(get(s)[2]) for s in stats]
+        return f"mean {np.mean(v):.2f} max {max(v)}"
+    # p solves that stopped above their tolerance: the solvers' stall
+    # guard (as in the JAX package) or maxIter cut them short
+    pc = case.solver_controls("p")
+    short = [(i, int(pf[2]), float(pf[1]) / float(pf[0]))
+             for i, s in enumerate(stats) for pf in s["p_perf"]
+             if float(pf[1]) > max(pc.tolerance, pc.rel_tol * float(pf[0]))]
+    print(f"{tag} p solves stopped above their tolerance (relTol "
+          f"{pc.rel_tol}): {len(short)} of "
+          f"{sum(len(s['p_perf']) for s in stats)}"
+          + (f" (iteration, PCG iterations, final/initial): {short}"
+             if short else ""))
+    med = statistics.median(windows)
+    print(f"{tag} {steps + 1} iterations: p {its(lambda s: s['p_perf'][0])} "
+          f"(corrector 2: {its(lambda s: s['p_perf'][-1])}), U "
+          f"{its(lambda s: s['u_perf'][0])}, k "
+          f"{its(lambda s: s['turb']['k'])}, omega "
+          f"{its(lambda s: s['turb']['omega'])} per solve; max continuity "
+          f"error {cont:.3e}; U max {float(U.data.abs().max()):.3f}, nut max "
+          f"{float(ts['nut'].data.max()):.3e}")
+    print(f"{tag} first iteration {t_first * 1e3:.1f} ms; windows of "
+          f"{steps_per}: "
+          + ", ".join(f"{1e3 * w / steps_per:.3f}" for w in windows)
+          + f" ms/iteration; median {1e3 * med / steps_per:.3f} "
+          f"ms/iteration, {live * steps_per / med:.1f} cell-updates/s "
+          f"(card: {smi})")
+    print(f"{tag} profiled iteration: {t_prof * 1e3:.1f} ms, {n_kernels} "
+          f"kernel launches, device busy {busy * 1e3:.2f} ms "
+          f"({busy / t_prof:.1%}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+          f"(card: {smi})")
+    per_step = {f"K={k} C={c}": n / steps
+                for (k, c), n in sorted(launches.items())}
+    print(f"{tag} shift-MAC launches in {steps} iterations by (K, C): "
+          f"{launches} (per iteration {per_step}); kernels of the "
+          f"profiled iteration: {mac}")
+    check(not any("generic" in name for name in mac),
+          f"{tag}: a shift-MAC call took the generic kernel: {mac}")
+    return launches
+
+
+CHANNEL_WINDOWS = (2, 5)            # two timed windows of 5 iterations
+DUCT_WINDOWS = (1, 3)               # one timed window of 3 iterations
+
+
+def phase_channel_main(tmp: str, smi: str) -> dict:
+    """The main path: simpleFoam kOmegaSST on the 160x80x80 merged-cell
+    channel (922,638 cells) in fp32 on the 3-D gdia lattice. Both K = 7
+    forms of the shift-MAC kernel must launch."""
+    launches = _run_channel_path("[11] channel 160x80x80", tmp, CHANNEL,
+                                 CHANNEL_CELLS, CHANNEL_WINDOWS, smi,
+                                 bounded=True)
+    for c in (3, 1):
+        check(launches.get((7, c), 0) > 0,
+              f"the shift-MAC kernel with K = 7, C = {c} was not launched")
+    check(not any(k != 7 for k, _ in launches),
+          f"unexpected shift-MAC forms on the channel: {launches}")
+    return launches
+
+
+def phase_duct_main(tmp: str, smi: str) -> dict:
+    """The curved, graded duct at 128x64x64 (472,493 cells) in fp32 on
+    the padded ELL (detect_lattice rejects it): no shift-MAC launch."""
+    launches = _run_channel_path("[12] curved duct 128x64x64", tmp, DUCT,
+                                 DUCT_CELLS, DUCT_WINDOWS, smi,
+                                 bounded=False)
+    check(not launches, f"the ELL path launched the kernel: {launches}")
     return launches
 
 
@@ -742,17 +1079,30 @@ def main():
         cavity = phase_cavity_main(tmp, smi)
         phase_simple_agreement(tmp)
         simple = phase_simple_main(tmp, smi)
+        phase_channel_agreement(tmp)
+        channel = phase_channel_main(tmp, smi)
+        duct = phase_duct_main(tmp, smi)
     kernels = []
-    for c, what in ((3, "Gauss gradient"), (1, "divergence contraction")):
+    for (K, c), what, main_path, launches in (
+            ((5, 3), "Gauss gradient", "simpleFoam pitzDaily x5", simple),
+            ((5, 1), "divergence contraction", "simpleFoam pitzDaily x5",
+             simple),
+            ((7, 3), "Gauss gradient, 3-D", "simpleFoam channel 160x80x80",
+             channel),
+            ((7, 1), "divergence contraction, 3-D",
+             "simpleFoam channel 160x80x80", channel)):
         kernels.append({
-            "name": f"shift_mac C={c} ({what})", "route": "cuda",
+            "name": f"shift_mac K={K} C={c} ({what})", "route": "cuda",
             "source": "rapidcfd_tpu_torch/csrc/shift_mac.cu",
             "replaces": "rapidcfd_tpu/ops/pallas_gdia.py:67",
-            "launches": simple.get(c, 0), **k[c],
+            "launches": launches.get((K, c), 0), **k[K, c],
+            "main_path": main_path,
             "launches_by_path": {
-                "simpleFoam pitzDaily x5": simple.get(c, 0),
-                "icoFoam pitzDaily x5": ico.get(c, 0),
-                "icoFoam cavity 384": cavity.get(c, 0)}})
+                "simpleFoam pitzDaily x5": simple.get((K, c), 0),
+                "icoFoam pitzDaily x5": ico.get((K, c), 0),
+                "icoFoam cavity 384": cavity.get((K, c), 0),
+                "simpleFoam channel 160x80x80": channel.get((K, c), 0),
+                "simpleFoam curved duct 128x64x64": duct.get((K, c), 0)}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,10 @@ with vbc/gbc derived generically as ``evaluate - vic*psi_c`` and
 ``snGrad(evaluate) - gic*psi_c`` (the reference fvPatchField contract,
 fvPatchField.H:80). Descriptors are frozen dataclasses; their tensor
 parameters live in the field's ``bcdata``. Ported: calculated,
-fixedValue, zeroGradient, empty, and kEpsilon's wall functions
-nutkWallFunction, kqRWallFunction and epsilonWallFunction (the JAX
-package keeps those in models/turbulence.py, which re-exports them here);
+fixedValue, zeroGradient, empty, and the wall functions of kEpsilon and
+kOmegaSST: nutkWallFunction, kqRWallFunction, epsilonWallFunction and
+omegaWallFunction (the JAX package keeps those in models/turbulence.py,
+which re-exports them here);
 other types raise in `make_bc`.
 """
 
@@ -229,9 +230,19 @@ class EpsilonWallFunction(ZeroGradient):
     word = "epsilonWallFunction"
 
 
+@dataclass(frozen=True)
+class OmegaWallFunction(ZeroGradient):
+    """omega at a wall (rapidcfd_tpu/models/turbulence.py:104-107): the
+    patch value follows the wall cell; the wall cells' omega and
+    production are imposed by the model (models/turbulence.py
+    KOmegaSST._wall_fix)."""
+    word = "omegaWallFunction"
+
+
 BC_TYPES = {cls.word: cls for cls in (Calculated, FixedValue, ZeroGradient,
                                       Empty, NutkWallFunction,
-                                      KqRWallFunction, EpsilonWallFunction)}
+                                      KqRWallFunction, EpsilonWallFunction,
+                                      OmegaWallFunction)}
 
 
 def make_bc(type_word: str, patch_idx: int, pd=None) -> BC:

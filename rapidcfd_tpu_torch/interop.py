@@ -1,12 +1,13 @@
 """Carry state from the JAX package into the port.
 
 Each function takes an object of the JAX package (a MeshArrays with its
-GAMG levels, VolField, SurfaceField, FvMatrix or a turbulence model's
-state dict) and rebuilds the port's counterpart on a given device and
-dtype. The structured multigrid levels are built per solve from the
-matrix, so there is nothing of them to carry. Arrays are read through the numpy array protocol
-(`np.asarray`), so this module never imports jax; the caller holds the
-JAX objects. The tests use it to feed both packages identical inputs.
+GAMG levels, on the ELL or the gdia layout, merged-cell ghost slots
+included; a VolField, SurfaceField, FvMatrix, a turbulence model's state
+dict or kOmegaSST's wall distance) and rebuilds the port's counterpart on
+a given device and dtype. The structured multigrid levels are built per
+solve from the matrix, so there is nothing of them to carry. Arrays are
+read through the numpy array protocol (`np.asarray`), so this module never
+imports jax; the caller holds the JAX objects. The tests use it to feed both packages identical inputs.
 """
 
 from __future__ import annotations
@@ -137,10 +138,17 @@ def vol_field(src, *, device, dtype) -> VolField:
 
 
 def turb_state(src, *, device, dtype) -> dict:
-    """A RAS model's state dict (kEpsilon: k, epsilon and nut, with their
-    wall-function BCs) as the port's VolFields."""
+    """A RAS model's state dict (kEpsilon: k, epsilon and nut; kOmegaSST:
+    k, omega and nut; with their wall-function BCs) as the port's
+    VolFields."""
     return {name: vol_field(f, device=device, dtype=dtype)
             for name, f in src.items()}
+
+
+def wall_distance(src_model, *, device, dtype) -> torch.Tensor:
+    """The wall distance per cell slot of a JAX kOmegaSST model (its `y`),
+    for the port's model of the same case."""
+    return tensor(src_model.y, device=device, dtype=dtype)
 
 
 def surface_field(src, *, device, dtype) -> SurfaceField:

@@ -42,12 +42,15 @@ def face_values(mesh: MeshArrays, vf: VolField, scheme="linear",
 # ---------------------------------------------------------------------------
 
 def surface_sum_faces(mesh: MeshArrays, face_data: torch.Tensor,
-                      signed: bool = True) -> torch.Tensor:
+                      signed: bool = True, raw: bool = False
+                      ) -> torch.Tensor:
     """Per-cell sum of face data (owner +, neighbour - when signed). ELL:
     out[c] = sum_k sign[c,k] * x[face[c,k]] (the reference's cell-gather
     functor, fvcSurfaceIntegrate.C:41-100). gdia: plane shifts over the
     internal faces plus one batched boundary fold, folded to primary
-    slots and ghost-synced (cell-field semantics)."""
+    slots and ghost-synced (cell-field semantics) unless raw=True, which
+    keeps the per-slot partial sums (assembly space: the matrix folds
+    them later, in component_system)."""
     g = mesh.gdia
     if g is None:
         gathered = face_data[mesh.cell_faces]
@@ -55,6 +58,8 @@ def surface_sum_faces(mesh: MeshArrays, face_data: torch.Tensor,
         return (gathered * _ext(w, gathered)).sum(1)
     out = gd.surface_sum_internal(g, face_data[:mesh.n_internal], signed)
     out = mesh.add_at_boundary_cells(out, face_data[mesh.n_internal:])
+    if raw:
+        return out
     return gd.sync(g, gd.fold(g, out))
 
 

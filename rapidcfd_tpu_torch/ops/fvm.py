@@ -1,7 +1,7 @@
 """fvm — implicit finite-volume operators returning FvMatrix systems
 (port of rapidcfd_tpu/ops/fvm.py: Euler and steadyState ddt, Gauss and
-bounded Gauss div, orthogonal laplacian, the Sp/Su/SuSp sources, with
-negSumDiag as an ELL gather or by gdia plane shifts)."""
+bounded Gauss div, the orthogonal and corrected laplacian, the Sp/Su/SuSp
+sources, with negSumDiag as an ELL gather or by gdia plane shifts)."""
 
 from __future__ import annotations
 
@@ -105,16 +105,18 @@ def _gamma_faces(mesh, gamma):
 
 def laplacian(mesh: MeshArrays, gamma, vf: VolField,
               scheme: str = "orthogonal", env=None) -> FvMatrix:
-    """fvm::laplacian(gamma, psi), uncorrected (reference:
-    gaussLaplacianScheme fvmLaplacianUncorrected: upper =
-    deltaCoeffs*gamma_f*magSf, negSumDiag; boundary via the BC
-    gradient-coefficient hooks)."""
-    if scheme in ("corrected", "limited"):
-        raise NotImplementedError(f"laplacian '{scheme}' correction is not "
-                                  "ported yet (orthogonal only)")
+    """fvm::laplacian(gamma, psi) (reference: gaussLaplacianScheme
+    fvmLaplacianUncorrected: upper = deltaCoeffs*gamma_f*magSf,
+    negSumDiag; boundary via the BC gradient-coefficient hooks).
+    'corrected' and 'limited' take the non-orthogonal delta coefficients
+    in the implicit part and add the explicit non-orthogonal face-flux
+    correction gamma_f*|Sf|*(k . grad_f psi) to the source (rapidcfd_tpu/
+    ops/fvm.py:302-365, which applies no limiter for 'limited')."""
     g_f, g_dims = _gamma_faces(mesh, gamma)
     n_int = mesh.n_internal
-    g_int = g_f[:n_int] * mesh.mag_sf[:n_int] * mesh.delta_coeffs
+    corrected = scheme in ("corrected", "limited")
+    dc = mesh.nonorth_delta_coeffs if corrected else mesh.delta_coeffs
+    g_int = g_f[:n_int] * mesh.mag_sf[:n_int] * dc
     diag = _neg_sum_diag(mesh, g_int, g_int)
 
     m = FvMatrix.zeros(mesh, vf, g_dims * _AREA * vf.dims / dim_length,
@@ -132,8 +134,25 @@ def laplacian(mesh: MeshArrays, gamma, vf: VolField,
         gb = _ext(gb, gbc)
         ics.append(gb * gic * torch.ones_like(gbc))
         bcs_.append(-gb * gbc)
-    return m.replace(diag=diag, lower=g_int, upper=g_int,
-                     internal_coeffs=tuple(ics), boundary_coeffs=tuple(bcs_))
+    m = m.replace(diag=diag, lower=g_int, upper=g_int,
+                  internal_coeffs=tuple(ics), boundary_coeffs=tuple(bcs_))
+    if not corrected:
+        return m
+
+    # explicit non-orthogonal correction gamma_f*|Sf|*(k . grad_f psi);
+    # it belongs to the operator, so it leaves the source. On gdia meshes
+    # the face sum stays per slot (raw): the matrix folds its rows later.
+    from . import fvc
+    gf = fvc.face_values(mesh, fvc.grad(mesh, vf))[:n_int]
+    if vf.data.dim() == 1:
+        corr = (mesh.corr_vecs * gf).sum(-1)
+    else:
+        corr = (mesh.corr_vecs[:, :, None] * gf).sum(1)
+    corr = _ext(g_f[:n_int] * mesh.mag_sf[:n_int], corr) * corr
+    full = torch.cat([corr, corr.new_zeros((mesh.n_boundary,)
+                                           + corr.shape[1:])])
+    return m.replace(
+        source=m.source - fvc.surface_sum_faces(mesh, full, raw=True))
 
 
 # ---------------------------------------------------------------------------

@@ -33,8 +33,9 @@ timing (one thread per cell, as the kernel was first written) on the same
 inputs; `chip_smoke.py` times it against `shift_mac_cols`. It does not
 count.
 
-`LAUNCHES_BY_C` counts kernel launches of `shift_mac_cols` (only where the
-kernel is launched) by C (3: the Gauss gradient, 1: the divergence
+`LAUNCHES_BY_KC` counts kernel launches of `shift_mac_cols` (only where
+the kernel is launched) by (K, C): K offsets (5 on a 2-D lattice, 7 on a
+3-D one) and C coefficient rows (3: the Gauss gradient, 1: the divergence
 contraction), so a run can show that its main path went through the
 kernel in each form; `reset_launches()` empties it.
 """
@@ -59,13 +60,13 @@ _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
 _MAX_K = 8
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
-#: kernel launches since the last reset_launches(), by C (the
-#: coefficient rows per call)
-LAUNCHES_BY_C: dict[int, int] = {}
+#: kernel launches since the last reset_launches(), by (K, C): the
+#: offsets and the coefficient rows per call
+LAUNCHES_BY_KC: dict[tuple[int, int], int] = {}
 
 
 def reset_launches():
-    LAUNCHES_BY_C.clear()
+    LAUNCHES_BY_KC.clear()
 
 
 _LIB = None
@@ -215,8 +216,8 @@ def shift_mac_cols(x: torch.Tensor, coeffs: torch.Tensor,
     if not x.is_cuda and x.device.type == "cpu":
         return shift_mac_cols_plain(x, coeffs, offsets)
     out = _launch(x, coeffs, offsets, False)
-    C = out.shape[0]
-    LAUNCHES_BY_C[C] = LAUNCHES_BY_C.get(C, 0) + 1
+    K, C = coeffs.shape[0], out.shape[0]
+    LAUNCHES_BY_KC[K, C] = LAUNCHES_BY_KC.get((K, C), 0) + 1
     return out
 
 
@@ -224,6 +225,6 @@ def shift_mac_cols_baseline(x: torch.Tensor, coeffs: torch.Tensor,
                             offsets) -> torch.Tensor:
     """The same function through the baseline kernel (CUDA tensors only),
     for timing against `shift_mac_cols`, which never runs it. Not counted
-    in LAUNCHES_BY_C."""
+    in LAUNCHES_BY_KC."""
     _check(x, coeffs, offsets)
     return _launch(x, coeffs, offsets, True)

@@ -27,29 +27,40 @@ from ..utils.unstructured import detect_lattice
 
 class Case:
     def __init__(self, case_dir: str, *, device: torch.device,
-                 dtype: torch.dtype, pmesh=None, gdia_auto: bool = True):
+                 dtype: torch.dtype, pmesh=None, lattice: dict | None = None,
+                 gdia_auto: bool = True):
         """pmesh injects an in-memory PolyMesh (large benches skip the
-        ascii mesh round-trip); gdia_auto=False sends a masked-lattice
-        mesh to the ELL path too (the JAX package's RCFD_GDIA_AUTO=0)."""
+        ascii mesh round-trip); lattice (the embedding that
+        utils.unstructured fills through lattice_out) routes the mesh to
+        the gdia mode; without one, a masked-lattice mesh is detected
+        unless gdia_auto=False (the JAX package's RCFD_GDIA_AUTO=0), which
+        sends it to the ELL path too."""
         self.dir = case_dir
         self.device = device
         self.dtype = dtype
         self.time = Time(case_dir)
-        #: host seconds of the set-up stages (mesh build; the GAMG
-        #: hierarchy is added by the solver's make_step)
+        #: host seconds of the set-up stages (mesh read and build; the
+        #: GAMG hierarchy and the wall distance are added by the solver's
+        #: make_step and the turbulence model)
         self.setup_seconds: dict[str, float] = {}
         info(f"Create time\n\nCreate mesh for time = {self.time.name}\n")
         if pmesh is None:
             t0 = time.perf_counter()
             pmesh = read_polymesh(case_dir)
             self.setup_seconds["read"] = time.perf_counter() - t0
-        lattice = detect_lattice(pmesh) if gdia_auto else None
+        if lattice is None and gdia_auto:
+            t0 = time.perf_counter()
+            lattice = detect_lattice(pmesh)
+            self.setup_seconds["detect_lattice"] = time.perf_counter() - t0
+            if lattice is not None:
+                nz_, ny_, nx_ = lattice["shape"]
+                info(f"gdia: lattice {nx_}x{ny_}x{nz_} detected "
+                     f"({int(lattice['dead'].sum())} dead slots)\n")
         if lattice is not None:
-            nz_, ny_, nx_ = lattice["shape"]
-            info(f"gdia: lattice {nx_}x{ny_}x{nz_} detected "
-                 f"({int(lattice['dead'].sum())} dead slots)\n")
+            t0 = time.perf_counter()
             self.mesh, self.pmesh, self.maps = build_gdia_mesh_arrays(
                 pmesh, lattice, device=device, dtype=dtype)
+            self.setup_seconds["gdia"] = time.perf_counter() - t0
         else:
             self.mesh, self.pmesh, self.maps = build_mesh_arrays(
                 pmesh, device=device, dtype=dtype,

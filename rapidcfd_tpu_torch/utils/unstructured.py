@@ -1,6 +1,11 @@
-"""The structured hex box and lattice detection for masked-grid meshes —
-numpy copies of rapidcfd_tpu/utils/unstructured.py::box_mesh_fast (:32)
-and detect_lattice (:530-607)."""
+"""Hex boxes, the perturbed merged-cell polyhedral channel and lattice
+detection for masked-grid meshes — numpy copies of
+rapidcfd_tpu/utils/unstructured.py: box_mesh_fast (:32), perturb_points
+(:182), merge_cells (:209, with `track=` filling the lattice embedding),
+_ranges_concat (:314), unstructured_channel_case (:324-471),
+unstructured_box (:474-527, curve/grade included) and detect_lattice
+(:530-607). The same seed gives the same integer arrays and the same
+embedding as the JAX package."""
 
 from __future__ import annotations
 
@@ -163,6 +168,352 @@ def box_mesh_fast(nx: int, ny: int, nz: int,
                     nei.astype(np.int64), patches)
 
 
+def perturb_points(mesh: PolyMesh, amplitude: float = 0.25,
+                   seed: int = 0) -> PolyMesh:
+    """Jitter interior nodes by `amplitude` of the local spacing.
+
+    Boundary nodes (any node used by a boundary face) stay fixed so the
+    domain shape and wall geometry are exact. The jitter introduces
+    non-orthogonality, skewness and non-planar faces — the geometric
+    irregularity snappyHexMesh-class meshes have.
+    """
+    n_int = mesh.n_internal_faces
+    b_nodes = np.unique(mesh.face_points[mesh.face_offsets[n_int]:])
+    interior = np.ones(mesh.n_points, dtype=bool)
+    interior[b_nodes] = False
+    # local spacing: min distance over this node's mesh edges would be
+    # exact; the global min cell edge is a safe uniform bound
+    pts = mesh.points.copy()
+    if interior.any():
+        # estimate spacing from the first internal face's edge length
+        f0 = mesh.face(0)
+        h = np.linalg.norm(pts[f0[1]] - pts[f0[0]])
+        rng = np.random.default_rng(seed)
+        pts[interior] += (rng.uniform(-1.0, 1.0, (int(interior.sum()), 3))
+                          * amplitude * h)
+    return PolyMesh(pts, mesh.face_points, mesh.face_offsets, mesh.owner,
+                    mesh.neighbour, mesh.patches)
+
+
+def merge_cells(mesh: PolyMesh, fraction: float = 0.05,
+                seed: int = 0, track: dict | None = None) -> PolyMesh:
+    """Dissolve a random matching of internal faces, merging cell pairs.
+
+    Produces polyhedral cells (10 faces from hex pairs), duplicate
+    cell-pair adjacencies, and variable faces-per-cell — the ELL overflow
+    path (K > 6) the reference's slow gather path covers
+    (lduMatrixATmul.C:42). `fraction` ~ fraction of internal faces
+    considered for dissolution; each cell joins at most one merge.
+    """
+    n_int = mesh.n_internal_faces
+    nc = mesh.n_cells
+    rng = np.random.default_rng(seed)
+    n_cand = max(int(round(fraction * n_int)), 1)
+    cand = rng.choice(n_int, size=min(n_cand, n_int), replace=False)
+
+    used = np.zeros(nc, dtype=bool)
+    keep = np.zeros(cand.size, dtype=bool)
+    own_c = mesh.owner[cand]
+    nei_c = mesh.neighbour[cand]
+    for idx in range(cand.size):  # greedy matching (host, O(n_cand))
+        a, b = own_c[idx], nei_c[idx]
+        if not used[a] and not used[b]:
+            used[a] = used[b] = True
+            keep[idx] = True
+    merged_faces = cand[keep]
+
+    # leader = min(owner, neighbour); map both to the leader, then compact
+    lead = np.arange(nc, dtype=np.int64)
+    a = np.minimum(mesh.owner[merged_faces], mesh.neighbour[merged_faces])
+    b = np.maximum(mesh.owner[merged_faces], mesh.neighbour[merged_faces])
+    lead[b] = a
+    is_leader = lead == np.arange(nc)
+    new_id = np.cumsum(is_leader) - 1
+    cell_map = new_id[lead]
+
+    drop = np.zeros(mesh.n_faces, dtype=bool)
+    drop[merged_faces] = True
+    keep_f = ~drop
+    own = cell_map[mesh.owner[keep_f]]
+    new_n_int = n_int - merged_faces.size
+    nei = cell_map[mesh.neighbour[keep_f[:n_int]]]
+
+    # rebuild flat face-point arrays for kept faces
+    counts = np.diff(mesh.face_offsets)
+    keep_pts = np.repeat(keep_f, counts)
+    face_points = mesh.face_points[keep_pts]
+    new_counts = counts[keep_f]
+    offsets = np.zeros(new_counts.size + 1, dtype=np.int64)
+    np.cumsum(new_counts, out=offsets[1:])
+
+    # restore owner<neighbour + owner-sorted order on internal faces
+    int_own, int_nei = own[:new_n_int], nei
+    flip = int_own > int_nei
+    o2 = np.where(flip, int_nei, int_own)
+    n2 = np.where(flip, int_own, int_nei)
+    order = np.lexsort((n2, o2))
+    # flipped ownership reverses node order (outward normal flips)
+    fp_list = face_points
+    fo = offsets
+    if flip.any():
+        base = np.arange(fp_list.size, dtype=np.int64)
+        f_ids = np.repeat(np.arange(new_counts.size), new_counts)
+        pos = base - fo[f_ids]
+        is_flip_face = np.zeros(new_counts.size, dtype=bool)
+        is_flip_face[:new_n_int] = flip
+        sel = is_flip_face[f_ids]
+        rev = np.where(sel, fo[f_ids] + new_counts[f_ids] - 1 - pos, base)
+        fp_list = fp_list[rev]
+    full_order = np.concatenate([order,
+                                 np.arange(new_n_int, new_counts.size)])
+    starts = fo[:-1][full_order]
+    lens = new_counts[full_order]
+    face_points2 = fp_list[_ranges_concat(starts, lens)]
+    offsets2 = np.zeros(lens.size + 1, dtype=np.int64)
+    np.cumsum(lens, out=offsets2[1:])
+    own2 = np.concatenate([o2[order], own[new_n_int:]])
+    nei2 = n2[order]
+
+    patches = []
+    shift = merged_faces.size
+    for p in mesh.patches:
+        patches.append(BoundaryPatch(p.name, p.type, p.start_face - shift,
+                                     p.n_faces, p.extra))
+    if track is not None:
+        # lattice embedding for the gdia fast path (mesh/gdia.py): the
+        # INPUT mesh's cell ids are the lattice slots; record, per slot,
+        # its compacted cell and (for merged-away slots) the merge
+        # direction, plus the ORIGINAL slot pair of every kept face in
+        # the final face order (original ids are owner-sorted, so the
+        # pair is (min, max) independent of compact-order flips).
+        orig_own_all = mesh.owner[keep_f]
+        orig_nei_int = mesh.neighbour[keep_f[:n_int]]
+        track["slot_cell"] = cell_map.copy()
+        track["ghost_lead"] = lead.copy()
+        track["orig_own_int"] = orig_own_all[:new_n_int][order]
+        track["orig_nei_int"] = orig_nei_int[order]
+        track["orig_own_bnd"] = orig_own_all[new_n_int:]
+        # faces flipped to restore compact owner<neighbour order point
+        # OPPOSITE to the slot convention (lower slot -> upper slot)
+        track["flip_int"] = flip[order].copy()
+    return PolyMesh(mesh.points, face_points2, offsets2, own2, nei2,
+                    patches)
+
+
+def _ranges_concat(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """Vectorized concatenate of ranges [starts[i], starts[i]+lens[i])."""
+    total = int(lens.sum())
+    out_starts = np.zeros(lens.size, dtype=np.int64)
+    np.cumsum(lens[:-1], out=out_starts[1:])
+    idx = np.arange(total, dtype=np.int64)
+    f_ids = np.repeat(np.arange(lens.size), lens)
+    return starts[f_ids] + (idx - out_starts[f_ids])
+
+
+def unstructured_channel_case(case_dir: str, nx: int = 40, ny: int = 24,
+                              nz: int = 24, *, u_in: float = 10.0,
+                              nu: float = 1e-5, model: str = "kOmegaSST",
+                              end_time: int = 500,
+                              perturb: float = 0.15,
+                              merge_fraction: float = 0.04,
+                              seed: int = 0, write_mesh: bool = True,
+                              p_rel_tol: float = 0.05,
+                              lattice_out: dict | None = None,
+                              curve: float = 0.0,
+                              grade: float = 1.0) -> PolyMesh:
+    """simpleFoam channel on a polyhedral perturbed box:
+    inlet/outlet in x, walls elsewhere, kOmegaSST + wall functions,
+    GAMG pressure. Returns the PolyMesh (pass to Case(pmesh=...) when
+    write_mesh=False for million-cell benches). curve/grade produce the
+    genuinely non-lattice variant (see unstructured_box)."""
+    import os
+
+    from ..mesh.polymesh import write_polymesh
+    from .casegen import _write, write_field
+    from .dictionary import foamfile_header
+
+    L = (4.0, 1.0, 1.0)
+    mesh = unstructured_box(
+        nx, ny, nz, size=L, perturb=perturb,
+        merge_fraction=merge_fraction, seed=seed,
+        lattice_out=lattice_out, curve=curve, grade=grade,
+        patch_spec={"xmin": ("inlet", "patch"),
+                    "xmax": ("outlet", "patch"),
+                    "ymin": ("walls", "wall"), "ymax": ("walls", "wall"),
+                    "zmin": ("walls", "wall"), "zmax": ("walls", "wall")})
+    if write_mesh:
+        write_polymesh(mesh, case_dir)
+    os.makedirs(os.path.join(case_dir, "system"), exist_ok=True)
+    _write(os.path.join(case_dir, "system", "controlDict"),
+           foamfile_header("dictionary", "controlDict", "system"), f"""
+application     simpleFoam;
+startFrom       startTime;
+startTime       0;
+stopAt          endTime;
+endTime         {end_time};
+deltaT          1;
+writeControl    timeStep;
+writeInterval   10000;
+purgeWrite      0;
+writeFormat     ascii;
+""")
+    _write(os.path.join(case_dir, "system", "fvSchemes"),
+           foamfile_header("dictionary", "fvSchemes", "system"), """
+ddtSchemes      { default steadyState; }
+gradSchemes     { default Gauss linear; }
+divSchemes
+{
+    default         none;
+    div(phi,U)      Gauss upwind;
+    div(phi,k)      Gauss upwind;
+    div(phi,omega)  Gauss upwind;
+    div(phi,epsilon) Gauss upwind;
+    div((nuEff*dev(T(grad(U))))) Gauss linear;
+}
+laplacianSchemes { default Gauss linear corrected; }
+interpolationSchemes { default linear; }
+snGradSchemes   { default corrected; }
+""")
+    _write(os.path.join(case_dir, "system", "fvSolution"),
+           foamfile_header("dictionary", "fvSolution", "system"), f"""
+solvers
+{{
+    p
+    {{
+        solver          PCG;
+        preconditioner  GAMG;
+        tolerance       1e-06;
+        relTol          {p_rel_tol};
+    }}
+    "(U|k|omega|epsilon)"
+    {{
+        solver          PBiCGStab;
+        preconditioner  DILU;
+        tolerance       1e-05;
+        relTol          0.1;
+    }}
+}}
+SIMPLE
+{{
+    nNonOrthogonalCorrectors 1;
+    pRefCell        0;
+    pRefValue       0;
+    residualControl
+    {{
+        p               1e-4;
+        U               1e-5;
+        "(k|omega)"     1e-5;
+    }}
+}}
+relaxationFactors
+{{
+    fields    {{ p 0.3; }}
+    equations {{ U 0.7; k 0.7; omega 0.7; epsilon 0.7; }}
+}}
+""")
+    _write(os.path.join(case_dir, "constant", "transportProperties"),
+           foamfile_header("dictionary", "transportProperties", "constant"),
+           f"\ntransportModel  Newtonian;\nnu              nu "
+           f"[ 0 2 -1 0 0 0 0 ] {nu};\n")
+    _write(os.path.join(case_dir, "constant", "RASProperties"),
+           foamfile_header("dictionary", "RASProperties", "constant"),
+           f"\nRASModel        {model};\nturbulence      on;\n")
+
+    k_in = 1.5 * (0.05 * u_in) ** 2
+    om_in = 0.09 ** -0.25 * k_in ** 0.5 / (0.1 * L[1])
+    zg = "        type            zeroGradient;\n"
+    write_field(case_dir, "0", "p", "volScalarField", "[0 2 -2 0 0 0 0]",
+                "uniform 0", {
+                    "inlet": zg,
+                    "outlet": "        type            fixedValue;\n"
+                              "        value           uniform 0;\n",
+                    "walls": zg})
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                f"uniform ({u_in} 0 0)", {
+                    "inlet": "        type            fixedValue;\n"
+                             f"        value           uniform ({u_in} 0 0);\n",
+                    "outlet": zg,
+                    "walls": "        type            fixedValue;\n"
+                             "        value           uniform (0 0 0);\n"})
+    write_field(case_dir, "0", "k", "volScalarField", "[0 2 -2 0 0 0 0]",
+                f"uniform {k_in}", {
+                    "inlet": "        type            fixedValue;\n"
+                             f"        value           uniform {k_in};\n",
+                    "outlet": zg,
+                    "walls": "        type            kqRWallFunction;\n"
+                             f"        value           uniform {k_in};\n"})
+    write_field(case_dir, "0", "omega", "volScalarField",
+                "[0 0 -1 0 0 0 0]", f"uniform {om_in}", {
+                    "inlet": "        type            fixedValue;\n"
+                             f"        value           uniform {om_in};\n",
+                    "outlet": zg,
+                    "walls": "        type            omegaWallFunction;\n"
+                             f"        value           uniform {om_in};\n"})
+    write_field(case_dir, "0", "nut", "volScalarField", "[0 2 -1 0 0 0 0]",
+                "uniform 0", {
+                    "inlet": "        type            calculated;\n"
+                             "        value           uniform 0;\n",
+                    "outlet": "        type            calculated;\n"
+                              "        value           uniform 0;\n",
+                    "walls": "        type            nutkWallFunction;\n"
+                             "        value           uniform 0;\n"})
+    return mesh
+
+
+def unstructured_box(nx: int, ny: int, nz: int, *,
+                     size=(1.0, 1.0, 1.0), origin=(0.0, 0.0, 0.0),
+                     patch_spec: dict | None = None,
+                     perturb: float = 0.2, merge_fraction: float = 0.04,
+                     seed: int = 0, lattice_out: dict | None = None,
+                     curve: float = 0.0, grade: float = 1.0
+                     ) -> PolyMesh:
+    """Polyhedral perturbed box: the unstructured test-mesh entry point.
+    Pass lattice_out={} to receive the lattice embedding consumed by the
+    gdia gather-free mesh mode (mesh/gdia.py).
+
+    curve > 0 bends the duct into an annular arc of `curve` radians
+    (x becomes the azimuthal coordinate) and grade != 1 applies a
+    geometric wall-normal grading in y (boundary-layer-style cell-size
+    ratio across the height): together with the perturbation and the
+    cell merges this produces a mesh that is genuinely NOT a masked
+    lattice — detect_lattice rejects it and the general ELL/gather
+    path applies (the honest snappyHexMesh-class topology proxy,
+    BASELINE config 5)."""
+    m = box_mesh_fast(nx, ny, nz, size=size, origin=origin,
+                      patch_spec=patch_spec)
+    if grade != 1.0 or curve:
+        pts = m.points.copy()
+        ox, oy, _ = origin
+        Lx, Ly, _ = size
+        if grade != 1.0:
+            # geometric grading: unit coordinate t -> (g^t - 1)/(g - 1)
+            t = (pts[:, 1] - oy) / Ly
+            g = float(grade)
+            pts[:, 1] = oy + Ly * (np.power(g, t) - 1.0) / (g - 1.0)
+        if curve:
+            theta = (pts[:, 0] - ox) / Lx * float(curve)
+            r0 = Lx / float(curve)           # keep arc length ~ Lx
+            r = r0 + (pts[:, 1] - oy)
+            pts = np.stack([r * np.sin(theta),
+                            r * np.cos(theta) - r0, pts[:, 2]], axis=1)
+        m = PolyMesh(pts, m.face_points, m.face_offsets, m.owner,
+                     m.neighbour, m.patches)
+    if perturb:
+        m = perturb_points(m, amplitude=perturb, seed=seed)
+    if merge_fraction:
+        m = merge_cells(m, fraction=merge_fraction, seed=seed + 1,
+                        track=lattice_out)
+    elif lattice_out is not None:
+        nc = m.n_cells
+        lattice_out["slot_cell"] = np.arange(nc, dtype=np.int64)
+        lattice_out["ghost_lead"] = np.arange(nc, dtype=np.int64)
+        lattice_out["orig_own_int"] = m.owner[:m.n_internal_faces].copy()
+        lattice_out["orig_nei_int"] = m.neighbour.copy()
+        lattice_out["orig_own_bnd"] = m.owner[m.n_internal_faces:].copy()
+        lattice_out["flip_int"] = np.zeros(m.n_internal_faces, dtype=bool)
+    if lattice_out is not None:
+        lattice_out["shape"] = (nz, ny, nx)
+    return m
 
 
 def _cluster_coords(v: np.ndarray, span: float):

@@ -107,13 +107,16 @@ def test_cli_refuses_cuda_without_card(tmp_path):
 
 def test_port_runs_without_jax(tmp_path):
     """Importing rapidcfd_tpu_torch and running 2 steps of pitzDaily (gdia)
-    and of the cavity (ELL, GAMG-preconditioned p) with icoFoam, and one
+    and of the cavity (ELL, GAMG-preconditioned p) with icoFoam, one
     SIMPLE iteration of the simpleFoam pitzDaily case (kEpsilon, GAMG on
-    the gdia lattice), on the CPU pulls no jax module and no module of
-    the JAX package into the process."""
+    the gdia lattice) and one of the polyhedral channel (kOmegaSST, the
+    corrected laplacian, the merged-cell 3-D gdia lattice), on the CPU
+    pulls no jax module and no module of the JAX package into the
+    process."""
     d = str(tmp_path / "case")
     c = str(tmp_path / "cavity")
     s = str(tmp_path / "simple")
+    ch = str(tmp_path / "channel")
     script = f"""
 import sys
 
@@ -142,6 +145,25 @@ case, U, p, phi, ts = simplefoam.run({s!r}, device=torch.device("cpu"),
                                      dtype=torch.float32, write=False,
                                      max_steps=1)
 assert case.mesh.gdia is not None
+assert all(torch.isfinite(f.data).all() for f in [U, p, *ts.values()])
+from rapidcfd_tpu_torch.models.transport import SinglePhaseTransportModel
+from rapidcfd_tpu_torch.models.turbulence import make_ras_model
+from rapidcfd_tpu_torch.ops import fvc
+from rapidcfd_tpu_torch.solvers.case import Case
+from rapidcfd_tpu_torch.solvers.controls import SimpleControl
+from rapidcfd_tpu_torch.utils.unstructured import unstructured_channel_case
+lat = {{}}
+pmesh = unstructured_channel_case({ch!r}, nx=8, ny=6, nz=6, seed=3,
+                                  write_mesh=False, lattice_out=lat)
+case = Case({ch!r}, device=torch.device("cpu"), dtype=torch.float32,
+            pmesh=pmesh, lattice=lat)
+U, p = case.read_field("U"), case.read_field("p")
+turb = make_ras_model(case, U)
+step = simplefoam.make_step(
+    case, SinglePhaseTransportModel(case.transport_properties()), turb,
+    SimpleControl(case))
+U, p, phi, ts, _ = step(U, p, fvc.flux(case.mesh, U), turb.init_state(U))
+assert case.mesh.gdia is not None and sorted(ts) == ["k", "nut", "omega"]
 assert all(torch.isfinite(f.data).all() for f in [U, p, *ts.values()])
 print("NEW_FOREIGN_MODULES", sorted(foreign() - before))
 print("JAX_LEFT_OUT", not before and "jax" not in sys.modules)

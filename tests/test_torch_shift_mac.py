@@ -142,13 +142,13 @@ def test_offsets_array_built_once_per_tuple():
 
 def test_cpu_tensor_takes_plain_version_without_launch():
     x, coeffs = _inputs(5, 3, 500, np.float64)
-    before = sum(gdia_mac.LAUNCHES_BY_C.values())
+    before = sum(gdia_mac.LAUNCHES_BY_KC.values())
     out = gdia_mac.shift_mac_cols(torch.from_numpy(x),
                                   torch.from_numpy(coeffs), _OFFSETS[5])
     plain = gdia_mac.shift_mac_cols_plain(torch.from_numpy(x),
                                           torch.from_numpy(coeffs),
                                           _OFFSETS[5])
-    assert sum(gdia_mac.LAUNCHES_BY_C.values()) == before
+    assert sum(gdia_mac.LAUNCHES_BY_KC.values()) == before
     assert torch.equal(out, plain)
 
 
@@ -182,10 +182,10 @@ def test_cuda_kernel_matches_plain(dtype, tol):
     x = torch.randn(n, generator=g, dtype=dtype)
     coeffs = torch.randn(5, 3, n, generator=g, dtype=dtype)
     ref = gdia_mac.shift_mac_cols_plain(x, coeffs, offs)
-    before = sum(gdia_mac.LAUNCHES_BY_C.values())
+    before = sum(gdia_mac.LAUNCHES_BY_KC.values())
     out = gdia_mac.shift_mac_cols(x.cuda(), coeffs.cuda(), offs)
     torch.cuda.synchronize()
-    assert sum(gdia_mac.LAUNCHES_BY_C.values()) == before + 1
+    assert sum(gdia_mac.LAUNCHES_BY_KC.values()) == before + 1
     assert (out.cpu() - ref).abs().max() <= tol * ref.abs().max()
 
 
@@ -204,12 +204,36 @@ def test_cuda_kernel_matches_plain_edges(edge, dtype, tol):
     ref = gdia_mac.shift_mac_cols_plain(torch.from_numpy(x),
                                         torch.from_numpy(coeffs), offs)
     xc, cc = _port_views(x, coeffs, shift, device="cuda")
-    before = dict(gdia_mac.LAUNCHES_BY_C)
+    before = dict(gdia_mac.LAUNCHES_BY_KC)
     outs = {"kernel": gdia_mac.shift_mac_cols(xc, cc, offs)}
-    assert gdia_mac.LAUNCHES_BY_C.get(C, 0) == before.get(C, 0) + 1
+    assert gdia_mac.LAUNCHES_BY_KC.get((K, C), 0) \
+        == before.get((K, C), 0) + 1
     outs["baseline"] = gdia_mac.shift_mac_cols_baseline(xc, cc, offs)
     torch.cuda.synchronize()
-    assert gdia_mac.LAUNCHES_BY_C.get(C, 0) == before.get(C, 0) + 1
+    assert gdia_mac.LAUNCHES_BY_KC.get((K, C), 0) \
+        == before.get((K, C), 0) + 1
     for name, out in outs.items():
         assert out.shape == (C, n), name
         assert (out.cpu() - ref).abs().max() <= tol * ref.abs().max(), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-13)])
+@pytest.mark.parametrize("C", [3, 1])
+def test_cuda_kernel_matches_plain_channel_k7(C, dtype, tol):
+    """On the card: the K = 7 forms at the polyhedral channel's lattice
+    (160x80x80, offsets 0, +-1, +-160, +-12800), counted once by (K, C)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator().manual_seed(C)
+    n, offs = 160 * 80 * 80, (-12800, -160, -1, 0, 1, 160, 12800)
+    x = torch.randn(n, generator=g, dtype=dtype)
+    coeffs = torch.randn(7, C, n, generator=g, dtype=dtype)
+    ref = gdia_mac.shift_mac_cols_plain(x, coeffs, offs)
+    before = gdia_mac.LAUNCHES_BY_KC.get((7, C), 0)
+    out = gdia_mac.shift_mac_cols(x.cuda(), coeffs.cuda(), offs)
+    torch.cuda.synchronize()
+    assert gdia_mac.LAUNCHES_BY_KC.get((7, C), 0) == before + 1
+    assert out.shape == (C, n)
+    assert (out.cpu() - ref).abs().max() <= tol * ref.abs().max()

@@ -288,8 +288,8 @@ def test_unported_options_raise(tmp_path):
     pitz_daily_case(d, scale=1)
     ras = os.path.join(d, "constant", "RASProperties")
     with _edited(ras, "RASModel        kEpsilon;",
-                 "RASModel        kOmegaSST;"):
-        with pytest.raises(NotImplementedError, match="kOmegaSST"):
+                 "RASModel        RNGkEpsilon;"):
+        with pytest.raises(NotImplementedError, match="RNGkEpsilon"):
             make_ras_model(Case(d, device=CPU, dtype=F64), None)
     with open(os.path.join(d, "system", "fvOptions"), "w") as f:
         f.write("disk { type actuationDiskSource; }\n")

@@ -1,7 +1,8 @@
 """Where the time of the port's solver step goes, on the card.
 
-    python tools/profile_torch_step.py [--case pitz|cavity|simple]
-        [--scale 5] [--ell] [--n 384] [--steps 3] [--out FILE]
+    python tools/profile_torch_step.py
+        [--case pitz|cavity|simple|channel|duct] [--scale 5] [--ell]
+        [--n 384] [--dims NX NY NZ] [--steps 3] [--out FILE]
 
 Builds the case in fp32 and its step (make_step), runs one warm-up step,
 then traces `--steps` steps with torch.profiler (CPU + CUDA activity) and
@@ -21,7 +22,16 @@ field updates).
   (kEpsilon, GAMG p) at `--scale`, gdia or `--ell` likewise;
 - `--case cavity`: the lid-driven cavity at `--n` x `--n` in bench.py's
   default setup (PCG with a GAMG preconditioner for p, PBiCGStab/DILU U,
-  dt = 0.005*20/n*0.5), with the host seconds of its set-up.
+  dt = 0.005*20/n*0.5), with the host seconds of its set-up;
+- `--case channel`: a simpleFoam SIMPLE iteration (kOmegaSST, corrected
+  laplacian, one non-orthogonal corrector) of bench_unstructured.py's
+  polyhedral channel as that script builds it by default (160x80x80,
+  perturb 0.12, merge fraction 0.04, seed 3) on the merged-cell 3-D gdia
+  lattice, or with `--ell` on the padded ELL (no lattice embedding, GAMG
+  by pair agglomeration), at `--dims` if given;
+- `--case duct`: the same channel bent by 1.2 rad and graded 4:1
+  (bench_unstructured.py --curve 1.2 --grade 4.0), which is not a
+  lattice and runs on the padded ELL, at 128x64x64 or `--dims`.
 
 On gdia meshes it also times the shift-MAC kernel and its plain torch
 version on the case's own Gauss planes, per call, in both forms (C = 3
@@ -79,7 +89,9 @@ def _host_ops(prof, top=10):
 def _make_stepper(args, d):
     """(case, advance): advance(state) runs one step of --case on the
     state dict and appends that step's iteration counts to state["its"]
-    ([p solves..., U] for icoFoam, [p, U, epsilon, k] for simpleFoam)."""
+    ([p solves..., U] for icoFoam; [p solves..., U, then the turbulence
+    fields by name] for simpleFoam: epsilon, k on pitzDaily, k, omega on
+    the channel and the duct)."""
     from rapidcfd_tpu_torch.fields.field import Dimensioned
     from rapidcfd_tpu_torch.ops import fvc
     from rapidcfd_tpu_torch.solvers import icofoam, simplefoam
@@ -88,13 +100,30 @@ def _make_stepper(args, d):
                                                   pitz_daily_case,
                                                   pitz_daily_ico_case)
     dev, f32 = torch.device("cuda"), torch.float32
-    if args.case == "simple":
+    if args.case in ("simple", "channel", "duct"):
         from rapidcfd_tpu_torch.models.transport import \
             SinglePhaseTransportModel
         from rapidcfd_tpu_torch.models.turbulence import make_ras_model
         from rapidcfd_tpu_torch.solvers.controls import SimpleControl
-        pitz_daily_case(d, scale=args.scale)
-        case = Case(d, device=dev, dtype=f32, gdia_auto=not args.ell)
+        from rapidcfd_tpu_torch.utils.unstructured import \
+            unstructured_channel_case
+        if args.case == "simple":
+            pitz_daily_case(d, scale=args.scale)
+            case = Case(d, device=dev, dtype=f32, gdia_auto=not args.ell)
+        else:
+            duct = args.case == "duct"
+            nx, ny, nz = args.dims
+            lattice = None if duct or args.ell else {}
+            t0 = time.perf_counter()
+            pmesh = unstructured_channel_case(
+                d, nx=nx, ny=ny, nz=nz, end_time=10 ** 9, perturb=0.12,
+                merge_fraction=0.04, seed=3, write_mesh=False,
+                lattice_out=lattice, curve=1.2 if duct else 0.0,
+                grade=4.0 if duct else 1.0)
+            t_gen = time.perf_counter() - t0
+            case = Case(d, device=dev, dtype=f32, pmesh=pmesh,
+                        lattice=lattice, gdia_auto=not args.ell)
+            case.setup_seconds["generate"] = t_gen
         U = case.read_field("U")
         turb = make_ras_model(case, U)
         step = simplefoam.make_step(
@@ -107,10 +136,10 @@ def _make_stepper(args, d):
         def advance(s):
             s["U"], s["p"], s["phi"], s["turb"], st = step(
                 s["U"], s["p"], s["phi"], s["turb"])
-            s["its"].append([int(st["p_perf"][0][2]),
-                             int(st["u_perf"][0][2]),
-                             int(st["turb"]["epsilon"][2]),
-                             int(st["turb"]["k"][2])])
+            s["its"].append([int(x[2]) for x in st["p_perf"]]
+                            + [int(st["u_perf"][0][2])]
+                            + [int(st["turb"][k][2])
+                               for k in sorted(st["turb"])])
         return case, state, advance
     if args.case == "pitz":
         pitz_daily_ico_case(d, scale=args.scale)
@@ -193,14 +222,18 @@ def _mac_times(mesh, x):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--case", choices=("pitz", "cavity", "simple"),
+    ap.add_argument("--case", choices=("pitz", "cavity", "simple",
+                                       "channel", "duct"),
                     default="pitz")
+    ap.add_argument("--dims", type=int, nargs=3, metavar=("NX", "NY", "NZ"))
     ap.add_argument("--scale", type=int, default=5)
     ap.add_argument("--ell", action="store_true")
     ap.add_argument("--n", type=int, default=384)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out")
     args = ap.parse_args(argv)
+    if args.dims is None and args.case in ("channel", "duct"):
+        args.dims = (128, 64, 64) if args.case == "duct" else (160, 80, 80)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
 
@@ -235,8 +268,8 @@ def main(argv=None):
         restore()
         gm.reset_launches()
         prof, wall = _traced(steps)
-        mac_launches = {f"C={c}": n / args.steps
-                        for c, n in sorted(gm.LAUNCHES_BY_C.items())}
+        mac_launches = {f"K={k} C={c}": n / args.steps
+                        for (k, c), n in sorted(gm.LAUNCHES_BY_KC.items())}
         kern = _kernels(prof)
         busy_us = sum(k[1] for k in kern)
         launches = sum(k[2] for k in kern)
@@ -245,9 +278,13 @@ def main(argv=None):
 
     res = {
         "card": smi, "case": args.case,
-        "size": args.n if args.case == "cavity" else args.scale,
+        "size": (args.n if args.case == "cavity" else
+                 "x".join(map(str, args.dims)) if args.dims
+                 else args.scale),
         "layout": "ELL" if mesh.gdia is None else "gdia",
-        "cells": mesh.n_cells, "setup_seconds": case.setup_seconds,
+        "cells": mesh.n_cells,
+        "live_cells": int(case.maps.cell_primary.sum()),
+        "setup_seconds": case.setup_seconds,
         "steps": args.steps,
         "untraced_ms_per_step": 1e3 * untraced / args.steps,
         "clocked_ms_per_step": 1e3 * clocked / args.steps,
