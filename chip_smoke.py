@@ -99,8 +99,6 @@ SLICE_N = 560 * 200
 # the polyhedral channel as bench_unstructured.py builds it by default: a
 # 160x80x80 lattice (K = 7: offsets 0, +-1, +-nx, +-nx*ny)
 CHANNEL = dict(nx=160, ny=80, nz=80)
-CHANNEL_BENCH = dict(perturb=0.12, merge_fraction=0.04, seed=3,
-                     write_mesh=False)
 CHANNEL_OFFSETS = (-12800, -160, -1, 0, 1, 160, 12800)
 CHANNEL_N = 160 * 80 * 80
 CHANNEL_CELLS = 922638
@@ -816,56 +814,25 @@ def phase_simple_main(tmp: str, smi: str) -> dict:
 
 def _build_channel(d: str, dims: dict, device, dtype):
     """The channel (or the curved duct) as bench_unstructured.py builds
-    it: the case written without its mesh, the PolyMesh and lattice
-    embedding in memory, Case(pmesh=, lattice=), kOmegaSST and make_step.
-    Returns (case, state, step, set-up seconds by stage, live cells)."""
-    from rapidcfd_tpu_torch.models.transport import SinglePhaseTransportModel
-    from rapidcfd_tpu_torch.models.turbulence import make_ras_model
-    from rapidcfd_tpu_torch.ops import fvc
-    from rapidcfd_tpu_torch.solvers import simplefoam
-    from rapidcfd_tpu_torch.solvers.case import Case
-    from rapidcfd_tpu_torch.solvers.controls import SimpleControl
+    it (utils.unstructured.channel_stepper). Returns (case, state, step,
+    set-up seconds by stage, live cells)."""
     from rapidcfd_tpu_torch.utils.logging import captured
-    from rapidcfd_tpu_torch.utils.unstructured import (
-        unstructured_channel_case)
-    lattice = {} if not dims.get("curve") else None
-    stages = {}
-    t0 = time.perf_counter()
-    pmesh = unstructured_channel_case(d, end_time=10 ** 9,
-                                      lattice_out=lattice, **dims,
-                                      **CHANNEL_BENCH)
-    stages["generate"] = time.perf_counter() - t0
+    from rapidcfd_tpu_torch.utils.unstructured import channel_stepper
     with captured():
         t0 = time.perf_counter()
-        case = Case(d, device=device, dtype=dtype, pmesh=pmesh,
-                    lattice=lattice)
-        U, p = case.read_field("U"), case.read_field("p")
-        phi = fvc.flux(case.mesh, U)
-        transport = SinglePhaseTransportModel(case.transport_properties())
-        turb = make_ras_model(case, U)
-        ts = turb.init_state(U)
-        step = simplefoam.make_step(case, transport, turb,
-                                    SimpleControl(case))
+        case, state, step, live = channel_stepper(d, device=device,
+                                                  dtype=dtype, **dims)
         if device.type == "cuda":
             torch.cuda.synchronize()
-        stages["case"] = time.perf_counter() - t0
-    stages.update(case.setup_seconds)
-    return case, (U, p, phi, ts), step, stages, pmesh.n_cells
-
-
-def _channel_its(stats) -> list:
-    """A SIMPLE iteration's iteration counts, in the order simpleFoam
-    logs them: Ux, Uy, Uz, p (each corrector), then the turbulence fields
-    by name."""
-    its = [(f"U{c}", int(pf[2])) for c, pf in zip("xyz", stats["u_perf"])]
-    its += [("p", int(pf[2])) for pf in stats["p_perf"]]
-    return its + [(k, int(pf[2])) for k, pf in sorted(stats["turb"].items())]
+        total = time.perf_counter() - t0
+    return case, state, step, {**case.setup_seconds, "total": total}, live
 
 
 def phase_channel_agreement(tmp: str):
     """The polyhedral channel (kOmegaSST, corrected laplacian) in fp64 for
     3 SIMPLE iterations each on cuda and on cpu: the 16x10x10 merged-cell
     lattice on gdia and the 24x12x12 curved duct on ELL."""
+    from rapidcfd_tpu_torch.solvers.simplefoam import iteration_counts
     from rapidcfd_tpu_torch.utils.logging import captured
     for tag, dims, layout in (
             ("channel 16x10x10", dict(nx=16, ny=10, nz=10), "gdia"),
@@ -883,7 +850,7 @@ def phase_channel_agreement(tmp: str):
             with captured():
                 for _ in range(3):
                     U, p, phi, ts, st = step(U, p, phi, ts)
-                    its += _channel_its(st)
+                    its += iteration_counts(st)
             outs[dev] = ((case, U, p, phi, ts), its)
             print(f"[10] fp64 {tag} ({layout}), 3 iterations on {dev}: "
                   f"{time.perf_counter() - t0:.2f} s with set-up")
@@ -932,12 +899,12 @@ def _profiled_iteration(step, state):
 
 
 def _run_channel_path(tag: str, tmp: str, dims: dict, cells: int,
-                      windows_of: tuple, smi: str, bounded: bool) -> dict:
+                      windows_of: tuple, smi: str):
     """The fp32 main path of the channel or the duct: set-up, one warm-up
-    iteration, timed windows, then one profiled iteration. `bounded`
-    also holds the run below the channel's divergence bounds. Returns
-    the shift-MAC launches by (K, C) over the warm-up and the windows
-    (counts reset just before)."""
+    iteration, timed windows, then one profiled iteration. Returns the
+    shift-MAC launches by (K, C) over the warm-up and the windows (counts
+    reset just before), and each iteration's (local continuity error,
+    max |U|)."""
     from rapidcfd_tpu_torch.ops import gdia_mac
     from rapidcfd_tpu_torch.utils.logging import captured
     torch.cuda.reset_peak_memory_stats()
@@ -951,7 +918,7 @@ def _run_channel_path(tag: str, tmp: str, dims: dict, cells: int,
           f"set-up by stage: "
           + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items()))
     n_win, steps_per = windows_of
-    stats, windows, steps = [], [], 0
+    stats, u_max, windows, steps = [], [], [], 0
     gdia_mac.reset_launches()
     with captured():
         t0 = time.perf_counter()
@@ -959,12 +926,14 @@ def _run_channel_path(tag: str, tmp: str, dims: dict, cells: int,
         torch.cuda.synchronize()
         t_first = time.perf_counter() - t0
         stats.append(st)
+        u_max.append(state[0].data.abs().max())
         steps += 1
         for _ in range(n_win):
             t0 = time.perf_counter()
             for _ in range(steps_per):
                 *state, st = step(*state)
                 stats.append(st)
+                u_max.append(state[0].data.abs().max())
                 steps += 1
             torch.cuda.synchronize()
             windows.append(time.perf_counter() - t0)
@@ -972,6 +941,7 @@ def _run_channel_path(tag: str, tmp: str, dims: dict, cells: int,
         state, st, n_kernels, busy, t_prof, mac = _profiled_iteration(
             step, state)
         stats.append(st)
+        u_max.append(state[0].data.abs().max())
     U, p, phi, ts = state
     for f in (U, p, phi, *ts.values()):
         check(bool(torch.isfinite(f.data).all()), f"{tag}: {f.name} not "
@@ -983,18 +953,11 @@ def _run_channel_path(tag: str, tmp: str, dims: dict, cells: int,
     for name in ("k", "omega"):
         check(bool((ts[name].data[prim] > 0).all()),
               f"{tag}: {name} not positive")
-    # the channel's scales are u_in = 10 m/s and a 1 m duct; with p to
-    # relTol 0.05 its local continuity error is 0.1-0.4 1/s in the first
-    # iterations (fp64 and fp32 alike), and a diverging run passes u_in/H
-    # = 10 1/s and 3 u_in within a few iterations. The curved duct is
-    # held to finite fields only: its first iterations are a transient of
-    # the case itself (tools/channel_iterations.py at 64x32x32, fp32 and
-    # fp64 alike: continuity errors of 24-141 1/s and |U| up to 27 m/s in
-    # the first 5 iterations, 5 1/s and 10.4 m/s at iteration 25)
-    cont = max(float(s["cont"][0]) for s in stats)
-    u_max = float(U.data.abs().max())
-    check(not bounded or (cont < 10.0 and u_max < 30.0),
-          f"{tag}: run not bounded: continuity error {cont}, |U| {u_max}")
+    readings = [(float(s["cont"][0]), float(u))
+                for s, u in zip(stats, u_max)]
+    print(f"{tag} per iteration (local continuity error, max |U|): "
+          + ", ".join(f"({c:.6g}, {u:.6g})" for c, u in readings))
+    cont = max(c for c, _ in readings)
 
     def its(get):
         v = [int(get(s)[2]) for s in stats]
@@ -1036,20 +999,41 @@ def _run_channel_path(tag: str, tmp: str, dims: dict, cells: int,
           f"profiled iteration: {mac}")
     check(not any("generic" in name for name in mac),
           f"{tag}: a shift-MAC call took the generic kernel: {mac}")
-    return launches
+    return launches, readings
 
 
 CHANNEL_WINDOWS = (2, 5)            # two timed windows of 5 iterations
 DUCT_WINDOWS = (1, 3)               # one timed window of 3 iterations
+# (local continuity error in 1/s, max |U| in m/s) that no iteration may
+# reach. The channel's scales are u_in = 10 m/s and a 1 m duct; with p to
+# relTol 0.05 its local continuity error is 0.1-0.4 1/s in the first
+# iterations (fp64 and fp32 alike), and a diverging run passes u_in/H =
+# 10 1/s and 3 u_in within a few iterations.
+CHANNEL_BOUNDS = (10.0, 30.0)
+# The curved duct's first iterations are a transient of the case itself:
+# the JAX package's readings, per iteration, in fp64 on the same
+# 128x64x64 mesh (tests/crosscheck_channel.py --dims 128 64 64
+# --iterations 5 --curve 1.2 --grade 4.0 --device cuda, where the port in
+# fp64 on the card gives the same iteration counts and readings to 6
+# digits). The fp32 run must stay within DUCT_RTOL of each; its largest
+# deviation in the runs that set it was 1% (max |U| at iteration 3).
+DUCT_REFERENCE = ((285.989, 19.934), (62.8312, 35.9947), (229.376, 35.0047),
+                  (187.893, 51.797), (51.7599, 59.1707))
+DUCT_RTOL = 0.05
 
 
 def phase_channel_main(tmp: str, smi: str) -> dict:
     """The main path: simpleFoam kOmegaSST on the 160x80x80 merged-cell
     channel (922,638 cells) in fp32 on the 3-D gdia lattice. Both K = 7
-    forms of the shift-MAC kernel must launch."""
-    launches = _run_channel_path("[11] channel 160x80x80", tmp, CHANNEL,
-                                 CHANNEL_CELLS, CHANNEL_WINDOWS, smi,
-                                 bounded=True)
+    forms of the shift-MAC kernel must launch, and no iteration reaches
+    CHANNEL_BOUNDS."""
+    tag = "[11] channel 160x80x80"
+    launches, readings = _run_channel_path(tag, tmp, CHANNEL, CHANNEL_CELLS,
+                                           CHANNEL_WINDOWS, smi)
+    cont, u_max = (max(r[i] for r in readings) for i in (0, 1))
+    check(cont < CHANNEL_BOUNDS[0] and u_max < CHANNEL_BOUNDS[1],
+          f"{tag}: run not bounded: continuity error {cont}, max |U| "
+          f"{u_max} (bounds {CHANNEL_BOUNDS})")
     for c in (3, 1):
         check(launches.get((7, c), 0) > 0,
               f"the shift-MAC kernel with K = 7, C = {c} was not launched")
@@ -1060,10 +1044,21 @@ def phase_channel_main(tmp: str, smi: str) -> dict:
 
 def phase_duct_main(tmp: str, smi: str) -> dict:
     """The curved, graded duct at 128x64x64 (472,493 cells) in fp32 on
-    the padded ELL (detect_lattice rejects it): no shift-MAC launch."""
-    launches = _run_channel_path("[12] curved duct 128x64x64", tmp, DUCT,
-                                 DUCT_CELLS, DUCT_WINDOWS, smi,
-                                 bounded=False)
+    the padded ELL (detect_lattice rejects it): no shift-MAC launch, and
+    each iteration's continuity error and max |U| within DUCT_RTOL of the
+    JAX package's."""
+    tag = "[12] curved duct 128x64x64"
+    launches, readings = _run_channel_path(tag, tmp, DUCT, DUCT_CELLS,
+                                           DUCT_WINDOWS, smi)
+    check(len(readings) == len(DUCT_REFERENCE),
+          f"{tag}: {len(readings)} iterations, the reference has "
+          f"{len(DUCT_REFERENCE)}")
+    dev = max(abs(x - r) / r for got, ref in zip(readings, DUCT_REFERENCE)
+              for x, r in zip(got, ref))
+    print(f"{tag} largest relative deviation from the JAX package's fp64 "
+          f"readings: {dev:.3e} (limit {DUCT_RTOL})")
+    check(dev <= DUCT_RTOL, f"{tag}: the run leaves the reference's "
+          f"transient: {readings} against {DUCT_REFERENCE}")
     check(not launches, f"the ELL path launched the kernel: {launches}")
     return launches
 

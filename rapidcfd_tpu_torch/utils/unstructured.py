@@ -460,6 +460,45 @@ relaxationFactors
     return mesh
 
 
+def channel_stepper(case_dir: str, *, nx: int, ny: int, nz: int,
+                    device, dtype, curve: float = 0.0, grade: float = 1.0,
+                    ell: bool = False):
+    """bench_unstructured.py's set-up of its channel (perturb 0.12, merge
+    fraction 0.04, seed 3): the case written without its mesh, the
+    PolyMesh and its lattice embedding kept in memory, Case(pmesh=,
+    lattice=), kOmegaSST and simplefoam.make_step. The channel takes the
+    merged-cell gdia lattice, or with `ell` the padded ELL; the curved or
+    graded duct is not a lattice and takes the padded ELL.
+
+    Returns (case, (U, p, phi, turbulence state), step, live cells);
+    case.setup_seconds gains "generate"."""
+    import time
+
+    from ..models.transport import SinglePhaseTransportModel
+    from ..models.turbulence import make_ras_model
+    from ..ops import fvc
+    from ..solvers import simplefoam
+    from ..solvers.case import Case
+    from ..solvers.controls import SimpleControl
+    lattice = None if ell or curve or grade != 1.0 else {}
+    t0 = time.perf_counter()
+    pmesh = unstructured_channel_case(
+        case_dir, nx=nx, ny=ny, nz=nz, end_time=10 ** 9, perturb=0.12,
+        merge_fraction=0.04, seed=3, write_mesh=False, lattice_out=lattice,
+        curve=curve, grade=grade)
+    t_gen = time.perf_counter() - t0
+    case = Case(case_dir, device=device, dtype=dtype, pmesh=pmesh,
+                lattice=lattice, gdia_auto=not ell)
+    case.setup_seconds = {"generate": t_gen, **case.setup_seconds}
+    U, p = case.read_field("U"), case.read_field("p")
+    turb = make_ras_model(case, U)
+    step = simplefoam.make_step(
+        case, SinglePhaseTransportModel(case.transport_properties()), turb,
+        SimpleControl(case))
+    return (case, (U, p, fvc.flux(case.mesh, U), turb.init_state(U)), step,
+            pmesh.n_cells)
+
+
 def unstructured_box(nx: int, ny: int, nz: int, *,
                      size=(1.0, 1.0, 1.0), origin=(0.0, 0.0, 0.0),
                      patch_spec: dict | None = None,

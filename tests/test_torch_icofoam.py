@@ -146,23 +146,11 @@ case, U, p, phi, ts = simplefoam.run({s!r}, device=torch.device("cpu"),
                                      max_steps=1)
 assert case.mesh.gdia is not None
 assert all(torch.isfinite(f.data).all() for f in [U, p, *ts.values()])
-from rapidcfd_tpu_torch.models.transport import SinglePhaseTransportModel
-from rapidcfd_tpu_torch.models.turbulence import make_ras_model
-from rapidcfd_tpu_torch.ops import fvc
-from rapidcfd_tpu_torch.solvers.case import Case
-from rapidcfd_tpu_torch.solvers.controls import SimpleControl
-from rapidcfd_tpu_torch.utils.unstructured import unstructured_channel_case
-lat = {{}}
-pmesh = unstructured_channel_case({ch!r}, nx=8, ny=6, nz=6, seed=3,
-                                  write_mesh=False, lattice_out=lat)
-case = Case({ch!r}, device=torch.device("cpu"), dtype=torch.float32,
-            pmesh=pmesh, lattice=lat)
-U, p = case.read_field("U"), case.read_field("p")
-turb = make_ras_model(case, U)
-step = simplefoam.make_step(
-    case, SinglePhaseTransportModel(case.transport_properties()), turb,
-    SimpleControl(case))
-U, p, phi, ts, _ = step(U, p, fvc.flux(case.mesh, U), turb.init_state(U))
+from rapidcfd_tpu_torch.utils.unstructured import channel_stepper
+case, state, step, _ = channel_stepper({ch!r}, nx=8, ny=6, nz=6,
+                                       device=torch.device("cpu"),
+                                       dtype=torch.float32)
+U, p, phi, ts, _ = step(*state)
 assert case.mesh.gdia is not None and sorted(ts) == ["k", "nut", "omega"]
 assert all(torch.isfinite(f.data).all() for f in [U, p, *ts.values()])
 print("NEW_FOREIGN_MODULES", sorted(foreign() - before))

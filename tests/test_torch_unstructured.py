@@ -5,7 +5,7 @@ merge fraction 0.04, seed 3), in both of its layouts:
 
 - "channel": 16x10x10 on the merged-cell 3-D gdia lattice (ghost slots,
   K = 7 Gauss planes; the JAX package takes its XLA path on the CPU);
-- "duct": 24x12x12 bent by 1.2 rad and graded 4:1, which detect_lattice
+- "duct": 16x8x8 bent by 1.2 rad and graded 4:1, which detect_lattice
   rejects, on the renumbered padded ELL (K = 10, two faces between some
   cell pairs).
 
@@ -17,9 +17,10 @@ Inputs come from numpy seeds and go through both packages (fp64):
   non-orthogonal delta coefficients in the gdia face layout included);
 - wall_distance, fvm.laplacian(..., "corrected") of a scalar and a
   vector (diag, upper, source, and the boundary coefficients at the
-  scale of their patch's internal ones) and one
-  GAMG V-cycle (the structured one on the 3-D ghost-slot lattice, pair
-  agglomeration on the duct) to 1e-12 relative;
+  scale of their patch's internal ones), the p system of simple_step
+  and one GAMG V-cycle (the structured one on the 3-D ghost-slot
+  lattice, pair agglomeration on the duct) on that p system and on the
+  shifted laplacian, to 1e-12 relative;
 - one KOmegaSST.correct from a common state: k, omega and nut to 1e-10
   relative, equal iteration counts; its wall fix to 1e-12, the cells with
   two or more wall faces (the channel's edges, merged cells) checked on
@@ -70,7 +71,7 @@ OP_TOL = 1e-12
 _FIELDS = ["U", "p", "phi", "k", "omega", "nut"]
 _BENCH = dict(perturb=0.12, merge_fraction=0.04, seed=3, write_mesh=False)
 _LAYOUTS = {"channel": dict(nx=16, ny=10, nz=10),
-            "duct": dict(nx=24, ny=12, nz=12, curve=1.2, grade=4.0)}
+            "duct": dict(nx=16, ny=8, nz=8, curve=1.2, grade=4.0)}
 
 
 def _close(port, ref, name="", tol=OP_TOL, scale=None):
@@ -116,12 +117,6 @@ def test_generator_matches_jax(seed, variant):
         == (junstr.detect_lattice(jm) is None)
 
 
-def _jax_its(stats):
-    its = [(f"U{c}", int(pf[2])) for c, pf in zip("xyz", stats["u_perf"])]
-    its += [("p", int(pf[2])) for pf in stats["p_perf"]]
-    return its + [(k, int(pf[2])) for k, pf in sorted(stats["turb"].items())]
-
-
 @pytest.fixture(scope="module", params=list(_LAYOUTS))
 def runs(request):
     """The case in both packages, and 3 SIMPLE iterations of each,
@@ -144,7 +139,7 @@ def runs(request):
     for _ in range(3):
         U, p, phi, ts, stats = step(U, p, phi, ts)
         jout.append(dict(U=U, p=p, phi=phi, **ts))
-        jits += _jax_its(stats)
+        jits += tsimple.iteration_counts(stats)
 
     with captured():
         case = Case(d, device=CPU, dtype=F64, pmesh=tpm, lattice=tlat)
@@ -159,7 +154,7 @@ def runs(request):
         for _ in range(3):
             tU, tp, tphi, tts, stats = tstep(tU, tp, tphi, tts)
             tout.append(dict(U=tU, p=tp, phi=tphi, **tts))
-            tits += _jax_its(stats)
+            tits += tsimple.iteration_counts(stats)
     return dict(layout=layout, dir=d, jcase=jcase, jturb=jturb,
                 jnu=jtransport.nu(jcase.mesh, None), jout=jout, jits=jits,
                 case=case, turb=turb, tout=tout, tits=tits)
@@ -280,36 +275,64 @@ def test_corrected_laplacian_matches_jax(lap, name):
         _close(ts, js, f"folded source {cmpt}")
 
 
-def test_gamg_vcycle_matches_jax(lap, runs):
-    """One linear GAMG V-cycle (V(1,1), coarse correction scaled by 2) on
-    the corrected laplacian with its diagonal shifted by -1: on the
-    channel the structured V-cycle of the 3-D merged-cell lattice
-    (16x10x10 -> 8x5x5 -> 4x3x3, dense), its output on primary slots
-    only; on the duct pair agglomeration. Unshifted, the duct's coarsest
-    agglomerated level is near-singular and both packages' V-cycles
-    return values ~1e14 that agree to no digit."""
-    jm, tm = lap["p"]
-    jm, tm = jm.replace(diag=jm.diag - 1.0), tm.replace(diag=tm.diag - 1.0)
-    jmesh, tmesh = lap["jmesh"], lap["tmesh"]
-    jd, _ = jm.component_system(jmesh, None)
-    td, _ = tm.component_system(tmesh, None)
-    ctl = dict(solver="GAMG", smoother="GaussSeidel", n_coarsest_cells=50,
+_VCYCLE = dict(solver="GAMG", smoother="GaussSeidel", n_coarsest_cells=50,
                n_pre_sweeps=1, n_post_sweeps=1, n_finest_sweeps=1)
-    b = np.random.default_rng(31).standard_normal(tmesh.n_cells)
-    jvc = jgamg.make_vcycle(jmesh, jm, jsolvers._amul_fn(jmesh, jm, jd), jd,
-                            jsolvers.SolverControls(**ctl), False, 2.0)
-    tvc = tgamg.make_vcycle(tmesh, tm, tsolvers._amul_fn(tmesh, tm, td), td,
-                            tsolvers.SolverControls(**ctl), False, 2.0)
-    zero = np.zeros(tmesh.n_cells)
-    jx = jax.jit(jvc)(jnp.asarray(zero), jnp.asarray(b))
-    tx = tvc(torch.from_numpy(zero), torch.from_numpy(b))
-    _close(tx, jx, "vcycle")
+
+
+@pytest.fixture(scope="module")
+def vcycle(runs):
+    """(port matrix, JAX matrix, b) -> the output of one linear GAMG
+    V-cycle from zero (V(1,1), coarse correction scaled by 2, levels down
+    to 50 cells) in both packages on the case's mesh: on the channel the
+    structured V-cycle of the 3-D merged-cell lattice (16x10x10 -> 8x5x5
+    -> 4x3x3, dense), on the duct pair agglomeration. The JAX V-cycle is
+    compiled once for every matrix of the layout."""
+    jmesh = runs["jcase"].mesh
+    tmesh = interop.mesh_arrays(jmesh, device=CPU, dtype=F64)
+
+    @jax.jit
+    def jvc(m, b):
+        d, _ = m.component_system(jmesh, None)
+        return jgamg.make_vcycle(
+            jmesh, m, jsolvers._amul_fn(jmesh, m, d), d,
+            jsolvers.SolverControls(**_VCYCLE), False, 2.0)(
+                jnp.zeros_like(b), b)
+
+    def run(tm, jm, b):
+        td, _ = tm.component_system(tmesh, None)
+        tvc = tgamg.make_vcycle(tmesh, tm, tsolvers._amul_fn(tmesh, tm, td),
+                                td, tsolvers.SolverControls(**_VCYCLE),
+                                False, 2.0)
+        b = torch.from_numpy(b)
+        # the matrix's units are static in the JAX pytree: one unit keeps
+        # one compiled V-cycle for every matrix
+        return tvc(torch.zeros_like(b), b), jvc(jm.replace(dims=jm.psi.dims),
+                                                jnp.asarray(b.numpy()))
     if runs["layout"] == "channel":
         assert tsmg.structured_info(tmesh) == (10, 10, 16)
-        ghost = ~np.asarray(jmesh.gdia.primary, bool)
-        assert ghost.any() and (tx.numpy()[ghost] == 0).all()
     else:
         assert len(tgamg.build_hierarchy(tmesh, 50)) > 1
+    return run
+
+
+def test_gamg_vcycle_matches_jax(lap, runs, vcycle):
+    """One V-cycle on the corrected laplacian with its diagonal shifted
+    by -1, to 1e-12 relative, its output on primary slots only. The shift
+    is needed because this laplacian is singular: its gamma is a copy of
+    the p field, so on the outlet it carries p's fixed value 0, the
+    outlet's coefficients vanish and no row pins the level (every row
+    sums to zero). Unshifted, both packages' V-cycles return values ~1e14
+    that agree to no digit. The p system the solver builds is regular and
+    is compared unshifted in test_gamg_vcycle_on_p_system_matches_jax."""
+    jm, tm = lap["p"]
+    jm, tm = jm.replace(diag=jm.diag - 1.0), tm.replace(diag=tm.diag - 1.0)
+    jmesh = lap["jmesh"]
+    b = np.random.default_rng(31).standard_normal(jmesh.n_cells)
+    tx, jx = vcycle(tm, jm, b)
+    _close(tx, jx, "vcycle")
+    if runs["layout"] == "channel":
+        ghost = ~np.asarray(jmesh.gdia.primary, bool)
+        assert ghost.any() and (tx.numpy()[ghost] == 0).all()
 
 
 @pytest.fixture(scope="module")
@@ -332,6 +355,63 @@ def carried(runs):
         tphi=interop.surface_field(j["phi"], device=CPU, dtype=F64),
         tnu=TDimensioned("nu", DimensionSet(*jnu.dims.as_tuple()),
                          float(jnu.value)))
+
+
+@pytest.fixture(scope="module")
+def p_system(runs, carried):
+    """The p system of the second SIMPLE iteration (from the JAX state
+    after the first) as simple_step builds it, in both packages on the
+    JAX mesh: rAU = 1/A of the relaxed momentum matrix (its boundary
+    values extrapolated from the cells), laplacian(rAU, p, corrected)
+    with p's own boundary conditions and set_reference."""
+    c = carried
+    jcase, jturb, turb = runs["jcase"], runs["jturb"], runs["turb"]
+    kw = jsimple.step_kwargs_from_case(
+        jcase, JSimpleControl(jcase),
+        JTransport(jcase.transport_properties()), jturb)
+
+    @jax.jit
+    def jsys(mesh, U, p, phi, st):
+        UEqn = jfvm.div(mesh, phi, U, kw["div_u"]) + jsimple.div_dev_reff(
+            mesh, jturb.nu_eff(mesh, st, c["jnu"]), U, kw["lap_corr"])
+        rAU = 1.0 / UEqn.relax(mesh, kw["u_relax"]).A(mesh)
+        return jfvm.laplacian(mesh, rAU, p, kw["lap_corr"]).set_reference(
+            kw["p_ref_cell"], kw["p_ref_value"])
+
+    jp = runs["jout"][0]["p"]
+    jm = jsys(c["jmesh"], c["jU"], jp, c["jphi"], c["jstate"])
+    tmesh, tU = c["tmesh"], c["tU"]
+    UEqn = fvm.div(tmesh, c["tphi"], tU, kw["div_u"]) + tsimple.div_dev_reff(
+        tmesh, turb.nu_eff(tmesh, c["tstate"], c["tnu"]), tU, kw["lap_corr"])
+    rAU = 1.0 / UEqn.relax(tmesh, kw["u_relax"]).A(tmesh)
+    tm = fvm.laplacian(tmesh, rAU, interop.vol_field(jp, device=CPU,
+                                                     dtype=F64),
+                       kw["lap_corr"]).set_reference(kw["p_ref_cell"],
+                                                     kw["p_ref_value"])
+    return jm, tm
+
+
+def test_gamg_vcycle_on_p_system_matches_jax(runs, carried, p_system,
+                                            vcycle):
+    """The solver's own p system, unshifted: its coefficients and its
+    folded diagonal, and one V-cycle on it (levels down to 50 cells, where
+    the shifted case's laplacian is singular), to 1e-12 relative. rAU's
+    boundary values and the outlet's fixed value keep every level regular:
+    the V-cycle's output stays at the scale of b/diag."""
+    jm, tm = p_system
+    jmesh, tmesh = carried["jmesh"], carried["tmesh"]
+    for part in ("diag", "upper", "lower"):
+        _close(getattr(tm, part), getattr(jm, part), part)
+    jd, _ = jm.component_system(jmesh, None)
+    td, _ = tm.component_system(tmesh, None)
+    _close(td, jd, "folded diag")
+    live = np.ones(tmesh.n_cells, bool) if jmesh.gdia is None \
+        else np.asarray(jmesh.gdia.primary, bool)
+    b = np.random.default_rng(32).standard_normal(tmesh.n_cells) * live
+    tx, jx = vcycle(tm, jm, b)
+    _close(tx, jx, "vcycle")
+    scale = np.abs(b).max() / np.abs(np.asarray(jd)[live]).min()
+    assert 0.0 < np.abs(np.asarray(jx)).max() < 1e3 * scale
 
 
 def test_komegasst_correct_matches_jax(runs, carried):

@@ -25,10 +25,11 @@ field updates).
   dt = 0.005*20/n*0.5), with the host seconds of its set-up;
 - `--case channel`: a simpleFoam SIMPLE iteration (kOmegaSST, corrected
   laplacian, one non-orthogonal corrector) of bench_unstructured.py's
-  polyhedral channel as that script builds it by default (160x80x80,
-  perturb 0.12, merge fraction 0.04, seed 3) on the merged-cell 3-D gdia
-  lattice, or with `--ell` on the padded ELL (no lattice embedding, GAMG
-  by pair agglomeration), at `--dims` if given;
+  polyhedral channel as that script builds it by default
+  (utils.unstructured.channel_stepper: 160x80x80, perturb 0.12, merge
+  fraction 0.04, seed 3) on the merged-cell 3-D gdia lattice, or with
+  `--ell` on the padded ELL (no lattice embedding, GAMG by pair
+  agglomeration), at `--dims` if given;
 - `--case duct`: the same channel bent by 1.2 rad and graded 4:1
   (bench_unstructured.py --curve 1.2 --grade 4.0), which is not a
   lattice and runs on the padded ELL, at 128x64x64 or `--dims`.
@@ -86,12 +87,25 @@ def _host_ops(prof, top=10):
     return sorted(ops, key=lambda t: -t[1])[:top]
 
 
+def _simple_state(step, U, p, phi, turb_state):
+    """(state, advance) of a simpleFoam step: advance(state) runs one
+    SIMPLE iteration and appends its iteration counts
+    (simplefoam.iteration_counts) to state["its"]."""
+    from rapidcfd_tpu_torch.solvers.simplefoam import iteration_counts
+    state = {"U": U, "p": p, "phi": phi, "turb": turb_state, "its": []}
+
+    def advance(s):
+        s["U"], s["p"], s["phi"], s["turb"], st = step(
+            s["U"], s["p"], s["phi"], s["turb"])
+        s["its"].append(iteration_counts(st))
+    return state, advance
+
+
 def _make_stepper(args, d):
-    """(case, advance): advance(state) runs one step of --case on the
-    state dict and appends that step's iteration counts to state["its"]
-    ([p solves..., U] for icoFoam; [p solves..., U, then the turbulence
-    fields by name] for simpleFoam: epsilon, k on pitzDaily, k, omega on
-    the channel and the duct)."""
+    """(case, state, advance): advance(state) runs one step of --case on
+    the state dict and appends that step's iteration counts to
+    state["its"] ([p solves..., U] for icoFoam; [(solve, iterations)] in
+    simpleFoam's log order for simpleFoam)."""
     from rapidcfd_tpu_torch.fields.field import Dimensioned
     from rapidcfd_tpu_torch.ops import fvc
     from rapidcfd_tpu_torch.solvers import icofoam, simplefoam
@@ -100,47 +114,29 @@ def _make_stepper(args, d):
                                                   pitz_daily_case,
                                                   pitz_daily_ico_case)
     dev, f32 = torch.device("cuda"), torch.float32
-    if args.case in ("simple", "channel", "duct"):
+    if args.case in ("channel", "duct"):
+        from rapidcfd_tpu_torch.utils.unstructured import channel_stepper
+        nx, ny, nz = args.dims
+        duct = dict(curve=1.2, grade=4.0) if args.case == "duct" else {}
+        case, (U, p, phi, ts), step, _ = channel_stepper(
+            d, nx=nx, ny=ny, nz=nz, device=dev, dtype=f32, ell=args.ell,
+            **duct)
+        return case, *_simple_state(step, U, p, phi, ts)
+    if args.case == "simple":
         from rapidcfd_tpu_torch.models.transport import \
             SinglePhaseTransportModel
         from rapidcfd_tpu_torch.models.turbulence import make_ras_model
         from rapidcfd_tpu_torch.solvers.controls import SimpleControl
-        from rapidcfd_tpu_torch.utils.unstructured import \
-            unstructured_channel_case
-        if args.case == "simple":
-            pitz_daily_case(d, scale=args.scale)
-            case = Case(d, device=dev, dtype=f32, gdia_auto=not args.ell)
-        else:
-            duct = args.case == "duct"
-            nx, ny, nz = args.dims
-            lattice = None if duct or args.ell else {}
-            t0 = time.perf_counter()
-            pmesh = unstructured_channel_case(
-                d, nx=nx, ny=ny, nz=nz, end_time=10 ** 9, perturb=0.12,
-                merge_fraction=0.04, seed=3, write_mesh=False,
-                lattice_out=lattice, curve=1.2 if duct else 0.0,
-                grade=4.0 if duct else 1.0)
-            t_gen = time.perf_counter() - t0
-            case = Case(d, device=dev, dtype=f32, pmesh=pmesh,
-                        lattice=lattice, gdia_auto=not args.ell)
-            case.setup_seconds["generate"] = t_gen
+        pitz_daily_case(d, scale=args.scale)
+        case = Case(d, device=dev, dtype=f32, gdia_auto=not args.ell)
         U = case.read_field("U")
         turb = make_ras_model(case, U)
         step = simplefoam.make_step(
             case, SinglePhaseTransportModel(case.transport_properties()),
             turb, SimpleControl(case))
-        state = {"U": U, "p": case.read_field("p"),
-                 "phi": fvc.flux(case.mesh, U),
-                 "turb": turb.init_state(U), "its": []}
-
-        def advance(s):
-            s["U"], s["p"], s["phi"], s["turb"], st = step(
-                s["U"], s["p"], s["phi"], s["turb"])
-            s["its"].append([int(x[2]) for x in st["p_perf"]]
-                            + [int(st["u_perf"][0][2])]
-                            + [int(st["turb"][k][2])
-                               for k in sorted(st["turb"])])
-        return case, state, advance
+        return case, *_simple_state(step, U, case.read_field("p"),
+                                    fvc.flux(case.mesh, U),
+                                    turb.init_state(U))
     if args.case == "pitz":
         pitz_daily_ico_case(d, scale=args.scale)
         case = Case(d, device=dev, dtype=f32, gdia_auto=not args.ell)
