@@ -69,13 +69,34 @@ Phases (any failure raises and the script exits non-zero):
    warm-up iteration, one timed window of 3 and one profiled iteration;
    its fields finite, k and omega positive (its first iterations are a
    transient of the case: no bound on continuity and |U|);
-13. a JSON line of kernel results (the kernel's four forms: cold times of
-   the kernel, the baseline, the plain version and cuSPARSE as `ms`,
-   `baseline_ms`, `plain_ms` and `library_ms`, held against `bound_ms`,
-   and their warm times as `*warm_ms`, with their launches on their main
-   path, simpleFoam pitzDaily x5 for K = 5 and the channel for K = 7, and
-   on each other path), the card's name and power limit, and the result
-   line {"ok": true, "device": {...}} last.
+13. pimpleFoam on the small T-junction (section 4 x 4, leg 12, bar 12,
+   kEpsilon, the open-boundary conditions, adaptive dt, gdia) and
+   pisoFoam on the 20x20 cavity, fp64, 5 steps each on cuda and on cpu:
+   fields agree to 1e-10 relative, the same dt sequence, iteration counts
+   within one; and the full-size T-junction in fp64 on the card for 3
+   steps, its dt, Courant max and continuity error within 1e-6 of the JAX
+   package's fp64 readings;
+14. the main path of pimpleFoam: the full-size T-junction (294,912 cells
+   on a 192x128x32 lattice, gdia, K = 7) in fp32 with adaptive dt (maxCo
+   5), one warm-up step, 10 timed steps and one profiled step; fields
+   finite, k and epsilon positive, both K = 7 forms launched at every
+   step, Courant max within 1.2 maxCo from the first adaptive step on,
+   steps 1-3 within 5% of the JAX package's fp64 readings (TJ_REFERENCE)
+   in dt and Courant max, and in the continuity error within 5% plus the
+   floor that rounding p to fp32 sets for it; set-up by stage, per-step dt,
+   Courant, continuity and iterations, ms/step, peak memory, the
+   profiled step's launches, busy share and top kernels;
+15. (run right after phase 3, before any step is traced) both K = 7
+   forms on the T-junction's own Gauss planes against the plain version,
+   timed cold and warm beside cuSPARSE as in phase 3;
+16. a JSON line of kernel results (the kernel's four forms, and its two
+   K = 7 forms on the T-junction's planes: cold times of the kernel, the
+   baseline, the plain version and cuSPARSE as `ms`, `baseline_ms`,
+   `plain_ms` and `library_ms`, held against `bound_ms`, and their warm
+   times as `*warm_ms`, with their launches on their main path —
+   simpleFoam pitzDaily x5 for K = 5, the channel for K = 7, the
+   T-junction for its planes — and on each path), the card's name and
+   power limit, and the result line {"ok": true, "device": {...}} last.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -216,21 +237,45 @@ def _time_ms(fn, reps=200) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, reps=50) -> float:
-    """Device time per call: the CUDA kernels' own time, traced by
-    torch.profiler (CUPTI)."""
+def _kernel_records(fn, calls: int) -> dict:
+    """{kernel name: (records, device us)} of `calls` calls of fn traced
+    by torch.profiler (CUPTI), after one untraced call. The trace opens
+    with 16 launches of a spin kernel, left out of the result: sessions
+    that began with the timed calls lost some of their records (1 of 48
+    in phase 3, 15 of 48 after phase 11's traced iteration); sessions
+    that began with the spins kept every record on the card."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+        for _ in range(16):
+            torch.cuda._sleep(1000)
+        for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0.0)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return {e.key: (int(e.count), getattr(e, "self_device_time_total", 0.0))
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "spin" not in e.key}
+
+
+def _device_ms(fn, reps=50) -> float:
+    """Device time per call: for each kernel the call launches, its mean
+    device time over the records a trace of `reps` calls kept, times its
+    launches per call (the most that five one-call traces kept), so a
+    lost record does not shorten the time."""
+    per_call = {}
+    for _ in range(5):
+        for name, (n, _) in _kernel_records(fn, 1).items():
+            per_call[name] = max(per_call.get(name, 0), n)
+    recs = _kernel_records(fn, reps)
+    check(per_call and set(per_call) <= set(recs),
+          f"the profiler kept no record of {sorted(set(per_call) - set(recs))}"
+          f" (one-call traces: {sorted(per_call)})")
+    total_us = sum(recs[name][1] / recs[name][0] * n
+                   for name, n in per_call.items())
     check(total_us > 0, "the profiler recorded no device time")
-    return total_us / reps / 1e3
+    return total_us / 1e3
 
 
 OFFSETS_3D = (-1200, -40, -1, 0, 1, 40, 1200)       # a 40x30x20 lattice
@@ -390,16 +435,21 @@ def phase_kernel(smi: str) -> dict:
 
 
 def _time_form(gm, K: int, C: int, n: int, offs, n_sets: int,
-               smi: str) -> dict:
+               smi: str, coeffs=None, label: str = "[3]") -> dict:
     """Device time per call at fp32 of the kernel, the baseline kernel,
     the plain version and the cuSPARSE product: cold (calls rotating over
     `n_sets` input sets, more than the 50 MB L2 holds) and warm (50 calls
     on one input set; from L2 where it fits); the baseline and the kernel
-    in turns (baseline, kernel, kernel, baseline)."""
+    in turns (baseline, kernel, kernel, baseline). `coeffs` (K, C, n)
+    gives the planes (a copy per set); else they are random."""
     g = torch.Generator(device="cuda").manual_seed(99 + 10 * K + C)
     nbytes = (n + K * C * n + C * n) * 4       # inputs once, output once
-    sets = [_kernel_inputs(K, C, n, 0, torch.float32, g)
-            for _ in range(n_sets)]
+    if coeffs is None:
+        sets = [_kernel_inputs(K, C, n, 0, torch.float32, g)
+                for _ in range(n_sets)]
+    else:
+        sets = [(torch.randn(n, generator=g, device="cuda"), coeffs.clone())
+                for _ in range(n_sets)]
     mats = [_library_matrix(c, offs) for _, c in sets]
     x0, c0 = sets[0]
     ref = gm.shift_mac_cols_plain(x0, c0, offs)
@@ -432,7 +482,7 @@ def _time_form(gm, K: int, C: int, n: int, offs, n_sets: int,
     ms = {k: sum(v) / len(v) for k, v in t.items()}
     bound = max((nbytes / HBM_BYTES_PER_S, "bytes"),
                 (2 * K * C * n / FP32_FLOPS, "operations"))
-    print(f"[3] fp32 K={K} C={C} n={n}, device time per call, us, cold "
+    print(f"{label} fp32 K={K} C={C} n={n}, device time per call, us, cold "
           f"({n_sets} input sets, {n_sets * nbytes / 1e6:.1f} MB with their "
           f"outputs) / warm: "
           f"bound {bound[0] * 1e6:.2f} ({nbytes} bytes, by {bound[1]}) "
@@ -441,10 +491,10 @@ def _time_form(gm, K: int, C: int, n: int, offs, n_sets: int,
         c, w = t[(name, "cold")], t[(name, "warm")]
         share = (f"; {bound[0] * 1e3 / ms[(name, 'cold')]:.0%} of the bound "
                  f"cold")
-        print(f"[3]   {name:9s} " + " / ".join(
+        print(f"{label}   {name:9s} " + " / ".join(
             ", ".join(f"{v * 1e3:.2f}" for v in vals) for vals in (c, w))
             + (" (turns)" if len(w) > 1 else "") + share)
-    print(f"[3]   cuSPARSE max|d| against plain {lib_err:.2e}")
+    print(f"{label}   cuSPARSE max|d| against plain {lib_err:.2e}")
     # ms, plain_ms, library_ms, baseline_ms: cold, as the bound assumes
     return dict(
         ms=ms[("kernel", "cold")], plain_ms=ms[("plain", "cold")],
@@ -876,9 +926,10 @@ def phase_channel_agreement(tmp: str):
 
 
 def _profiled_iteration(step, state):
-    """One more SIMPLE iteration under torch.profiler (CUDA activity):
-    (new state, stats, kernel launches, device busy seconds, wall
-    seconds, {shift-MAC kernel name: launches})."""
+    """One more step (a SIMPLE iteration or a timestep) under
+    torch.profiler (CUDA activity): (new state, stats, kernel launches,
+    device busy seconds, wall seconds, {shift-MAC kernel name: launches},
+    the 8 kernels with the most device time as (name, launches, ms))."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -894,8 +945,12 @@ def _profiled_iteration(step, state):
         m = re.search(r"(mac_\w+|ref_kernel)(<[^>]*>)?", e.key)
         if m:
             mac[m.group(0)] = mac.get(m.group(0), 0) + int(e.count)
+    top = sorted(kern, key=lambda e: -getattr(e, "self_device_time_total",
+                                              0.0))[:8]
+    top = [(e.key[:70], int(e.count),
+            getattr(e, "self_device_time_total", 0.0) / 1e3) for e in top]
     return (tuple(new), st, sum(int(e.count) for e in kern), busy / 1e6,
-            wall, mac)
+            wall, mac, top)
 
 
 def _run_channel_path(tag: str, tmp: str, dims: dict, cells: int,
@@ -938,7 +993,7 @@ def _run_channel_path(tag: str, tmp: str, dims: dict, cells: int,
             torch.cuda.synchronize()
             windows.append(time.perf_counter() - t0)
         launches = dict(gdia_mac.LAUNCHES_BY_KC)
-        state, st, n_kernels, busy, t_prof, mac = _profiled_iteration(
+        state, st, n_kernels, busy, t_prof, mac, _ = _profiled_iteration(
             step, state)
         stats.append(st)
         u_max.append(state[0].data.abs().max())
@@ -1063,11 +1118,303 @@ def phase_duct_main(tmp: str, smi: str) -> dict:
     return launches
 
 
+# pimpleFoam's T-junction (utils/casegen.tjunction_case) at full size: a
+# 32 x 32-cell square section, a 160-cell inlet leg and a 128-cell
+# cross-bar, on a 192 x 128 x 32 lattice (offsets 0, +-1, +-192, +-24,576)
+TJ = dict(section=32, leg=160, bar=128)
+TJ_CELLS = 294912
+TJ_N = 192 * 128 * 32
+TJ_OFFSETS = (-24576, -192, -1, 0, 1, 192, 24576)
+TJ_SMALL = dict(section=4, leg=12, bar=12, depth=4)
+TJ_STEPS = 10                       # timed steps after one warm-up step
+# the JAX package's readings of the first 3 steps on the same mesh, fp64 on
+# the CPU (tests/crosscheck_tjunction.py --steps 3 --port-device cuda, where
+# the port in fp64 on the card gave the same readings to 9 digits): (dt in
+# s, Courant max, local continuity error in m^3/s)
+TJ_REFERENCE = ((0.001, 0.06113434820534516, 6.466868733525156e-08),
+                (0.0012, 0.15763257052114812, 1.4267492589100945e-08),
+                (0.0014399999999999999, 0.305679352486186,
+                 3.4465225004287324e-08))
+# the port's fp64 run at full size holds all three to TJ_RTOL_FP64; the
+# fp32 main path holds dt and Courant max to TJ_RTOL, and the continuity
+# error to TJ_RTOL plus the floor fp32 sets for it (_continuity_floor):
+# the fp64 readings sit at the p solver's tolerance, 8-41x below what
+# rounding p (~10 m^2/s^2) to fp32 leaves in the face fluxes
+TJ_RTOL = 0.05
+TJ_RTOL_FP64 = 1e-6
+
+
+def _pimple_pair(tag: str, d: str, piso: bool, steps: int = 5):
+    """pimplefoam.run in fp64 on cuda and on cpu: fields within 1e-10
+    relative, the same dt sequence, iteration counts within one."""
+    from rapidcfd_tpu_torch.solvers import pimplefoam
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        outs[dev], _, _ = _logged(pimplefoam.run, d, device=torch.device(dev),
+                                  dtype=torch.float64, write=False,
+                                  max_steps=steps, piso_mode=piso)
+        print(f"{tag} {steps} steps on {dev}: "
+              f"{time.perf_counter() - t0:.2f} s")
+    gout, cout = outs["cuda"], outs["cpu"]
+    errs = _simple_rel_errs(gout, cout)
+    print(f"{tag} cuda vs cpu, relative max|d|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    check(all(v <= 1e-10 for v in errs.values()),
+          f"{tag} fp64 cuda and cpu runs disagree: {errs}")
+    glog, clog = gout[0].step_log, cout[0].step_log
+    check(len(glog) == len(clog) == steps, f"{tag} unexpected step count")
+    dts = [(g["dt"], c["dt"]) for g, c in zip(glog, clog)]
+    check(all(abs(a - b) <= 1e-12 * b for a, b in dts),
+          f"{tag} dt sequences differ: {dts}")
+    n_off = 0
+    for i, (g, c) in enumerate(zip(glog, clog)):
+        gi, ci = g["iterations"], c["iterations"]
+        check([f for f, _ in gi] == [f for f, _ in ci]
+              and all(abs(a - b) <= 1 for (_, a), (_, b) in zip(gi, ci)),
+              f"{tag} step {i + 1}: iteration counts {gi} against {ci}")
+        n_off += sum(a != b for (_, a), (_, b) in zip(gi, ci))
+    print(f"{tag} dt sequence {[g['dt'] for g in glog]}; {n_off} of "
+          f"{sum(len(g['iterations']) for g in glog)} solves differ (by "
+          f"one); cuda step 1: {glog[0]['iterations']}")
+
+
+def _continuity_floor(mesh, p, dt: float) -> float:
+    """The local continuity error (sum over cells of |sum of face fluxes|)
+    that rounding p to fp32 alone can leave: each face flux carries
+    rAU*|Sf|*deltaCoeff*(p_N - p_P), rAU ~ dt while the time derivative
+    dominates the momentum diagonal, and p_N - p_P is known to
+    eps32*max|p|; every internal face enters two cells."""
+    n = mesh.n_internal
+    coeff = float((mesh.mag_sf[:n] * mesh.delta_coeffs[:n]).sum()) * 2.0
+    return float(torch.finfo(torch.float32).eps) * float(
+        p.data.abs().max()) * dt * coeff
+
+
+def _tjunction_readings_fp64(tmp: str):
+    """The full-size T-junction in fp64 on the card, 3 steps: dt, Courant
+    max and continuity error within TJ_RTOL_FP64 of the JAX package's."""
+    from rapidcfd_tpu_torch.solvers import pimplefoam
+    from rapidcfd_tpu_torch.solvers.case import Case
+    from rapidcfd_tpu_torch.utils.casegen import tjunction_case
+    from rapidcfd_tpu_torch.utils.logging import captured
+    tag = "[13] fp64 pimpleFoam T-junction 32/160/128 on cuda,"
+    t0 = time.perf_counter()
+    with captured():
+        pm = tjunction_case(f"{tmp}/tj64", write_mesh=False, **TJ)
+        case = Case(f"{tmp}/tj64", device=torch.device("cuda"),
+                    dtype=torch.float64, pmesh=pm)
+        case = pimplefoam.run(f"{tmp}/tj64", device=torch.device("cuda"),
+                              dtype=torch.float64, write=False, max_steps=3,
+                              case=case)[0]
+    readings = [(r["dt"], r["co"][1], r["cont"][0]) for r in case.step_log]
+    dev = max(abs(x - ref) / abs(ref) for got, want in zip(readings,
+                                                           TJ_REFERENCE)
+              for x, ref in zip(got, want))
+    print(f"{tag} 3 steps in {time.perf_counter() - t0:.2f} s with set-up: "
+          f"(dt, Courant max, local continuity error) {readings}; largest "
+          f"relative deviation from the JAX package's {dev:.3e} (limit "
+          f"{TJ_RTOL_FP64})")
+    check(len(readings) == 3 and dev <= TJ_RTOL_FP64,
+          f"{tag} leaves the JAX package's readings {TJ_REFERENCE}")
+
+
+def phase_pimple_agreement(tmp: str):
+    """pimpleFoam on the small T-junction (kEpsilon, the open-boundary
+    set, adaptive dt, gdia) and pisoFoam on the cavity of
+    tests/test_basic_solvers.py, fp64, 5 steps each on cuda and on cpu;
+    the full-size T-junction in fp64 on the card against the JAX
+    package's readings."""
+    from rapidcfd_tpu_torch.utils.casegen import (_write, cavity_case,
+                                                  tjunction_case)
+    from rapidcfd_tpu_torch.utils.dictionary import foamfile_header
+    d = f"{tmp}/tj_small"
+    tjunction_case(d, **TJ_SMALL)
+    _pimple_pair("[13] fp64 pimpleFoam T-junction 4/12/12,", d, piso=False)
+    d = f"{tmp}/piso_cavity"
+    cavity_case(d, end_time=0.05)
+    _write(f"{d}/constant/RASProperties",
+           foamfile_header("dictionary", "RASProperties", "constant"),
+           "\nRASModel        laminar;\nturbulence      off;\n")
+    _pimple_pair("[13] fp64 pisoFoam cavity 20x20,", d, piso=True)
+    _tjunction_readings_fp64(tmp)
+
+
+def phase_tjunction_main(tmp: str, smi: str):
+    """The main path: pimpleFoam on the full-size T-junction (294,912
+    cells on 786,432 lattice slots, gdia, K = 7) in fp32 with adaptive dt:
+    one warm-up step, TJ_STEPS timed steps and one profiled step. Both
+    K = 7 forms must launch at every step, Courant max stay within 1.2
+    maxCo from the first adaptive step on, and steps 1-3 within TJ_RTOL
+    of the JAX package's readings. Returns the shift-MAC launches by
+    (K, C) over the warm-up and the timed steps."""
+    from rapidcfd_tpu_torch.ops import gdia_mac
+    from rapidcfd_tpu_torch.solvers import pimplefoam
+    from rapidcfd_tpu_torch.solvers.case import Case
+    from rapidcfd_tpu_torch.utils.casegen import tjunction_case
+    from rapidcfd_tpu_torch.utils.logging import captured
+    tag = "[14] pimpleFoam T-junction"
+    torch.cuda.reset_peak_memory_stats()
+    with captured():
+        t0 = time.perf_counter()
+        pm = tjunction_case(f"{tmp}/tjunction", write_mesh=False, **TJ)
+        t_gen = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        case = Case(f"{tmp}/tjunction", device=torch.device("cuda"),
+                    dtype=torch.float32, pmesh=pm)
+        t_case = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (U, p, phi, ts), step = pimplefoam.setup(case)
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
+    mesh = case.mesh
+    live = int(case.maps.cell_primary.sum())
+    check(mesh.gdia is not None and mesh.n_cells == TJ_N and live == TJ_CELLS
+          and tuple(mesh.gauss.offsets) == TJ_OFFSETS,
+          f"{tag}: expected {TJ_CELLS} cells on the {TJ_N}-slot gdia lattice "
+          f"with offsets {TJ_OFFSETS}, got {live} on {mesh.n_cells}")
+    stages = {"generate": t_gen, **case.setup_seconds,
+              "case total": t_case, "fields, models and step": t_setup}
+    print(f"{tag} fp32: {live} cells on {mesh.n_cells} slots (gdia); "
+          f"set-up by stage: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items()))
+    clock, co_prev, records = case.time, 0.0, []
+    gdia_mac.reset_launches()
+    with captured():
+        for _ in range(1 + TJ_STEPS):
+            if clock.adjust_time_step and co_prev > 0:
+                clock.set_delta_t(pimplefoam.next_delta_t(
+                    clock.delta_t, clock.max_co, co_prev))
+            clock.increment()
+            before = dict(gdia_mac.LAUNCHES_BY_KC)
+            t0 = time.perf_counter()
+            U, p, phi, ts, st = step(U, p, phi, ts, clock.delta_t)
+            co = tuple(float(x) for x in st["co"])
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            co_prev = co[1]
+            now = dict(gdia_mac.LAUNCHES_BY_KC)
+            records.append(dict(
+                dt=clock.delta_t, co=co, sec=sec,
+                cont=tuple(float(x) for x in st["cont"]),
+                floor=_continuity_floor(mesh, p, clock.delta_t),
+                its=pimplefoam.iteration_counts(st),
+                launches={kc: now[kc] - before.get(kc, 0) for kc in now}))
+        launches = dict(gdia_mac.LAUNCHES_BY_KC)
+        clock.set_delta_t(pimplefoam.next_delta_t(clock.delta_t,
+                                                  clock.max_co, co_prev))
+        (U, p, phi, ts), st, n_kernels, busy, t_prof, mac, top = \
+            _profiled_iteration(step, (U, p, phi, ts, clock.delta_t))
+    for f in (U, p, phi, *ts.values()):
+        check(bool(torch.isfinite(f.data).all()), f"{tag}: {f.name} not "
+              "finite")
+    check(U.data.shape == (mesh.n_cells, 3) and p.data.shape
+          == (mesh.n_cells,) and phi.data.shape == (mesh.n_faces,),
+          f"{tag}: unexpected shapes")
+    prim = torch.as_tensor(case.maps.cell_primary, device=p.data.device)
+    for name in ("k", "epsilon"):
+        check(bool((ts[name].data[prim] > 0).all()),
+              f"{tag}: {name} not positive")
+    for i, r in enumerate(records):
+        print(f"{tag} step {i + 1}: dt {r['dt']:.6g} s, Courant mean "
+              f"{r['co'][0]:.6g} max {r['co'][1]:.6g}, continuity local "
+              f"{r['cont'][0]:.6g} global {r['cont'][1]:.6g}, "
+              f"{r['sec'] * 1e3:.1f} ms; iterations {r['its']}; shift-MAC "
+              f"{r['launches']}")
+    max_co = clock.max_co
+    check(all(r["co"][1] <= 1.2 * max_co for r in records[1:]),
+          f"{tag}: Courant max above 1.2 maxCo ({max_co}) after the first "
+          f"adaptive step")
+    for i, r in enumerate(records):
+        check(all(r["launches"].get((7, c), 0) > 0 for c in (3, 1))
+              and set(r["launches"]) <= {(7, 3), (7, 1)},
+              f"{tag}: step {i + 1} launched {r['launches']}")
+    readings = [(r["dt"], r["co"][1], r["cont"][0]) for r in records[:3]]
+    print(f"{tag} steps 1-3 (dt, Courant max, local continuity error): "
+          f"{readings}; the JAX package's fp64 readings: {TJ_REFERENCE}")
+    dev = [abs(x - ref) / abs(ref) for got, want in zip(readings,
+                                                        TJ_REFERENCE)
+           for x, ref in zip(got[:2], want[:2])]
+    print(f"{tag} largest relative deviation of dt and Courant max from "
+          f"them: {max(dev):.3e} (limit {TJ_RTOL})")
+    check(len(dev) == 6 and max(dev) <= TJ_RTOL,
+          f"{tag}: steps 1-3 leave the JAX package's dt or Courant max")
+    for (_, _, cont), (_, _, ref), r in zip(readings, TJ_REFERENCE, records):
+        lim = TJ_RTOL * ref + r["floor"]
+        print(f"{tag} continuity error {cont:.4e} against {ref:.4e}: |d| "
+              f"{abs(cont - ref):.4e}, limit {lim:.4e} (5% plus the fp32 "
+              f"floor {r['floor']:.4e})")
+        check(abs(cont - ref) <= lim, f"{tag}: continuity error {cont} "
+              f"leaves the JAX package's {ref} by more than {lim}")
+    timed = [r["sec"] for r in records[1:]]
+    print(f"{tag} first step {records[0]['sec'] * 1e3:.1f} ms; {TJ_STEPS} "
+          f"timed steps: median {statistics.median(timed) * 1e3:.3f} ms/step"
+          f" (min {min(timed) * 1e3:.3f}, max {max(timed) * 1e3:.3f}), "
+          f"{live / statistics.median(timed):.1f} cell-updates/s; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+          f"GiB (card: {smi})")
+    print(f"{tag} profiled step: {t_prof * 1e3:.1f} ms, {n_kernels} kernel "
+          f"launches, device busy {busy * 1e3:.2f} ms ({busy / t_prof:.1%}); "
+          f"iterations {pimplefoam.iteration_counts(st)} (card: {smi})")
+    print(f"{tag} profiled step, top kernels by device time (name, "
+          f"launches, ms): {top}")
+    n = len(records)
+    per_step = {f"K={k} C={c}": v / n
+                for (k, c), v in sorted(launches.items())}
+    print(f"{tag} shift-MAC launches in {n} steps by (K, C): {launches} "
+          f"(per step {per_step}); kernels of the profiled step: {mac}")
+    check(not any("generic" in name for name in mac),
+          f"{tag}: a shift-MAC call took the generic kernel: {mac}")
+    return launches
+
+
+def phase_tjunction_kernel(tmp: str, smi: str) -> dict:
+    """Both K = 7 forms on the T-junction's own Gauss planes (n = 786,432,
+    offsets TJ_OFFSETS) against the plain version, then timed cold and
+    warm beside cuSPARSE, as phase 3 times the channel's shape. It runs
+    right after phase 3, before any step is traced: once a process had
+    traced a large step, its later profiler sessions lost more kernel
+    records (2 of 48 after phase 14's step, 15 of 48 after phase 11's)."""
+    from rapidcfd_tpu_torch.ops import gdia_mac as gm
+    from rapidcfd_tpu_torch.solvers.case import Case
+    from rapidcfd_tpu_torch.utils.casegen import tjunction_case
+    from rapidcfd_tpu_torch.utils.logging import captured
+    with captured():
+        pm = tjunction_case(f"{tmp}/tj_planes", write_mesh=False, **TJ)
+        planes = Case(f"{tmp}/tj_planes", device=torch.device("cuda"),
+                      dtype=torch.float32, pmesh=pm).mesh.gauss
+    check(tuple(planes.offsets) == TJ_OFFSETS,
+          f"unexpected T-junction offsets {planes.offsets}")
+    g = torch.Generator(device="cuda").manual_seed(4242)
+    x = torch.randn(TJ_N, generator=g, device="cuda")
+    res = {}
+    for C, coeffs, n_sets in ((3, planes.coeffs, 2),       # 157 MB
+                              (1, planes.coeffs_i[1], 3)):  # 85 MB
+        check(tuple(coeffs.shape) == (7, C, TJ_N)
+              and coeffs.dtype == torch.float32,
+              f"unexpected T-junction planes {tuple(coeffs.shape)}")
+        ref = gm.shift_mac_cols_plain(x, coeffs, planes.offsets)
+        out = gm.shift_mac_cols(x, coeffs, planes.offsets)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        lim = 1e-5 * ref.abs().max().item()
+        print(f"[15] fp32 T-junction planes, K=7 C={C} n={TJ_N}: max|d| "
+              f"{err:.2e} (limit {lim:.2e})")
+        check(err <= lim, f"kernel disagrees with the plain version on the "
+              f"T-junction's planes (C={C}): {err} > {lim}")
+        res[7, C] = dict(max_abs_err=err, **_time_form(
+            gm, 7, C, TJ_N, planes.offsets, n_sets, smi, coeffs=coeffs,
+            label="[15]"))
+        torch.cuda.empty_cache()
+    return res
+
+
 def main():
     smi = phase_setup()
     phase_build()
     k = phase_kernel(smi)
     with tempfile.TemporaryDirectory() as tmp:
+        tj_kernel = phase_tjunction_kernel(tmp, smi)
         phase_fp64_agreement(tmp)
         ico = phase_main_path(tmp, smi)
         phase_cavity_agreement(tmp)
@@ -1077,27 +1424,34 @@ def main():
         phase_channel_agreement(tmp)
         channel = phase_channel_main(tmp, smi)
         duct = phase_duct_main(tmp, smi)
+        phase_pimple_agreement(tmp)
+        tjunction = phase_tjunction_main(tmp, smi)
+    paths = {"simpleFoam pitzDaily x5": simple, "icoFoam pitzDaily x5": ico,
+             "icoFoam cavity 384": cavity,
+             "simpleFoam channel 160x80x80": channel,
+             "simpleFoam curved duct 128x64x64": duct,
+             "pimpleFoam T-junction": tjunction}
     kernels = []
-    for (K, c), what, main_path, launches in (
-            ((5, 3), "Gauss gradient", "simpleFoam pitzDaily x5", simple),
+    for (K, c), what, main_path, times in (
+            ((5, 3), "Gauss gradient", "simpleFoam pitzDaily x5", k[5, 3]),
             ((5, 1), "divergence contraction", "simpleFoam pitzDaily x5",
-             simple),
+             k[5, 1]),
             ((7, 3), "Gauss gradient, 3-D", "simpleFoam channel 160x80x80",
-             channel),
+             k[7, 3]),
             ((7, 1), "divergence contraction, 3-D",
-             "simpleFoam channel 160x80x80", channel)):
+             "simpleFoam channel 160x80x80", k[7, 1]),
+            ((7, 3), "Gauss gradient, 3-D, T-junction planes",
+             "pimpleFoam T-junction", tj_kernel[7, 3]),
+            ((7, 1), "divergence contraction, 3-D, T-junction planes",
+             "pimpleFoam T-junction", tj_kernel[7, 1])):
         kernels.append({
             "name": f"shift_mac K={K} C={c} ({what})", "route": "cuda",
             "source": "rapidcfd_tpu_torch/csrc/shift_mac.cu",
             "replaces": "rapidcfd_tpu/ops/pallas_gdia.py:67",
-            "launches": launches.get((K, c), 0), **k[K, c],
+            "launches": paths[main_path].get((K, c), 0), **times,
             "main_path": main_path,
-            "launches_by_path": {
-                "simpleFoam pitzDaily x5": simple.get((K, c), 0),
-                "icoFoam pitzDaily x5": ico.get((K, c), 0),
-                "icoFoam cavity 384": cavity.get((K, c), 0),
-                "simpleFoam channel 160x80x80": channel.get((K, c), 0),
-                "simpleFoam curved duct 128x64x64": duct.get((K, c), 0)}})
+            "launches_by_path": {name: got.get((K, c), 0)
+                                 for name, got in paths.items()}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -14,10 +14,14 @@ import importlib
 import os
 import sys
 
-#: ported solvers: name -> module with run(case_dir, *, device, dtype, write)
+#: ported solvers: name -> (module with run(case_dir, *, device, dtype,
+#: write, ...), extra keyword arguments of run)
 SOLVERS = {
-    "icoFoam": "rapidcfd_tpu_torch.solvers.icofoam",
-    "simpleFoam": "rapidcfd_tpu_torch.solvers.simplefoam",
+    "icoFoam": ("rapidcfd_tpu_torch.solvers.icofoam", {}),
+    "simpleFoam": ("rapidcfd_tpu_torch.solvers.simplefoam", {}),
+    "pimpleFoam": ("rapidcfd_tpu_torch.solvers.pimplefoam", {}),
+    "pisoFoam": ("rapidcfd_tpu_torch.solvers.pimplefoam",
+                 {"piso_mode": True}),
 }
 
 
@@ -44,10 +48,10 @@ def main(argv=None):
         sys.exit(f"solver '{name}' is not ported. Available: "
                  f"{', '.join(sorted(SOLVERS))}")
     device = resolve_device(args.device)
-    mod = importlib.import_module(SOLVERS[name])
-    mod.run(args.case, device=device,
-            dtype=solver_dtype(name, args.precision),
-            write=not args.noWrite)
+    module, kwargs = SOLVERS[name]
+    importlib.import_module(module).run(
+        args.case, device=device, dtype=solver_dtype(name, args.precision),
+        write=not args.noWrite, **kwargs)
 
 
 if __name__ == "__main__":

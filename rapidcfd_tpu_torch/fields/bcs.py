@@ -11,11 +11,20 @@ with vbc/gbc derived generically as ``evaluate - vic*psi_c`` and
 ``snGrad(evaluate) - gic*psi_c`` (the reference fvPatchField contract,
 fvPatchField.H:80). Descriptors are frozen dataclasses; their tensor
 parameters live in the field's ``bcdata``. Ported: calculated,
-fixedValue, zeroGradient, empty, and the wall functions of kEpsilon and
-kOmegaSST: nutkWallFunction, kqRWallFunction, epsilonWallFunction and
-omegaWallFunction (the JAX package keeps those in models/turbulence.py,
-which re-exports them here);
-other types raise in `make_bc`.
+fixedValue, zeroGradient, empty, mixed, noSlip; the open-boundary set
+of a pressure-driven flow (rapidcfd_tpu/fields/bcs.py:290-1157):
+inletOutlet, totalPressure, uniformTotalPressure (p0 a constant, as in
+the JAX package), pressureInletOutletVelocity, flowRateInletVelocity and
+the turbulentIntensityKineticEnergyInlet, turbulentMixingLength-
+DissipationRateInlet and turbulentMixingLengthFrequencyInlet estimators;
+and the wall functions of kEpsilon and kOmegaSST: nutkWallFunction,
+kqRWallFunction, epsilonWallFunction and omegaWallFunction (the JAX
+package keeps those in models/turbulence.py, which re-exports them
+here). Other types raise in `make_bc`.
+
+The open-boundary types read the flux, the velocity or k from `env`, as
+the JAX call sites pass it; without it they fall back as the JAX package
+does (zero flux, the stored value).
 """
 
 from __future__ import annotations
@@ -157,6 +166,233 @@ class Empty(BC):
     gradient_internal_coeff = value_internal_coeff
 
 
+@dataclass(frozen=True)
+class Mixed(BC):
+    """f*refValue + (1-f)*(psi_c + refGradient/deltaCoeffs) (reference:
+    basic/mixed)."""
+    preserves_type = True
+    word = "mixed"
+
+    def _f(self, bd, psi_c):
+        return torch.broadcast_to(bd["valueFraction"], psi_c.shape)
+
+    def evaluate(self, mesh, patch, field, bd, env=None):
+        psi_c = field.patch_internal(mesh, patch)
+        dc = _bcast(mesh.patch_delta_coeffs(patch), psi_c)
+        f = self._f(bd, psi_c)
+        ref_v = torch.broadcast_to(bd["refValue"], psi_c.shape)
+        ref_g = torch.broadcast_to(bd["refGradient"], psi_c.shape)
+        return f * ref_v + (1.0 - f) * (psi_c + ref_g / dc)
+
+    def value_internal_coeff(self, mesh, patch, field, bd, env=None):
+        return 1.0 - self._f(bd, field.patch_internal(mesh, patch))
+
+    def gradient_internal_coeff(self, mesh, patch, field, bd, env=None):
+        psi_c = field.patch_internal(mesh, patch)
+        dc = _bcast(mesh.patch_delta_coeffs(patch), psi_c)
+        return -self._f(bd, psi_c) * dc
+
+
+@dataclass(frozen=True)
+class NoSlip(FixedValue):
+    """U = 0 at a wall, with no stored value."""
+    word = "noSlip"
+
+    def evaluate(self, mesh, patch, field, bd, env=None):
+        return torch.zeros_like(field.patch_internal(mesh, patch))
+
+
+def _patch_phi(mesh, patch, field, env):
+    """The face flux on a patch from env, or zeros before there is one
+    (the flux switches then take their zero-gradient branch, as the
+    reference keeps the stored values until the first updateCoeffs)."""
+    if env is None or "phi" not in env:
+        return torch.zeros(patch.size, dtype=field.data.dtype,
+                           device=field.data.device)
+    phi = env["phi"]
+    data = phi.data if hasattr(phi, "data") else phi
+    return data[patch.start:patch.start + patch.size]
+
+
+def _inflow_fraction(mesh, patch, field, env, psi_c):
+    """valueFraction 1 on inflow faces (phi < 0), 0 on outflow."""
+    f = (_patch_phi(mesh, patch, field, env) < 0.0).to(psi_c.dtype)
+    return _bcast(f, psi_c) * torch.ones_like(psi_c)
+
+
+@dataclass(frozen=True)
+class InletOutlet(Mixed):
+    """zeroGradient on outflow, inletValue on inflow, switched by the
+    face flux (reference: derived/inletOutlet). env carries 'phi'."""
+    word = "inletOutlet"
+
+    def _inflow_value(self, mesh, patch, field, bd, env, psi_c):
+        return bd["inletValue"]
+
+    def _mixed_bd(self, mesh, patch, field, bd, env):
+        psi_c = field.patch_internal(mesh, patch)
+        ref = self._inflow_value(mesh, patch, field, bd, env, psi_c)
+        return dict(refValue=torch.broadcast_to(ref, psi_c.shape),
+                    refGradient=torch.zeros_like(psi_c),
+                    valueFraction=_inflow_fraction(mesh, patch, field, env,
+                                                   psi_c))
+
+    def evaluate(self, mesh, patch, field, bd, env=None):
+        return Mixed.evaluate(self, mesh, patch, field,
+                              self._mixed_bd(mesh, patch, field, bd, env))
+
+    def value_internal_coeff(self, mesh, patch, field, bd, env=None):
+        return Mixed.value_internal_coeff(
+            self, mesh, patch, field,
+            self._mixed_bd(mesh, patch, field, bd, env))
+
+    def gradient_internal_coeff(self, mesh, patch, field, bd, env=None):
+        return Mixed.gradient_internal_coeff(
+            self, mesh, patch, field,
+            self._mixed_bd(mesh, patch, field, bd, env))
+
+
+def _stored_value(bd, psi_c):
+    """The patch's stored `value` (1e-8 without one): the inflow value
+    of the turbulence inlet estimators when env lacks U or k."""
+    v = bd.get("value")
+    if v is None:
+        return torch.full_like(psi_c, 1e-8)
+    return torch.broadcast_to(v, psi_c.shape)
+
+
+@dataclass(frozen=True)
+class TurbulentIntensityKineticEnergyInlet(InletOutlet):
+    """k = 1.5 (I |U|)^2 on inflow, zeroGradient on outflow (reference:
+    derived/turbulentIntensityKineticEnergyInlet). env: 'U', 'phi'."""
+    word = "turbulentIntensityKineticEnergyInlet"
+
+    def _inflow_value(self, mesh, patch, field, bd, env, psi_c):
+        if env is None or "U" not in env:
+            return _stored_value(bd, psi_c)
+        intensity = bd.get("intensity", 0.05)
+        u_b = env["U"].bvalues[patch.bstart:patch.bstart + patch.size]
+        return 1.5 * intensity ** 2 * (u_b * u_b).sum(-1)
+
+
+def _mixing_length(bd):
+    length = bd.get("mixingLength", 0.01)
+    if isinstance(length, torch.Tensor):
+        return torch.clamp(length, min=1e-30)
+    return max(float(length), 1e-30)
+
+
+@dataclass(frozen=True)
+class TurbulentMixingLengthDissipationRateInlet(InletOutlet):
+    """epsilon = Cmu^0.75 k^1.5 / L on inflow (reference:
+    derived/turbulentMixingLengthDissipationRateInlet). env: 'k', 'phi'."""
+    word = "turbulentMixingLengthDissipationRateInlet"
+
+    def _inflow_value(self, mesh, patch, field, bd, env, psi_c):
+        if env is None or "k" not in env:
+            return _stored_value(bd, psi_c)
+        k_b = torch.clamp(
+            env["k"].bvalues[patch.bstart:patch.bstart + patch.size],
+            min=0.0)
+        return 0.09 ** 0.75 * k_b ** 1.5 / _mixing_length(bd)
+
+
+@dataclass(frozen=True)
+class TurbulentMixingLengthFrequencyInlet(InletOutlet):
+    """omega = k^0.5 / (Cmu^0.25 L) on inflow (reference:
+    derived/turbulentMixingLengthFrequencyInlet). env: 'k', 'phi'."""
+    word = "turbulentMixingLengthFrequencyInlet"
+
+    def _inflow_value(self, mesh, patch, field, bd, env, psi_c):
+        if env is None or "k" not in env:
+            return _stored_value(bd, psi_c)
+        k_b = torch.clamp(
+            env["k"].bvalues[patch.bstart:patch.bstart + patch.size],
+            min=0.0)
+        return torch.sqrt(k_b) / (0.09 ** 0.25 * _mixing_length(bd))
+
+
+@dataclass(frozen=True)
+class TotalPressure(BC):
+    """p = p0 - 0.5|U|^2 on inflow, p0 on outflow (incompressible form;
+    reference: derived/totalPressure). env carries 'U' and 'phi'; without
+    them the patch holds p0."""
+    preserves_type = True
+    fixes_level = True
+    word = "totalPressure"
+
+    def evaluate(self, mesh, patch, field, bd, env=None):
+        p0 = torch.broadcast_to(bd["p0"], (patch.size,))
+        if env is None or "U" not in env or "phi" not in env:
+            return p0
+        u_b = env["U"].bvalues[patch.bstart:patch.bstart + patch.size]
+        phi_b = _patch_phi(mesh, patch, field, env)
+        return torch.where(phi_b >= 0.0, p0, p0 - 0.5 * (u_b * u_b).sum(-1))
+
+    def value_internal_coeff(self, mesh, patch, field, bd, env=None):
+        return _coeff(mesh, patch, field, 0.0)
+
+    def gradient_internal_coeff(self, mesh, patch, field, bd, env=None):
+        return -mesh.patch_delta_coeffs(patch)
+
+
+@dataclass(frozen=True)
+class UniformTotalPressure(TotalPressure):
+    """totalPressure with a uniform p0, taken as a constant (reference:
+    derived/uniformTotalPressure; a tabulated p0 is not ported, as in the
+    JAX package)."""
+    word = "uniformTotalPressure"
+
+
+@dataclass(frozen=True)
+class PressureInletOutletVelocity(BC):
+    """U on pressure boundaries: zeroGradient on outflow; on inflow the
+    velocity normal to the face carries the flux (reference:
+    derived/pressureInletOutletVelocity). env carries 'phi'."""
+    preserves_type = True
+    word = "pressureInletOutletVelocity"
+
+    def evaluate(self, mesh, patch, field, bd, env=None):
+        psi_c = field.patch_internal(mesh, patch)
+        if env is None or "phi" not in env:
+            return psi_c
+        phi_b = _patch_phi(mesh, patch, field, env)
+        u_in = mesh.patch_normals(patch) * (phi_b / torch.clamp(
+            mesh.patch_mag_sf(patch), min=1e-30))[:, None]
+        return torch.where((phi_b >= 0.0)[:, None], psi_c, u_in)
+
+    def value_internal_coeff(self, mesh, patch, field, bd, env=None):
+        if env is None or "phi" not in env:
+            return _coeff(mesh, patch, field, 1.0)
+        phi_b = _patch_phi(mesh, patch, field, env)
+        return (phi_b >= 0.0).to(field.data.dtype)[:, None]
+
+    def gradient_internal_coeff(self, mesh, patch, field, bd, env=None):
+        vic = self.value_internal_coeff(mesh, patch, field, bd, env)
+        return (vic - 1.0) * mesh.patch_delta_coeffs(patch)[:, None]
+
+
+@dataclass(frozen=True)
+class FlowRateInletVelocity(BC):
+    """Inlet velocity from a constant volumetric flow rate, uniform over
+    the patch and against its normals (reference:
+    derived/flowRateInletVelocity)."""
+    preserves_type = True
+    fixes_value = True
+    word = "flowRateInletVelocity"
+
+    def evaluate(self, mesh, patch, field, bd, env=None):
+        q = bd["volumetricFlowRate"].reshape(-1)[0]
+        area = torch.clamp(mesh.patch_mag_sf(patch).sum(), min=1e-30)
+        return -mesh.patch_normals(patch) * (q / area)
+
+    def value_internal_coeff(self, mesh, patch, field, bd, env=None):
+        return _coeff(mesh, patch, field, 0.0)
+
+    def gradient_internal_coeff(self, mesh, patch, field, bd, env=None):
+        return -mesh.patch_delta_coeffs(patch)[:, None]
+
+
 # ---------------------------------------------------------------------------
 # wall functions (port of rapidcfd_tpu/models/turbulence.py:30-99)
 # ---------------------------------------------------------------------------
@@ -239,10 +475,13 @@ class OmegaWallFunction(ZeroGradient):
     word = "omegaWallFunction"
 
 
-BC_TYPES = {cls.word: cls for cls in (Calculated, FixedValue, ZeroGradient,
-                                      Empty, NutkWallFunction,
-                                      KqRWallFunction, EpsilonWallFunction,
-                                      OmegaWallFunction)}
+BC_TYPES = {cls.word: cls for cls in (
+    Calculated, FixedValue, ZeroGradient, Empty, Mixed, NoSlip, InletOutlet,
+    TurbulentIntensityKineticEnergyInlet,
+    TurbulentMixingLengthDissipationRateInlet,
+    TurbulentMixingLengthFrequencyInlet, TotalPressure, UniformTotalPressure,
+    PressureInletOutletVelocity, FlowRateInletVelocity, NutkWallFunction,
+    KqRWallFunction, EpsilonWallFunction, OmegaWallFunction)}
 
 
 def make_bc(type_word: str, patch_idx: int, pd=None) -> BC:

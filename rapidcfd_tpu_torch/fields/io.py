@@ -19,6 +19,49 @@ from .field import SurfaceField, VolField
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
+#: per-face boundary-condition entries, broadcast to the patch size (the
+#: JAX package's _BC_DATA_KEYS, rapidcfd_tpu/fields/io.py:25)
+_BC_DATA_KEYS = ("value", "gradient", "refValue", "refGradient",
+                 "valueFraction", "inletValue", "outletValue", "p0",
+                 "volumetricFlowRate", "uniformValue", "freestreamValue",
+                 "emissivity", "jump")
+
+#: entries that are configuration words, not data
+_BC_WORD_KEYS = ("type", "mode", "patchType", "neighbourPatch",
+                 "fieldName", "sampleMode", "samplePatch", "sampleRegion",
+                 "offsetMode", "interpolationScheme", "relative",
+                 "setAverage")
+
+
+def _boundary_data(pd, size: int, npdt) -> dict:
+    """A patch dictionary's numeric entries as numpy arrays: the
+    per-face keys at the patch size, every other number or vector as it
+    stands (intensity, mixingLength, ...). A tabulated entry is not
+    ported and raises."""
+    bd = {}
+    for key in pd:
+        entry = pd.lookup(key)
+        if key in _BC_WORD_KEYS:
+            continue
+        if isinstance(entry, tuple) and entry and entry[0] == "table":
+            raise NotImplementedError(
+                f"tabulated boundary entry '{key}' is not ported yet")
+        if key == "value":
+            bd[key] = _parse_value(entry, size, npdt)
+        elif key in _BC_DATA_KEYS:
+            try:
+                bd[key] = _parse_value(entry, size, npdt)
+            except (ValueError, TypeError):
+                continue
+        elif isinstance(entry, (int, float)) and not isinstance(entry, bool):
+            bd[key] = np.asarray(float(entry), npdt)
+        elif isinstance(entry, list):
+            try:
+                bd[key] = np.asarray(entry, npdt)
+            except (TypeError, ValueError):
+                continue
+    return bd
+
 
 def _parse_value(entry, n: int, npdt):
     """Parse `uniform v`, `uniform (x y z)`, `nonuniform List<T> N (...)`
@@ -75,12 +118,12 @@ def read_vol_field(case_dir: str, time: str, name: str, mesh: MeshArrays,
             raise KeyError(f"field {name}: no boundaryField entry for "
                            f"patch '{patch.name}'")
         bcs.append(make_bc(pd.word("type"), i, pd))
-        bd = {}
-        if pd.lookup("value") is not None:
-            v = _parse_value(pd.lookup("value"), patch.size, npdt)
-            bd["value"] = torch.as_tensor(v, device=mesh.device)
-            bvalues[patch.bstart:patch.bstart + patch.size] = v
-        bcdata.append(bd)
+        bd = _boundary_data(pd, patch.size, npdt)
+        if "value" in bd:
+            bvalues[patch.bstart:patch.bstart + patch.size] = \
+                np.broadcast_to(bd["value"], (patch.size,) + data.shape[1:])
+        bcdata.append({k: torch.as_tensor(v, device=mesh.device)
+                       for k, v in bd.items()})
 
     f = VolField(torch.as_tensor(data, device=mesh.device),
                  torch.as_tensor(bvalues, device=mesh.device), tuple(bcs),
@@ -137,6 +180,18 @@ def write_vol_field(field: VolField, case_dir: str, time: str,
             pb = bvals[patch.bstart:patch.bstart + patch.size]
             lines += ["        value           ", _body_value(pb, prec),
                       ";\n"]
+        for key, v in bd.items():
+            if key == "value":
+                continue
+            arr = v.detach().cpu().numpy()
+            if arr.ndim == 0:
+                body = _fmt_scalar(float(arr), prec)
+            elif arr.ndim == 1 and arr.shape[0] == 3 and patch.size != 3:
+                body = "(" + " ".join(_fmt_scalar(float(x), prec)
+                                      for x in arr) + ")"
+            else:
+                body = _body_value(arr, prec)
+            lines += [f"        {key}           ", body, ";\n"]
         lines.append("    }\n")
     lines.append("}\n")
     _emit(os.path.join(case_dir, time, field.name), lines)

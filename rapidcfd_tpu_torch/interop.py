@@ -2,8 +2,9 @@
 
 Each function takes an object of the JAX package (a MeshArrays with its
 GAMG levels, on the ELL or the gdia layout, merged-cell ghost slots
-included; a VolField, SurfaceField, FvMatrix, a turbulence model's state
-dict or kOmegaSST's wall distance) and rebuilds the port's counterpart on
+included; a VolField with its boundary-condition data and old-time
+level, a SurfaceField, an FvMatrix, a turbulence model's state dict, old
+time levels included, or kOmegaSST's wall distance) and rebuilds the port's counterpart on
 a given device and dtype. The structured multigrid levels are built per
 solve from the matrix, so there is nothing of them to carry. Arrays are
 read through the numpy array protocol (`np.asarray`), so this module never
@@ -139,8 +140,8 @@ def vol_field(src, *, device, dtype) -> VolField:
 
 def turb_state(src, *, device, dtype) -> dict:
     """A RAS model's state dict (kEpsilon: k, epsilon and nut; kOmegaSST:
-    k, omega and nut; with their wall-function BCs) as the port's
-    VolFields."""
+    k, omega and nut; with their BCs and, after a transient correct(),
+    their old-time level) as the port's VolFields."""
     return {name: vol_field(f, device=device, dtype=dtype)
             for name, f in src.items()}
 

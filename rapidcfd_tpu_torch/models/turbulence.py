@@ -3,7 +3,10 @@
 :784-822; reference: src/turbulenceModels/incompressible/RAS/kEpsilon/
 kEpsilon.C:229-280 and kOmegaSST/kOmegaSST.H:115).
 
-A model's correct() is a plain function over a state dict of VolFields.
+A model's correct() is a plain function over a state dict of VolFields:
+steady (simpleFoam) without a time step, transient with one (pimpleFoam
+and pisoFoam: the old time level of each solved field is stored and the
+case's ddt scheme is used).
 The wall functions are BC descriptors (fields/bcs.py, re-exported here)
 and a pass that fixes epsilon or omega and the production in the wall
 cells (fvMatrix::setValues). kOmegaSST's wall distance is a host k-d tree
@@ -41,6 +44,12 @@ def bound(f: VolField, min_value: float) -> VolField:
                      bvalues=torch.clamp(f.bvalues, min=min_value))
 
 
+def _ddt(scheme, dt):
+    """(ddt scheme, time step) of a turbulence equation: steadyState
+    without a time step."""
+    return ("steadyState", 1.0) if dt is None else (scheme, dt)
+
+
 def magsqr_symm_grad(mesh, U: VolField):
     """2*|symm(grad U)|^2 per cell (the S2 of G = nut*S2)."""
     g = fvc.grad(mesh, U).data
@@ -63,7 +72,7 @@ class Laminar:
     def nu_eff(self, mesh, state, nu):
         return nu
 
-    def correct(self, mesh, state, U, phi, nu):
+    def correct(self, mesh, state, U, phi, nu, dt=None):
         return state, {}
 
 
@@ -91,6 +100,7 @@ class KEpsilon:
         except KeyError:
             self.div_eps = self.div_k
         self.lap_corr = case.laplacian_scheme()
+        self.ddt_scheme = case.ddt_scheme()
         # (id(mesh.owner), patch index) -> (mesh.owner, face positions,
         # cells): the wall cells of each epsilonWallFunction patch
         self._wall_rows: dict = {}
@@ -163,11 +173,14 @@ class KEpsilon:
             eps_vals[rows] = eps_w[pos]
         return G, fix, eps_vals
 
-    def correct(self, mesh, state, U, phi, nu):
-        """One turbulence correction (reference kEpsilon.C:229-280), in
-        the steady form simpleFoam runs (steadyState ddt; the JAX
-        package's transient form is not ported)."""
+    def correct(self, mesh, state, U, phi, nu, dt=None):
+        """One turbulence correction (reference kEpsilon.C:229-280):
+        steadyState ddt when dt is None, else the case's ddt scheme over
+        dt (a float or a 0-d tensor)."""
         k, eps, nut = state["k"], state["epsilon"], state["nut"]
+        if dt is not None:
+            k, eps = k.store_old(), eps.store_old()
+        ddt_scheme, ddt_dt = _ddt(self.ddt_scheme, dt)
         s2 = magsqr_symm_grad(mesh, U)
         G = nut.data * s2                              # [m2/s3]
         G, eps_fix, eps_vals = self._wall_fix(mesh, state, U, nu, G)
@@ -180,7 +193,7 @@ class KEpsilon:
         rhs_eps = eps.with_calculated_bcs(
             self.C1 * G * eps.data / k_floor, torch.zeros_like(eps.bvalues),
             eps.dims / DimensionSet.of(0, 0, 1))
-        eps_eqn = (fvm.ddt(mesh, eps, 1.0, "steadyState")
+        eps_eqn = (fvm.ddt(mesh, eps, ddt_dt, ddt_scheme)
                    + fvm.div(mesh, phi, eps, self.div_eps)
                    - fvm.laplacian(mesh, nu_eff_eps, eps, self.lap_corr)
                    + fvm.Sp(mesh, Dimensioned(
@@ -195,7 +208,7 @@ class KEpsilon:
         # k equation
         rhs_k = k.with_calculated_bcs(G, torch.zeros_like(k.bvalues),
                                       k.dims / DimensionSet.of(0, 0, 1))
-        k_eqn = (fvm.ddt(mesh, k, 1.0, "steadyState")
+        k_eqn = (fvm.ddt(mesh, k, ddt_dt, ddt_scheme)
                  + fvm.div(mesh, phi, k, self.div_k)
                  - fvm.laplacian(mesh, nu_eff_k, k, self.lap_corr)
                  + fvm.Sp(mesh, Dimensioned(
@@ -246,7 +259,7 @@ def wall_distance(case) -> torch.Tensor:
 class KOmegaSST:
     """Menter k-omega SST (reference: incompressible/RAS/kOmegaSST/
     kOmegaSST.H:115, the 2.3 formulation with F1-blended coefficients),
-    in the steady form simpleFoam runs."""
+    steady or transient as kEpsilon."""
     needs = ("k", "omega", "nut")
 
     alphaK1, alphaK2 = 0.85, 1.0
@@ -270,6 +283,7 @@ class KOmegaSST:
         except KeyError:
             self.div_omega = self.div_k
         self.lap_corr = case.laplacian_scheme()
+        self.ddt_scheme = case.ddt_scheme()
         t0 = time.perf_counter()
         #: wall distance per cell slot (the case's mesh)
         self.y = wall_distance(case)
@@ -322,10 +336,14 @@ class KOmegaSST:
             om_vals[rows] = om_w[pos]
         return G, fix, om_vals
 
-    def correct(self, mesh, state, U, phi, nu):
+    def correct(self, mesh, state, U, phi, nu, dt=None):
         """One turbulence correction: the F1/F2 blending, the omega
-        equation with its wall fix, the k equation, nut with F2."""
+        equation with its wall fix, the k equation, nut with F2
+        (steadyState ddt when dt is None)."""
         k, omega, nut = state["k"], state["omega"], state["nut"]
+        if dt is not None:
+            k, omega = k.store_old(), omega.store_old()
+        ddt_scheme, ddt_dt = _ddt(self.ddt_scheme, dt)
         y = self.y
         nu_c = nu.value if isinstance(nu, Dimensioned) else nu.data
         nu_b = nu.value if isinstance(nu, Dimensioned) else nu.bvalues
@@ -371,7 +389,7 @@ class KOmegaSST:
         rhs_om = omega.with_calculated_bcs(
             gamma_s2 + (1.0 - F1) * cd_kom, torch.zeros_like(omega.bvalues),
             omega.dims / DimensionSet.of(0, 0, 1))
-        om_eqn = (fvm.ddt(mesh, omega, 1.0, "steadyState")
+        om_eqn = (fvm.ddt(mesh, omega, ddt_dt, ddt_scheme)
                   + fvm.div(mesh, phi, omega, self.div_omega)
                   - fvm.laplacian(mesh, d_om, omega, self.lap_corr)
                   + fvm.Sp(mesh, Dimensioned("beta*omega", _RTIME,
@@ -386,7 +404,7 @@ class KOmegaSST:
         rhs_k = k.with_calculated_bcs(
             torch.minimum(G, self.c1 * self.betaStar * k_pos * om_pos),
             torch.zeros_like(k.bvalues), k.dims / DimensionSet.of(0, 0, 1))
-        k_eqn = (fvm.ddt(mesh, k, 1.0, "steadyState")
+        k_eqn = (fvm.ddt(mesh, k, ddt_dt, ddt_scheme)
                  + fvm.div(mesh, phi, k, self.div_k)
                  - fvm.laplacian(mesh, d_k, k, self.lap_corr)
                  + fvm.Sp(mesh, Dimensioned(

@@ -40,7 +40,9 @@ def _neg_sum_diag(mesh: MeshArrays, lower, upper):
 def ddt(mesh: MeshArrays, vf: VolField, dt, scheme: str = "Euler"
         ) -> FvMatrix:
     """fvm::ddt, Euler (reference: EulerDdtScheme::fvmDdt) or steadyState
-    (the zero matrix)."""
+    (the zero matrix). dt is a Python float or a 0-d tensor. backward and
+    CrankNicolson (rapidcfd_tpu/ops/fvm.py:73-207) are not ported and
+    raise."""
     if scheme not in ("Euler", "steadyState"):
         raise NotImplementedError(f"ddtScheme '{scheme}' is not ported yet "
                                   "(Euler, steadyState)")

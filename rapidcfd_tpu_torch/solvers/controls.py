@@ -4,8 +4,9 @@ solutionControl/simpleControl.H:47).
 
 Corrector counts and the pressure reference come from fvSolution;
 residualControl ends the run once every initial residual it names is
-below its target. The PISO/PIMPLE controls are not ported (icoFoam reads
-its PISO dictionary directly).
+below its target. PisoControl and PimpleControl (JAX :76-95; reference:
+pimpleControl.H:47) carry pisoFoam's and pimpleFoam's corrector counts;
+icoFoam reads its PISO dictionary directly.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ class SolutionControl:
         self.dict = case.algo_dict(self.dict_name) or Dictionary()
         self.n_non_orth = int(self.dict.scalar(
             "nNonOrthogonalCorrectors", 0))
+        self.momentum_predictor = self.dict.boolean(
+            "momentumPredictor", True)
         self.p_ref_cell = int(self.dict.scalar("pRefCell", 0))
         self.p_ref_value = float(self.dict.scalar("pRefValue", 0.0))
         self._residual_targets = self._read_residual_control()
@@ -66,3 +69,24 @@ class SimpleControl(SolutionControl):
                  f"{self.case.time.name} iterations\n")
             return False
         return self.case.time.loop()
+
+
+class PisoControl(SolutionControl):
+    dict_name = "PISO"
+
+    def __init__(self, case):
+        super().__init__(case)
+        self.n_correctors = int(self.dict.scalar("nCorrectors", 1))
+
+
+class PimpleControl(SolutionControl):
+    """nOuterCorrectors outer loops of nCorrectors PISO corrections; the
+    solver switches to the Final solver controls on the last one."""
+    dict_name = "PIMPLE"
+
+    def __init__(self, case):
+        super().__init__(case)
+        self.n_outer = int(self.dict.scalar("nOuterCorrectors", 1))
+        self.n_correctors = int(self.dict.scalar("nCorrectors", 1))
+        self.turb_on_final_only = self.dict.boolean(
+            "turbOnFinalIterOnly", True)

@@ -1,0 +1,219 @@
+"""pimpleFoam / pisoFoam — transient incompressible solvers with RAS
+turbulence (port of rapidcfd_tpu/solvers/pimplefoam.py; reference:
+applications/solvers/incompressible/pimpleFoam/pimpleFoam.C and
+pisoFoam.C).
+
+A timestep is nOuterCorrectors PIMPLE loops: the momentum predictor
+(relaxed on all but the final loop, which also switches to the UFinal and
+pFinal solver controls), nCorrectors pressure corrections with their
+non-orthogonal correctors, and the turbulence model's transient correct().
+pisoFoam is the same with one outer loop. The host loop adapts dt to the
+Courant number (reference: cfdTools/general/include/setDeltaT.H), logs in
+OpenFOAM format and writes time directories. The JAX package's SRF hooks
+(u_source, u_name) are not ported: no SRF solver is.
+"""
+
+from __future__ import annotations
+
+import time as _time
+
+import torch
+
+from ..linalg.solvers import solve
+from ..models.fvoptions import FvOptions
+from ..models.transport import SinglePhaseTransportModel
+from ..models.turbulence import make_ras_model
+from ..ops import fvc, fvm
+from ..utils.logging import (ExecutionTimer, info, log_continuity,
+                             log_courant, log_solve)
+from .case import Case
+from .controls import PimpleControl, PisoControl
+from .icofoam import continuity_errors, courant_number
+from .simplefoam import div_dev_reff, iteration_counts
+
+
+def make_step(case: Case, transport, turb, ctrl, piso_mode: bool):
+    """step(U, p, phi, turb_state, dt) -> (U, p, phi, turb_state, stats)
+    on the case's mesh. stats holds the last momentum solve's per-
+    component perf (u_perf), every p solve of the step in order (p_perf),
+    the turbulence solves (turb), the continuity errors (cont) and the
+    Courant number (co). pRefCell is mapped from file order to its
+    device row."""
+    from ..linalg.precompute import attach_solver_layouts
+    from ..ops.interpolation import set_current_dt
+    fv_options = FvOptions(case)
+    div_u = case.div_scheme("div(phi,U)")
+    lap_corr = case.laplacian_scheme()
+    ddt_scheme = case.ddt_scheme()
+    u_controls = case.solver_controls("U")
+    u_final = case.solver_controls("U", final=True)
+    p_controls = case.solver_controls("p")
+    p_final = case.solver_controls("p", final=True)
+    u_relax = case.relaxation_factor("U", "equations", 0.0)
+    n_outer = 1 if piso_mode else ctrl.n_outer
+    n_corr = ctrl.n_correctors
+    n_non_orth = ctrl.n_non_orth
+    p_ref_cell = case.maps.device_cell(ctrl.p_ref_cell)
+    p_ref_value = ctrl.p_ref_value
+    mesh = attach_solver_layouts(
+        case.mesh, (u_controls, u_final, p_controls, p_final),
+        timings=case.setup_seconds)
+
+    def step(U, p, phi, turb_state, dt):
+        set_current_dt(dt)
+        U = U.store_old()
+        nu = transport.nu(mesh, U)
+        u_perf = None
+        p_perf_all = []
+        for outer in range(n_outer):
+            final_outer = outer == n_outer - 1
+            nu_eff = turb.nu_eff(mesh, turb_state, nu)
+            UEqn = (fvm.ddt(mesh, U, dt, ddt_scheme)
+                    + fvm.div(mesh, phi, U, div_u)
+                    + div_dev_reff(mesh, nu_eff, U, lap_corr))
+            UEqn = fv_options(mesh, "U", UEqn, {"nu": nu})
+            if not final_outer:
+                UEqn = UEqn.relax(mesh, u_relax)
+            UEqn = fv_options.constrain(mesh, "U", UEqn)
+            if ctrl.momentum_predictor:
+                U, u_perf = solve(
+                    mesh, UEqn == (-fvc.grad(mesh, p)),
+                    u_final if final_outer else u_controls,
+                    env={"phi": phi})
+
+            for corr in range(n_corr):
+                UEqn_c = UEqn.replace(psi=U)
+                rAU = 1.0 / UEqn_c.A(mesh)
+                HbyA = fvc.constrain_hbya(mesh, rAU * UEqn_c.H(mesh), U)
+                phi_hbya = fvc.adjust_phi(mesh, fvc.flux(mesh, HbyA), U)
+                for north in range(n_non_orth + 1):
+                    final = final_outer and corr == n_corr - 1 \
+                        and north == n_non_orth
+                    pEqn = fvm.laplacian(mesh, rAU, p, lap_corr) \
+                        == fvc.div(mesh, phi_hbya)
+                    pEqn = pEqn.set_reference(p_ref_cell, p_ref_value)
+                    p, p_perf = solve(mesh, pEqn,
+                                      p_final if final else p_controls)
+                    p_perf_all.append(p_perf[0])
+                phi = phi_hbya - pEqn.replace(psi=p).flux(mesh)
+                U_star = HbyA - rAU * fvc.grad(mesh, p)
+                U = U.replace(data=U_star.data).correct_boundary_conditions(
+                    mesh, env={"phi": phi})
+
+            turb_state, turb_perf = turb.correct(mesh, turb_state, U, phi,
+                                                 nu, dt=dt)
+
+        if u_perf is None:
+            u_perf = ((0.0, 0.0, 0),) * 3
+        stats = dict(u_perf=u_perf, p_perf=tuple(p_perf_all),
+                     turb=turb_perf, cont=continuity_errors(mesh, phi),
+                     co=courant_number(mesh, phi, dt))
+        return U, p, phi, turb_state, stats
+
+    return step
+
+
+def next_delta_t(delta_t: float, max_co: float, co_max_prev: float) -> float:
+    """setDeltaT.H: scale dt toward maxCo, growing by at most 20% (and
+    by 10% of the headroom) per step."""
+    max_dt_f = max_co / (co_max_prev + 1e-30)
+    return min(min(max_dt_f, 1.0 + 0.1 * max_dt_f), 1.2) * delta_t
+
+
+def setup(case: Case, piso_mode: bool = False):
+    """Fields, models and the step of a case: (U, p, phi, turb_state),
+    step. Builds the solver layouts (GAMG hierarchy) on ELL meshes."""
+    info("Reading field p\n\nReading field U\n")
+    p = case.read_field("p")
+    U = case.read_field("U")
+    phi = fvc.flux(case.mesh, U)
+    transport = SinglePhaseTransportModel(case.transport_properties())
+    turb = make_ras_model(case, U)
+    turb_state = turb.init_state(U)
+    ctrl = PisoControl(case) if piso_mode else PimpleControl(case)
+    step = make_step(case, transport, turb, ctrl, piso_mode)
+    return (U, p, phi, turb_state), step
+
+
+def run(case_dir: str, *, device: torch.device, dtype: torch.dtype,
+        write: bool = True, max_steps: int | None = None,
+        piso_mode: bool = False, case: Case | None = None):
+    """Run pimpleFoam (pisoFoam with piso_mode) on a case directory until
+    endTime or max_steps. `case` passes a Case built already (an
+    in-memory mesh). Returns (case, U, p, phi, turb_state);
+    case.step_seconds holds each step's wall time (host clock; each step
+    ends in a device sync when its residuals are logged) and
+    case.step_log each step's dt, Courant number (mean, max), continuity
+    errors (local, global) and iteration_counts."""
+    if case is None:
+        case = Case(case_dir, device=device, dtype=dtype)
+    if case.control_dict.lookup("functions"):
+        raise NotImplementedError("functionObjects are not ported yet")
+    (U, p, phi, turb_state), step = setup(case, piso_mode)
+    timer = ExecutionTimer()
+    cumulative_err = 0.0
+    u_solver = case.solver_controls("U").solver
+    p_solver = case.solver_controls("p").solver
+    case.step_log = []
+
+    info("\nStarting time loop\n")
+    n = 0
+    co_max_prev = 0.0
+    while case.time.run():
+        t0 = _time.perf_counter()
+        if case.time.adjust_time_step and co_max_prev > 0:
+            case.time.set_delta_t(next_delta_t(
+                case.time.delta_t, case.time.max_co, co_max_prev))
+        case.time.increment()
+        info(f"Time = {case.time.name}\n")
+        dt = case.time.delta_t
+
+        U, p, phi, turb_state, stats = step(U, p, phi, turb_state, dt)
+        co_mean, co_max = stats["co"]
+        co_max_prev = float(co_max)
+        log_courant(co_mean, co_max)
+        for cmpt, perf in zip("xyz", stats["u_perf"]):
+            log_solve(u_solver, f"U{cmpt}", *perf)
+        for perf in stats["p_perf"]:
+            log_solve(p_solver, "p", *perf)
+        for name, perf in sorted(stats["turb"].items()):
+            log_solve(case.solver_controls(name).solver, name, *perf)
+        local_err, glob_err = stats["cont"]
+        cumulative_err += float(glob_err)
+        log_continuity(cumulative_err, local_err, glob_err)
+        case.step_seconds.append(_time.perf_counter() - t0)
+        case.step_log.append(dict(
+            dt=dt, co=(float(co_mean), co_max_prev),
+            cont=(float(local_err), float(glob_err)),
+            iterations=iteration_counts(stats)))
+        timer.log()
+
+        if write and case.time.write_time():
+            case.write_fields([U, p] + list(turb_state.values()))
+        n += 1
+        if max_steps and n >= max_steps:
+            break
+
+    info("End\n")
+    return case, U, p, phi, turb_state
+
+
+def main(argv=None):
+    import argparse
+
+    from .. import resolve_device, solver_dtype
+    ap = argparse.ArgumentParser(description="pimpleFoam (rapidcfd_tpu_torch)")
+    ap.add_argument("-case", dest="case", default=".")
+    ap.add_argument("-noWrite", action="store_true")
+    ap.add_argument("-device", default="cuda")
+    ap.add_argument("-precision", choices=["fp32", "fp64"], default=None)
+    ap.add_argument("--piso", action="store_true", help="run as pisoFoam")
+    args = ap.parse_args(argv)
+    name = "pisoFoam" if args.piso else "pimpleFoam"
+    run(args.case, device=resolve_device(args.device),
+        dtype=solver_dtype(name, args.precision), write=not args.noWrite,
+        piso_mode=args.piso)
+
+
+if __name__ == "__main__":
+    main()

@@ -97,9 +97,9 @@ def simple_step(mesh, U: VolField, p: VolField, phi: SurfaceField,
 
 
 def iteration_counts(stats) -> list[tuple[str, int]]:
-    """A SIMPLE iteration's linear-solver iterations from its stats, in
-    the order simpleFoam logs the solves: Ux, Uy, Uz, p (each
-    corrector), then the turbulence fields by name."""
+    """A SIMPLE iteration's or a pimpleFoam timestep's linear-solver
+    iterations from its stats, in the order the solves are logged: Ux,
+    Uy, Uz, p (each corrector), then the turbulence fields by name."""
     its = [(f"U{c}", int(pf[2])) for c, pf in zip("xyz", stats["u_perf"])]
     its += [("p", int(pf[2])) for pf in stats["p_perf"]]
     return its + [(k, int(pf[2])) for k, pf in sorted(stats["turb"].items())]

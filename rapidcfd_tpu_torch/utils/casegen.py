@@ -1,8 +1,9 @@
 """Case generator — a numpy copy of rapidcfd_tpu/utils/casegen.py's
 box_mesh, masked_grid_mesh, cavity_case, pitz_daily_case and write_field,
 plus pitz_daily_ico_case (the pitzDaily mesh under the cavity's icoFoam
-dictionaries). These write case files only; the JAX solver runs the same
-directories unchanged."""
+dictionaries) and tjunction_case (pimpleFoam's T-junction, which the JAX
+package has no writer for). These write case files only; the JAX solver
+runs the same directories unchanged."""
 
 from __future__ import annotations
 
@@ -581,6 +582,202 @@ PISO
                         "        value           uniform (0 0 0);\n",
                     "frontAndBack": fb_u,
                 })
+    return mesh
+
+
+def _tjunction_mesh(section: int, leg: int, bar: int, depth: int,
+                    side: float) -> PolyMesh:
+    """The T-junction lattice: an inlet leg of `leg` x `section` cells
+    along x, centred on a cross-bar `section` cells wide and `bar` cells
+    long along y, extruded `depth` cells in z; cubic cells of side
+    side/section."""
+    if (bar - section) % 2:
+        raise ValueError("bar - section must be even (the leg is centred)")
+    h = side / section
+    nx, ny = leg + section, bar
+    xs = h * np.arange(nx + 1)
+    ys = h * (np.arange(ny + 1) - 0.5 * bar)
+    zs = h * np.arange(depth + 1)
+    mask = np.zeros((nx, ny), dtype=bool)
+    j0 = (bar - section) // 2
+    mask[:leg, j0:j0 + section] = True
+    mask[leg:, :] = True
+
+    def rule(i, j, side_):
+        if side_ == "xmin" and i == 0:
+            return "inlet"
+        if side_ == "ymin" and j == 0:
+            return "outlet1"
+        if side_ == "ymax" and j == ny - 1:
+            return "outlet2"
+        return "walls"
+    rule.order = ["inlet", "outlet1", "outlet2", "walls"]
+    rule.types = {"inlet": "patch", "outlet1": "patch", "outlet2": "patch",
+                  "walls": "wall"}
+    return masked_grid_mesh(xs, ys, zs, mask, rule)
+
+
+def tjunction_case(case_dir: str, *, section: int = 32, leg: int = 160,
+                   bar: int = 128, depth: int | None = None,
+                   side: float = 0.05, nu: float = 1e-05,
+                   p0_inlet: float = 10.0, delta_t: float = 1e-3,
+                   end_time: float = 0.1, max_co: float = 5.0,
+                   write_interval: int = 100, model: str = "kEpsilon",
+                   write_mesh: bool = True) -> PolyMesh:
+    """pimpleFoam on a 3-D T-junction after OpenFOAM's
+    incompressible/pimpleFoam/TJunction tutorial: a square duct of side
+    `side` (section x depth cells) enters along x the middle of a
+    cross-bar along y with an outlet at each end. The inlet holds a total
+    pressure p0 = p0_inlet (uniformTotalPressure) and both outlets p0 = 0
+    (totalPressure), with pressureInletOutletVelocity on all three;
+    the walls are noSlip. kEpsilon with nutkWallFunction, kqRWallFunction
+    and epsilonWallFunction, k from turbulentIntensityKineticEnergyInlet
+    (intensity 0.05) and epsilon from turbulentMixingLengthDissipation-
+    RateInlet (mixing length 0.01 m) at the inlet, inletOutlet at the
+    outlets; Euler in time, adjustTimeStep with maxCo; PIMPLE with one
+    outer and two pressure correctors; p by GAMG (tolerance 1e-6, relTol
+    0.01, pFinal relTol 0), U, k and epsilon by smoothSolver
+    symGaussSeidel (1e-5, relTol 0.1, Final relTol 0).
+
+    Departures from the tutorial: the geometry is the one lattice above
+    (uniform cells, no grading); p0 at the inlet is a constant (the
+    tutorial ramps it from a table, which neither package reads);
+    convection is `Gauss upwind` for U as for k and epsilon (the
+    tutorial's linearUpwind for U is not ported). The run starts at the
+    tutorial's deltaT, 1e-3 s, by default. model="kOmegaSST" writes
+    omega in place of epsilon
+    (turbulentMixingLengthFrequencyInlet, omegaWallFunction).
+    write_mesh=False skips the ascii polyMesh (pass the returned mesh to
+    Case(pmesh=...))."""
+    depth = section if depth is None else depth
+    mesh = _tjunction_mesh(section, leg, bar, depth, side)
+    if write_mesh:
+        write_polymesh(mesh, case_dir)
+    _write(os.path.join(case_dir, "system", "controlDict"),
+           foamfile_header("dictionary", "controlDict", "system"), f"""
+application     pimpleFoam;
+startFrom       startTime;
+startTime       0;
+stopAt          endTime;
+endTime         {end_time};
+deltaT          {delta_t};
+writeControl    timeStep;
+writeInterval   {write_interval};
+purgeWrite      0;
+writeFormat     ascii;
+writePrecision  8;
+writeCompression off;
+timeFormat      general;
+timePrecision   8;
+runTimeModifiable false;
+adjustTimeStep  yes;
+maxCo           {max_co};
+""")
+    _write(os.path.join(case_dir, "system", "fvSchemes"),
+           foamfile_header("dictionary", "fvSchemes", "system"), """
+ddtSchemes      { default Euler; }
+gradSchemes     { default Gauss linear; }
+divSchemes
+{
+    default         none;
+    div(phi,U)      Gauss upwind;
+    div(phi,k)      Gauss upwind;
+    div(phi,epsilon) Gauss upwind;
+    div(phi,omega)  Gauss upwind;
+    div((nuEff*dev(T(grad(U))))) Gauss linear;
+}
+laplacianSchemes { default Gauss linear corrected; }
+interpolationSchemes { default linear; }
+snGradSchemes   { default corrected; }
+""")
+    smooth = ("        solver          smoothSolver;\n"
+              "        smoother        symGaussSeidel;\n"
+              "        tolerance       1e-05;\n")
+    gamg = ("        solver          GAMG;\n"
+            "        smoother        GaussSeidel;\n"
+            "        tolerance       1e-06;\n")
+    entries = "".join(
+        f"    {name}\n    {{\n{body}        relTol          {rel};\n    }}\n"
+        for name, body, rel in (
+            ("p", gamg, "0.01"), ("pFinal", gamg, "0"),
+            ("U", smooth, "0.1"), ("UFinal", smooth, "0"),
+            ("k", smooth, "0.1"), ("kFinal", smooth, "0"),
+            ("epsilon", smooth, "0.1"), ("epsilonFinal", smooth, "0"),
+            ("omega", smooth, "0.1"), ("omegaFinal", smooth, "0")))
+    _write(os.path.join(case_dir, "system", "fvSolution"),
+           foamfile_header("dictionary", "fvSolution", "system"), f"""
+solvers
+{{
+{entries}}}
+PIMPLE
+{{
+    nOuterCorrectors 1;
+    nCorrectors     2;
+    nNonOrthogonalCorrectors 0;
+    pRefCell        0;
+    pRefValue       0;
+}}
+relaxationFactors
+{{
+    equations
+    {{
+        ".*"            1;
+    }}
+}}
+""")
+    _write_transport(case_dir, nu)
+    _write(os.path.join(case_dir, "constant", "turbulenceProperties"),
+           foamfile_header("dictionary", "turbulenceProperties", "constant"),
+           f"\nsimulationType  RAS;\n\nRAS\n{{\n    RASModel        {model};\n"
+           "    turbulence      on;\n    printCoeffs     on;\n}\n")
+
+    def entries_of(inlet, outlet, wall):
+        return {"inlet": inlet, "outlet1": outlet, "outlet2": outlet,
+                "walls": wall}
+    piov = ("        type            pressureInletOutletVelocity;\n"
+            "        value           uniform (0 0 0);\n")
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                "uniform (0 0 0)", entries_of(
+                    piov, piov, "        type            noSlip;\n"))
+    write_field(case_dir, "0", "p", "volScalarField", "[0 2 -2 0 0 0 0]",
+                "uniform 0", entries_of(
+                    "        type            uniformTotalPressure;\n"
+                    f"        p0              {p0_inlet};\n"
+                    f"        value           uniform {p0_inlet};\n",
+                    "        type            totalPressure;\n"
+                    "        p0              uniform 0;\n"
+                    "        value           uniform 0;\n",
+                    _ZG))
+
+    def turb(name, dims, value, inlet):
+        def typed(word, extra=""):
+            return (f"        type            {word};\n{extra}"
+                    f"        value           uniform {value};\n")
+        write_field(case_dir, "0", name, "volScalarField", dims,
+                    f"uniform {value}", entries_of(
+                        inlet(typed),
+                        typed("inletOutlet", f"        inletValue      "
+                                             f"uniform {value};\n"),
+                        typed({"k": "kqRWallFunction",
+                               "epsilon": "epsilonWallFunction",
+                               "omega": "omegaWallFunction"}[name])))
+    turb("k", "[0 2 -2 0 0 0 0]", 0.2, lambda t: t(
+        "turbulentIntensityKineticEnergyInlet",
+        "        intensity       0.05;\n"))
+    if model == "kOmegaSST":
+        turb("omega", "[0 0 -1 0 0 0 0]", 200 / (0.09 * 0.2), lambda t: t(
+            "turbulentMixingLengthFrequencyInlet",
+            "        mixingLength    0.01;\n"))
+    else:
+        turb("epsilon", "[0 2 -3 0 0 0 0]", 200, lambda t: t(
+            "turbulentMixingLengthDissipationRateInlet",
+            "        mixingLength    0.01;\n"))
+    calc = ("        type            calculated;\n"
+            "        value           uniform 0;\n")
+    write_field(case_dir, "0", "nut", "volScalarField", "[0 2 -1 0 0 0 0]",
+                "uniform 0", entries_of(
+                    calc, calc, "        type            nutkWallFunction;\n"
+                                "        value           uniform 0;\n"))
     return mesh
 
 

@@ -109,14 +109,16 @@ def test_port_runs_without_jax(tmp_path):
     """Importing rapidcfd_tpu_torch and running 2 steps of pitzDaily (gdia)
     and of the cavity (ELL, GAMG-preconditioned p) with icoFoam, one
     SIMPLE iteration of the simpleFoam pitzDaily case (kEpsilon, GAMG on
-    the gdia lattice) and one of the polyhedral channel (kOmegaSST, the
-    corrected laplacian, the merged-cell 3-D gdia lattice), on the CPU
-    pulls no jax module and no module of the JAX package into the
-    process."""
+    the gdia lattice), one of the polyhedral channel (kOmegaSST, the
+    corrected laplacian, the merged-cell 3-D gdia lattice) and two
+    pimpleFoam steps of the small T-junction (kEpsilon, the open-boundary
+    conditions, adaptive dt), on the CPU pulls no jax module and no module
+    of the JAX package into the process."""
     d = str(tmp_path / "case")
     c = str(tmp_path / "cavity")
     s = str(tmp_path / "simple")
     ch = str(tmp_path / "channel")
+    tj = str(tmp_path / "tjunction")
     script = f"""
 import sys
 
@@ -152,6 +154,14 @@ case, state, step, _ = channel_stepper({ch!r}, nx=8, ny=6, nz=6,
                                        dtype=torch.float32)
 U, p, phi, ts, _ = step(*state)
 assert case.mesh.gdia is not None and sorted(ts) == ["k", "nut", "omega"]
+assert all(torch.isfinite(f.data).all() for f in [U, p, *ts.values()])
+from rapidcfd_tpu_torch.solvers import pimplefoam
+from rapidcfd_tpu_torch.utils.casegen import tjunction_case
+tjunction_case({tj!r}, section=4, leg=12, bar=12, depth=4)
+case, U, p, phi, ts = pimplefoam.run({tj!r}, device=torch.device("cpu"),
+                                     dtype=torch.float32, write=False,
+                                     max_steps=2)
+assert case.mesh.gdia is not None and len(case.step_log) == 2
 assert all(torch.isfinite(f.data).all() for f in [U, p, *ts.values()])
 print("NEW_FOREIGN_MODULES", sorted(foreign() - before))
 print("JAX_LEFT_OUT", not before and "jax" not in sys.modules)
