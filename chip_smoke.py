@@ -89,20 +89,53 @@ Phases (any failure raises and the script exits non-zero):
 15. (run right after phase 3, before any step is traced) both K = 7
    forms on the T-junction's own Gauss planes against the plain version,
    timed cold and warm beside cuSPARSE as in phase 3;
-16. a JSON line of kernel results (the kernel's four forms, and its two
-   K = 7 forms on the T-junction's planes: cold times of the kernel, the
-   baseline, the plain version and cuSPARSE as `ms`, `baseline_ms`,
-   `plain_ms` and `library_ms`, held against `bound_ms`, and their warm
-   times as `*warm_ms`, with their launches on their main path —
-   simpleFoam pitzDaily x5 for K = 5, the channel for K = 7, the
-   T-junction for its planes — and on each path), the card's name and
-   power limit, and the result line {"ok": true, "device": {...}} last.
+16. (run right after phase 15) K = 5, C = 3 on the forward step's own
+   Gauss planes (n = 245,760) against the plain version, timed cold and
+   warm beside cuSPARSE as in phase 3;
+17. sonicFoam on the forward step at scale 1 (gdia, the limited schemes,
+   slip) and rhoSimpleFoam on the 50x10 heated channel (ELL, GAMG p), fp64,
+   5 steps each on cuda and on cpu: rhoSimpleFoam's fields within 1e-10
+   relative (as phase 13's) with equal iteration counts; sonicFoam's
+   within the rounding
+   spread SONIC_SPREAD_X1 with counts within one (the limiters turn the
+   kernel's fused multiply-adds into field differences), and within
+   1e-12 with equal counts when the kernel's plain version stands in for
+   it on the card; and the full-size forward step (scale 16) in fp64 on
+   the card for 3 steps, Courant max and max Mach within SONIC_RTOL_FP64
+   of the JAX package's fp64 readings (SONIC_REFERENCE), the continuity
+   error within that plus its rounding floor;
+18. the main path of sonicFoam: the forward step at scale 16 (206,592
+   cells on 245,760 lattice slots, gdia, K = 5) in fp32 from the writer's
+   uniform Mach-3 state, timed as bench_compressible.py times it (one
+   call, 3 warm-up steps, 3 windows of 30), then one profiled step;
+   fields finite, p and T positive, K = 5, C = 3 launched at every step
+   (its count per step printed), steps 1-3 within 5% of SONIC_REFERENCE
+   (the continuity error within 5% plus its fp32 rounding floor);
+   iterations per solve of the first steps, ms/step, live-cell updates/s,
+   set-up by stage, peak memory, the profiled step's launches, busy share,
+   top kernels and shift-MAC kernels;
+19. the main path of rhoSimpleFoam: the heated channel at 1024x256
+   (262,144 cells, ELL, GAMG p, laminar, p in deviation form) in fp32,
+   timed the same way, then one profiled iteration; fields finite, T
+   within the inlet's and the walls' temperatures, rho and p near air's at
+   1e5 Pa, no shift-MAC launch;
+20. a JSON line of kernel results (the kernel's four forms, its two K = 7
+   forms on the T-junction's planes and its K = 5, C = 3 form on the
+   forward step's planes: cold times of the kernel, the baseline, the
+   plain version and cuSPARSE as `ms`, `baseline_ms`, `plain_ms` and
+   `library_ms`, held against `bound_ms`, and their warm times as
+   `*warm_ms`, with their launches on their main path — simpleFoam
+   pitzDaily x5 for K = 5, the channel for K = 7, the T-junction and the
+   forward step for their planes — and on each path), the card's name
+   and power limit, and the result line {"ok": true, "device": {...}}
+   last.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -466,11 +499,24 @@ def _time_form(gm, K: int, C: int, n: int, offs, n_sets: int,
         "library": lambda i: torch.mv(mats[i], sets[i][0]),
     }
 
+    bound = max((nbytes / HBM_BYTES_PER_S, "bytes"),
+                (2 * K * C * n / FP32_FLOPS, "operations"))
+
     def timed(name, cold):
         if not cold:
             return _device_ms(lambda: fns[name](0), reps=50)
-        turn = iter(range(10 ** 9))
-        return _device_ms(lambda: fns[name](next(turn) % n_sets), reps=48)
+        # a cold call cannot take less than its bound: such a reading is
+        # a trace that lost or split records (seen once, 12.87 against
+        # 27.03 us in the other turn), and the turn is timed again
+        for _ in range(3):
+            turn = iter(range(10 ** 9))
+            ms_ = _device_ms(lambda: fns[name](next(turn) % n_sets), reps=48)
+            if ms_ >= 0.98 * bound[0] * 1e3:
+                return ms_
+            print(f"{label}   {name} cold read {ms_ * 1e3:.2f} us, under "
+                  f"the bound {bound[0] * 1e6:.2f}: timed again")
+        check(False, f"{label} {name} K={K} C={C}: three cold readings "
+              f"under the bound")
 
     t = {}
     for cold in (True, False):
@@ -480,8 +526,6 @@ def _time_form(gm, K: int, C: int, n: int, offs, n_sets: int,
         for name in ("plain", "library"):
             t[(name, tag)] = [timed(name, cold)]
     ms = {k: sum(v) / len(v) for k, v in t.items()}
-    bound = max((nbytes / HBM_BYTES_PER_S, "bytes"),
-                (2 * K * C * n / FP32_FLOPS, "operations"))
     print(f"{label} fp32 K={K} C={C} n={n}, device time per call, us, cold "
           f"({n_sets} input sets, {n_sets * nbytes / 1e6:.1f} MB with their "
           f"outputs) / warm: "
@@ -1409,12 +1453,469 @@ def phase_tjunction_kernel(tmp: str, smi: str) -> dict:
     return res
 
 
+# sonicFoam on the Mach-3 forward step as bench_compressible.py runs it
+# (utils/casegen.forward_step_case, scale 16, dt 0.0005/16): a 960 x 256
+# lattice, 206,592 live cells (the step masks 39,168 slots), offsets 0, +-1,
+# +-960; and rhoSimpleFoam on the heated channel at 1024 x 256 (262,144
+# cells, a full box: the padded ELL)
+FSTEP_SCALE = 16
+FSTEP_DT = 0.0005 / FSTEP_SCALE
+FSTEP_N = 960 * 256
+FSTEP_CELLS = 206592
+FSTEP_OFFSETS = (-960, -1, 0, 1, 960)
+HOT = dict(nx=1024, ny=256)
+HOT_CELLS = 1024 * 256
+# bench_compressible.py's timing: one call, 3 warm-up steps, 3 windows of 30
+BENCH_WARMUP, BENCH_WINDOWS, BENCH_STEPS = 3, 3, 30
+# the JAX package's readings of the first 3 steps of the full-size forward
+# step, fp64 on the CPU of the card's machine (tests/crosscheck_compressible.py
+# --scale 16 --steps 3 --port-device cuda, its default jitted step): (Courant
+# max, max Mach, local continuity error in kg/s)
+SONIC_REFERENCE = ((0.030002608408882133, 3.0015408623351245,
+                    7.37491471974203e-12),
+                   (0.030007079523931387, 3.000065990936932,
+                    1.3740660099972733e-10),
+                   (0.030013511004358753, 3.000007933323772,
+                    1.472937396321061e-12))
+# the limiters' r is set by rounding in the uniform inflow, so the result
+# depends on how the arithmetic rounds: the JAX package's two evaluations
+# of the same steps (XLA optimised, with fused multiply-adds, and not) land
+# 9.457e-06 apart in Courant max and max Mach at full size, and 4.421e-04
+# in T after 5 steps at scale 1 (tests/crosscheck_compressible.py). The
+# port is held to twice that spread: the card's run (the kernel fuses its
+# multiply-adds) against the JAX readings, and against the CPU run
+SONIC_RTOL_FP64 = 2e-5
+SONIC_SPREAD_X1 = 1e-3
+SONIC_RTOL = 0.05
+# the local continuity error sits at the rounding of the ddt(rho) terms in
+# both packages (0.3-46 eps sum(rho V)/dt in fp64 at scales 1 and 16, 5 in
+# fp32 at scale 2; tests/crosscheck_compressible.py): every comparison of
+# it allows this many of those rounding units beside its relative
+# tolerance
+CONT_ROUNDING_UNITS = 100.0
+
+
+def _cont_floor(case, rho_old, dt: float, dtype) -> float:
+    """CONT_ROUNDING_UNITS * eps * sum(rho V)/dt over live cells."""
+    live = torch.as_tensor(case.maps.cell_primary, device=rho_old.device)
+    rho_v = float((rho_old.double().abs() * case.mesh.V.double())[live].sum())
+    return CONT_ROUNDING_UNITS * float(torch.finfo(dtype).eps) * rho_v / dt
+
+
+def _check_readings(tag: str, readings, floors, rtol: float):
+    """readings: per step (Courant max, max Mach, local continuity error)
+    against SONIC_REFERENCE: the first two within rtol, the continuity
+    error within rtol plus its rounding floor."""
+    for i, (got, ref, floor) in enumerate(zip(readings, SONIC_REFERENCE,
+                                              floors), 1):
+        dev = [abs(x - r) / abs(r) for x, r in zip(got[:2], ref[:2])]
+        lim = rtol * ref[2] + floor
+        print(f"{tag} step {i}: Courant max {got[0]:.9g} (JAX {ref[0]:.9g}, "
+              f"{dev[0]:.2e}), max Mach {got[1]:.9g} (JAX {ref[1]:.9g}, "
+              f"{dev[1]:.2e}), continuity {got[2]:.4e} (JAX {ref[2]:.4e}, "
+              f"|d| {abs(got[2] - ref[2]):.3e}, limit {lim:.3e} with the "
+              f"rounding floor {floor:.3e}); limit {rtol:g} on the first two")
+        check(max(dev) <= rtol and abs(got[2] - ref[2]) <= lim,
+              f"{tag} step {i} leaves the JAX package's readings {ref}: "
+              f"{got}")
+
+
+def phase_fstep_kernel(tmp: str, smi: str) -> dict:
+    """K = 5, C = 3 on the forward step's own Gauss planes (n = 245,760,
+    offsets FSTEP_OFFSETS) against the plain version, then timed cold and
+    warm beside cuSPARSE (before any step is traced, as phase 15)."""
+    from rapidcfd_tpu_torch.ops import gdia_mac as gm
+    from rapidcfd_tpu_torch.solvers.case import Case
+    from rapidcfd_tpu_torch.utils.casegen import forward_step_case
+    from rapidcfd_tpu_torch.utils.logging import captured
+    with captured():
+        pm = forward_step_case(f"{tmp}/fstep_planes", scale=FSTEP_SCALE,
+                               delta_t=FSTEP_DT, write_mesh=False)
+        planes = Case(f"{tmp}/fstep_planes", device=torch.device("cuda"),
+                      dtype=torch.float32, pmesh=pm).mesh.gauss
+    check(tuple(planes.offsets) == FSTEP_OFFSETS
+          and tuple(planes.coeffs.shape) == (5, 3, FSTEP_N),
+          f"unexpected forward-step planes {planes.offsets} "
+          f"{tuple(planes.coeffs.shape)}")
+    g = torch.Generator(device="cuda").manual_seed(5353)
+    x = torch.randn(FSTEP_N, generator=g, device="cuda")
+    ref = gm.shift_mac_cols_plain(x, planes.coeffs, planes.offsets)
+    out = gm.shift_mac_cols(x, planes.coeffs, planes.offsets)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    lim = 1e-5 * ref.abs().max().item()
+    print(f"[16] fp32 forward-step planes, K=5 C=3 n={FSTEP_N}: max|d| "
+          f"{err:.2e} (limit {lim:.2e})")
+    check(err <= lim, f"kernel disagrees with the plain version on the "
+          f"forward step's planes: {err} > {lim}")
+    res = dict(max_abs_err=err, **_time_form(
+        gm, 5, 3, FSTEP_N, planes.offsets, 4, smi, coeffs=planes.coeffs,
+        label="[16]"))                              # 4 sets: 75 MB
+    torch.cuda.empty_cache()
+    return {(5, 3): res}
+
+
+@contextlib.contextmanager
+def _plain_shift_mac():
+    """The shift-MAC wrapper's plain version in place of its kernel, for
+    a diagnostic run on the card that rounds as the CPU does."""
+    from rapidcfd_tpu_torch.ops import gdia_mac
+    kernel = gdia_mac.shift_mac_cols
+    gdia_mac.shift_mac_cols = gdia_mac.shift_mac_cols_plain
+    try:
+        yield
+    finally:
+        gdia_mac.shift_mac_cols = kernel
+
+
+def _compressible_run(solver: str, d: str, dev: str, dtype, steps: int):
+    from rapidcfd_tpu_torch.solvers import rhosimplefoam, sonicfoam
+    from rapidcfd_tpu_torch.utils.logging import captured
+    mod = sonicfoam if solver == "sonicFoam" else rhosimplefoam
+    with captured():
+        case, U, p, T, rho, phi = mod.run(d, device=torch.device(dev),
+                                          dtype=dtype, write=False,
+                                          max_steps=steps)
+    return case, dict(U=U, p=p, T=T, rho=rho, phi=phi)
+
+
+def _compressible_errs(a, b):
+    """Relative max|d| per field of two compressible runs (file order; phi
+    in file orientation)."""
+    (ca, fa), (cb, fb) = a, b
+    maps = cb.maps
+    errs = {name: _rel(maps.cells_to_file(fa[name].data.cpu().numpy()),
+                       maps.cells_to_file(fb[name].data.cpu().numpy()))
+            for name in ("U", "p", "T", "rho")}
+    errs["phi"] = _rel(maps.faces_to_file(fa["phi"].data.cpu().numpy(),
+                                          flux=True),
+                       maps.faces_to_file(fb["phi"].data.cpu().numpy(),
+                                          flux=True))
+    return errs
+
+
+def phase_compressible_agreement(tmp: str):
+    """sonicFoam on the forward step at scale 1 (gdia) and rhoSimpleFoam
+    on the 50x10 heated channel (ELL, laminar), fp64, 5 steps each on
+    cuda and on cpu. rhoSimpleFoam: fields within 1e-10 relative (the
+    card sums in another order: 1.1e-12 in U after 5 iterations) and
+    iteration counts equal. sonicFoam: the kernel's fused multiply-adds
+    round the gradients of the uniform start otherwise than the CPU, and
+    the limiters turn that into field differences, so its fields are held
+    to SONIC_SPREAD_X1 and its counts to one; with the kernel's plain
+    version in its place the card's run must agree with the CPU's to
+    1e-12 with equal counts. Then the full-size forward step in fp64 on
+    the card for 3 steps against the JAX package's readings."""
+    from rapidcfd_tpu_torch.utils.casegen import (forward_step_case,
+                                                  hot_channel_case)
+    for solver, writer, what in (
+            ("sonicFoam", forward_step_case, "forward step x1"),
+            ("rhoSimpleFoam", hot_channel_case, "heated channel 50x10")):
+        d = f"{tmp}/{solver}_small"
+        writer(d)
+        tag = f"[17] fp64 {solver} {what},"
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            outs[dev] = _compressible_run(solver, d, dev, torch.float64, 5)
+            print(f"{tag} 5 steps on {dev}: {time.perf_counter() - t0:.2f} s")
+        its = {dev: [r["iterations"] for r in out[0].step_log]
+               for dev, out in outs.items()}
+        errs = _compressible_errs(outs["cuda"], outs["cpu"])
+        print(f"{tag} cuda vs cpu, relative max|d|: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f"; iterations per step, cuda: {its['cuda']}")
+        if solver == "rhoSimpleFoam":
+            check(its["cuda"] == its["cpu"] and max(errs.values()) <= 1e-10,
+                  f"{tag} fp64 cuda and cpu runs disagree: {errs}, "
+                  f"{its['cuda']} against {its['cpu']}")
+            continue
+        off = [(a, b) for s_, t_ in zip(its["cuda"], its["cpu"])
+               for (fa, a), (fb, b) in zip(s_, t_) if fa != fb or a != b]
+        check(len(its["cuda"]) == len(its["cpu"]) == 5
+              and all(abs(a - b) <= 1 for a, b in off)
+              and max(errs.values()) <= SONIC_SPREAD_X1,
+              f"{tag} fp64 cuda and cpu runs disagree beyond the rounding "
+              f"spread {SONIC_SPREAD_X1}: {errs}, {its}")
+        with _plain_shift_mac():
+            plain = _compressible_run(solver, d, "cuda", torch.float64, 5)
+        errs = _compressible_errs(plain, outs["cpu"])
+        p_its = [r["iterations"] for r in plain[0].step_log]
+        print(f"{tag} with the kernel's plain version on cuda, cuda vs cpu, "
+              f"relative max|d|: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f"; iterations equal: {p_its == its['cpu']}")
+        check(p_its == its["cpu"] and max(errs.values()) <= 1e-12,
+              f"{tag} with the plain version the card's run leaves the "
+              f"CPU's: {errs}")
+    _sonic_readings_fp64(tmp)
+
+
+def _sonic_readings_fp64(tmp: str):
+    """The full-size forward step in fp64 on the card, 3 steps: Courant
+    max and max Mach within SONIC_RTOL_FP64 of the JAX package's, the
+    continuity error within that plus its rounding floor."""
+    from rapidcfd_tpu_torch.solvers import sonicfoam
+    from rapidcfd_tpu_torch.solvers.case import Case
+    from rapidcfd_tpu_torch.utils.casegen import forward_step_case
+    from rapidcfd_tpu_torch.utils.logging import captured
+    tag = "[17] fp64 sonicFoam forward step x16 on cuda,"
+    t0 = time.perf_counter()
+    with captured():
+        pm = forward_step_case(f"{tmp}/fstep64", scale=FSTEP_SCALE,
+                               delta_t=FSTEP_DT, end_time=1e9,
+                               write_mesh=False)
+        case = Case(f"{tmp}/fstep64", device=torch.device("cuda"),
+                    dtype=torch.float64, pmesh=pm)
+        _, (U, p, T, rho, phi), step = sonicfoam.setup(case)
+        readings, floors = [], []
+        for _ in range(3):
+            floors.append(_cont_floor(case, rho.data, FSTEP_DT,
+                                      torch.float64))
+            U, p, T, rho, phi, st = step(U, p, T, rho, phi, FSTEP_DT)
+            readings.append((float(st["co"][1]), float(st["mach_max"]),
+                             float(st["cont"][0])))
+            print(f"{tag} iterations {sonicfoam.iteration_counts(st)}")
+    print(f"{tag} 3 steps in {time.perf_counter() - t0:.2f} s with set-up")
+    _check_readings(tag, readings, floors, SONIC_RTOL_FP64)
+
+
+def _bench_drive(step, state, readings_of, n_read: int):
+    """bench_compressible.py's timing around step(*state) -> (*state,
+    stats): one call, BENCH_WARMUP warm-up steps, BENCH_WINDOWS windows of
+    BENCH_STEPS steps (each ending in a device sync). The first n_read
+    steps (the call and the warm-ups) give readings_of(state, stats)
+    (their host reads sit outside the timed windows). Returns (state,
+    per-step records of those steps, first-call seconds, window seconds,
+    shift-MAC launches by (K, C) of every step)."""
+    from rapidcfd_tpu_torch.ops import gdia_mac
+    records, per_step, windows = [], [], []
+    gdia_mac.reset_launches()
+
+    def one(read: bool):
+        before = dict(gdia_mac.LAUNCHES_BY_KC)
+        t0 = time.perf_counter()
+        *new, st = step(*state)
+        if read:
+            records.append(readings_of(new, st, before))
+        now = dict(gdia_mac.LAUNCHES_BY_KC)
+        per_step.append({kc: now[kc] - before.get(kc, 0) for kc in now})
+        return new, time.perf_counter() - t0
+
+    state, t_first = one(True)
+    torch.cuda.synchronize()
+    for i in range(BENCH_WARMUP):
+        state, _ = one(i + 1 < n_read)
+    torch.cuda.synchronize()
+    for _ in range(BENCH_WINDOWS):
+        t0 = time.perf_counter()
+        for _ in range(BENCH_STEPS):
+            state, _ = one(False)
+        torch.cuda.synchronize()
+        windows.append(time.perf_counter() - t0)
+    return state, records, t_first, windows, per_step
+
+
+def phase_sonic_main(tmp: str, smi: str) -> dict:
+    """The main path of sonicFoam: the full-size forward step (206,592
+    cells on 245,760 lattice slots, gdia, K = 5) in fp32 from the
+    writer's initial state, timed as bench_compressible.py times it, then
+    one profiled step. K = 5, C = 3 must launch at every step; steps 1-3
+    within SONIC_RTOL of the JAX package's fp64 readings (the continuity
+    error within that plus its fp32 rounding floor). Returns the
+    shift-MAC launches by (K, C) over the timed drive."""
+    from rapidcfd_tpu_torch.solvers import sonicfoam
+    from rapidcfd_tpu_torch.solvers.case import Case
+    from rapidcfd_tpu_torch.utils.casegen import forward_step_case
+    from rapidcfd_tpu_torch.utils.logging import captured
+    tag = "[18] sonicFoam forward step x16"
+    torch.cuda.reset_peak_memory_stats()
+    with captured():
+        t0 = time.perf_counter()
+        pm = forward_step_case(f"{tmp}/fstep", scale=FSTEP_SCALE,
+                               delta_t=FSTEP_DT, end_time=1e9,
+                               write_mesh=False)
+        t_gen = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        case = Case(f"{tmp}/fstep", device=torch.device("cuda"),
+                    dtype=torch.float32, pmesh=pm)
+        t_case = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, state, step = sonicfoam.setup(case)
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
+    mesh = case.mesh
+    live = int(case.maps.cell_primary.sum())
+    check(mesh.gdia is not None and mesh.n_cells == FSTEP_N
+          and live == FSTEP_CELLS
+          and tuple(mesh.gauss.offsets) == FSTEP_OFFSETS,
+          f"{tag}: expected {FSTEP_CELLS} cells on the {FSTEP_N}-slot gdia "
+          f"lattice, got {live} on {mesh.n_cells}")
+    print(f"{tag} fp32: {live} cells on {mesh.n_cells} slots (gdia, "
+          f"offsets {mesh.gauss.offsets}); set-up by stage: generate "
+          f"{t_gen:.2f} s, "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in case.setup_seconds.items())
+          + f", case total {t_case:.2f} s, fields and step {t_setup:.2f} s")
+
+    def readings_of(new, st, before):
+        return dict(co=float(st["co"][1]), mach=float(st["mach_max"]),
+                    cont=float(st["cont"][0]),
+                    floor=_cont_floor(case, new[3].old.data, FSTEP_DT,
+                                      torch.float32),
+                    its=sonicfoam.iteration_counts(st))
+    with captured():
+        state, records, t_first, windows, per_step = _bench_drive(
+            lambda *s: step(*s, FSTEP_DT), state, readings_of, 4)
+        launches = {}
+        for d_ in per_step:
+            for kc, v in d_.items():
+                launches[kc] = launches.get(kc, 0) + v
+        state, st, n_kernels, busy, t_prof, mac, top = _profiled_iteration(
+            lambda *s: step(*s, FSTEP_DT), state)
+    U, p, T, rho, phi = state
+    for f in (U, p, T, rho, phi):
+        check(bool(torch.isfinite(f.data).all()), f"{tag}: {f.name} not "
+              "finite")
+    check(U.data.shape == (mesh.n_cells, 3) and p.data.shape
+          == (mesh.n_cells,) and phi.data.shape == (mesh.n_faces,),
+          f"{tag}: unexpected shapes")
+    prim = torch.as_tensor(case.maps.cell_primary, device=p.data.device)
+    check(bool((p.data[prim] > 0).all() and (T.data[prim] > 0).all()),
+          f"{tag}: p or T not positive")
+    for i, r in enumerate(records, 1):
+        print(f"{tag} step {i}: Courant max {r['co']:.6g}, max Mach "
+              f"{r['mach']:.6g}, continuity {r['cont']:.4e}; iterations "
+              f"{r['its']}")
+    counts = [d_.get((5, 3), 0) for d_ in per_step]
+    print(f"{tag} mac_stencil<float, 5, 3> launches per step over the "
+          f"{len(per_step)} steps: {sorted(set(counts))} (total "
+          f"{sum(counts)}); all forms: {launches}")
+    check(all(c > 0 for c in counts)
+          and all(set(d_) <= {(5, 3), (5, 1)} for d_ in per_step),
+          f"{tag}: a step did not launch K = 5, C = 3: {per_step}")
+    _check_readings(tag, [(r["co"], r["mach"], r["cont"])
+                          for r in records[:3]],
+                    [r["floor"] for r in records[:3]], SONIC_RTOL)
+    med = statistics.median(windows)
+    print(f"{tag} first call {t_first * 1e3:.1f} ms; windows of "
+          f"{BENCH_STEPS}: "
+          + ", ".join(f"{1e3 * w / BENCH_STEPS:.3f}" for w in windows)
+          + f" ms/step; median {1e3 * med / BENCH_STEPS:.3f} ms/step, "
+          f"{live * BENCH_STEPS / med:.1f} live-cell updates/s "
+          f"({mesh.n_cells * BENCH_STEPS / med:.1f} over lattice slots, as "
+          f"bench_compressible.py counts); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (card: "
+          f"{smi})")
+    print(f"{tag} profiled step: {t_prof * 1e3:.1f} ms, {n_kernels} kernel "
+          f"launches, device busy {busy * 1e3:.2f} ms ({busy / t_prof:.1%}); "
+          f"iterations {sonicfoam.iteration_counts(st)} (card: {smi})")
+    print(f"{tag} profiled step, top kernels by device time (name, "
+          f"launches, ms): {top}")
+    print(f"{tag} profiled step, shift-MAC kernels: {mac}")
+    check(any("mac_stencil<float, 5, 3>" in name for name in mac)
+          and not any("generic" in name for name in mac),
+          f"{tag}: the profiled step did not run mac_stencil<float, 5, 3> "
+          f"alone: {mac}")
+    return launches
+
+
+def phase_rho_main(tmp: str, smi: str) -> dict:
+    """The main path of rhoSimpleFoam: the heated channel at 1024x256
+    (262,144 cells, padded ELL, GAMG p, laminar, p in deviation form) in
+    fp32, timed as bench_compressible.py times it, then one profiled
+    iteration. No shift-MAC launch (ELL). Returns the launches by (K, C)
+    over the timed drive (none)."""
+    from rapidcfd_tpu_torch.solvers import rhosimplefoam
+    from rapidcfd_tpu_torch.solvers.case import Case
+    from rapidcfd_tpu_torch.utils.casegen import hot_channel_case
+    from rapidcfd_tpu_torch.utils.logging import captured
+    tag = "[19] rhoSimpleFoam heated channel 1024x256 (laminar)"
+    torch.cuda.reset_peak_memory_stats()
+    with captured():
+        t0 = time.perf_counter()
+        pm = hot_channel_case(f"{tmp}/hot", end_time=10 ** 9,
+                              write_mesh=False, **HOT)
+        t_gen = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        case = Case(f"{tmp}/hot", device=torch.device("cuda"),
+                    dtype=torch.float32, pmesh=pm)
+        t_case = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, state, step, p_offset = rhosimplefoam.setup(case)
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
+    mesh = case.mesh
+    check(mesh.gdia is None and mesh.n_cells == HOT_CELLS,
+          f"{tag}: expected {HOT_CELLS} cells on the ELL path")
+    check(p_offset == 1e5, f"{tag}: p not in deviation form ({p_offset})")
+    print(f"{tag} fp32: {mesh.n_cells} cells (ELL K={mesh.K}), p_offset "
+          f"{p_offset:g}; set-up by stage: generate {t_gen:.2f} s, "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in case.setup_seconds.items())
+          + f", case total {t_case:.2f} s, fields, models and step "
+          f"{t_setup:.2f} s; GAMG cells per level {_gamg_sizes(case)}")
+
+    def readings_of(new, st, before):
+        return dict(cont=float(st["cont"][0]),
+                    its=rhosimplefoam.iteration_counts(st))
+    with captured():
+        state, records, t_first, windows, per_step = _bench_drive(
+            step, state, readings_of, 4)
+        state, st, n_kernels, busy, t_prof, mac, top = _profiled_iteration(
+            step, state)
+    U, p, T, rho, phi, ts = state
+    for f in (U, p, T, rho, phi):
+        check(bool(torch.isfinite(f.data).all()), f"{tag}: {f.name} not "
+              "finite")
+    check(U.data.shape == (mesh.n_cells, 3) and p.data.shape
+          == (mesh.n_cells,), f"{tag}: unexpected shapes")
+    t_lo, t_hi = float(T.data.min()), float(T.data.max())
+    r_lo, r_hi = float(rho.data.min()), float(rho.data.max())
+    p_lo, p_hi = (float(x) + p_offset for x in (p.data.min(), p.data.max()))
+    print(f"{tag} after {len(per_step) + 1} iterations: T {t_lo:.4f}-"
+          f"{t_hi:.4f} K, rho {r_lo:.5f}-{r_hi:.5f} kg/m^3, p "
+          f"{p_lo:.2f}-{p_hi:.2f} Pa, |U| max "
+          f"{float(U.data.norm(dim=-1).max()):.4f} m/s")
+    # the walls heat the inflow: T between the inlet's 300 K and the
+    # walls' 350 K (upwind keeps it bounded), air near 1.16 kg/m^3, p
+    # within a few percent of the outlet's 1e5 Pa
+    check(299.0 < t_lo and t_hi <= 351.0 and 0.9 < r_lo and r_hi < 1.4
+          and 0.9e5 < p_lo and p_hi < 1.1e5,
+          f"{tag}: state out of bounds: T {t_lo}-{t_hi}, rho {r_lo}-{r_hi}, "
+          f"p {p_lo}-{p_hi}")
+    for i, r in enumerate(records, 1):
+        print(f"{tag} iteration {i}: continuity {r['cont']:.4e}; "
+              f"iterations {r['its']}")
+    launches = {}
+    for d_ in per_step:
+        for kc, v in d_.items():
+            launches[kc] = launches.get(kc, 0) + v
+    check(not launches and not mac,
+          f"{tag}: the ELL path launched the kernel: {launches} {mac}")
+    med = statistics.median(windows)
+    print(f"{tag} first call {t_first * 1e3:.1f} ms; windows of "
+          f"{BENCH_STEPS}: "
+          + ", ".join(f"{1e3 * w / BENCH_STEPS:.3f}" for w in windows)
+          + f" ms/iteration; median {1e3 * med / BENCH_STEPS:.3f} "
+          f"ms/iteration, {mesh.n_cells * BENCH_STEPS / med:.1f} "
+          f"cell-updates/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (card: "
+          f"{smi})")
+    print(f"{tag} profiled iteration: {t_prof * 1e3:.1f} ms, {n_kernels} "
+          f"kernel launches, device busy {busy * 1e3:.2f} ms "
+          f"({busy / t_prof:.1%}); iterations "
+          f"{rhosimplefoam.iteration_counts(st)} (card: {smi})")
+    print(f"{tag} profiled iteration, top kernels by device time (name, "
+          f"launches, ms): {top}")
+    return launches
+
+
 def main():
     smi = phase_setup()
     phase_build()
     k = phase_kernel(smi)
     with tempfile.TemporaryDirectory() as tmp:
         tj_kernel = phase_tjunction_kernel(tmp, smi)
+        fs_kernel = phase_fstep_kernel(tmp, smi)
         phase_fp64_agreement(tmp)
         ico = phase_main_path(tmp, smi)
         phase_cavity_agreement(tmp)
@@ -1426,11 +1927,16 @@ def main():
         duct = phase_duct_main(tmp, smi)
         phase_pimple_agreement(tmp)
         tjunction = phase_tjunction_main(tmp, smi)
+        phase_compressible_agreement(tmp)
+        sonic = phase_sonic_main(tmp, smi)
+        rho = phase_rho_main(tmp, smi)
     paths = {"simpleFoam pitzDaily x5": simple, "icoFoam pitzDaily x5": ico,
              "icoFoam cavity 384": cavity,
              "simpleFoam channel 160x80x80": channel,
              "simpleFoam curved duct 128x64x64": duct,
-             "pimpleFoam T-junction": tjunction}
+             "pimpleFoam T-junction": tjunction,
+             "sonicFoam forward step x16": sonic,
+             "rhoSimpleFoam heated channel 1024x256": rho}
     kernels = []
     for (K, c), what, main_path, times in (
             ((5, 3), "Gauss gradient", "simpleFoam pitzDaily x5", k[5, 3]),
@@ -1443,7 +1949,9 @@ def main():
             ((7, 3), "Gauss gradient, 3-D, T-junction planes",
              "pimpleFoam T-junction", tj_kernel[7, 3]),
             ((7, 1), "divergence contraction, 3-D, T-junction planes",
-             "pimpleFoam T-junction", tj_kernel[7, 1])):
+             "pimpleFoam T-junction", tj_kernel[7, 1]),
+            ((5, 3), "Gauss gradient, forward-step planes",
+             "sonicFoam forward step x16", fs_kernel[5, 3])):
         kernels.append({
             "name": f"shift_mac K={K} C={c} ({what})", "route": "cuda",
             "source": "rapidcfd_tpu_torch/csrc/shift_mac.cu",

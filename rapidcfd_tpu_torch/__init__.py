@@ -11,7 +11,9 @@ Device and dtype policy:
   ``cuda`` on a machine without a card raises, nothing moves to the CPU
   quietly;
 - the float width follows the JAX dispatcher (rapidcfd_tpu/__main__.py:
-  115-153): icoFoam runs fp32 by default, ``-precision fp64`` overrides.
+  115-153): every ported solver runs fp32 by default, sonicFoam and
+  rhoSimpleFoam included (rhoSimpleFoam with p in deviation form);
+  ``-precision fp64`` overrides.
 """
 
 from __future__ import annotations
@@ -22,8 +24,9 @@ __version__ = "0.1.0"
 
 _DTYPES = {"fp32": torch.float32, "fp64": torch.float64}
 
-#: solvers whose default width is fp64 (the JAX dispatcher's X64_DEFAULT);
-#: none of them is ported yet, so every ported solver defaults to fp32
+#: ported solvers whose default width is fp64 (the JAX dispatcher's
+#: X64_DEFAULT): none; every ported solver, sonicFoam and rhoSimpleFoam
+#: included, is fp32 by default there
 X64_DEFAULT: frozenset = frozenset()
 
 

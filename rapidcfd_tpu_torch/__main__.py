@@ -22,6 +22,8 @@ SOLVERS = {
     "pimpleFoam": ("rapidcfd_tpu_torch.solvers.pimplefoam", {}),
     "pisoFoam": ("rapidcfd_tpu_torch.solvers.pimplefoam",
                  {"piso_mode": True}),
+    "sonicFoam": ("rapidcfd_tpu_torch.solvers.sonicfoam", {}),
+    "rhoSimpleFoam": ("rapidcfd_tpu_torch.solvers.rhosimplefoam", {}),
 }
 
 

@@ -11,7 +11,8 @@ with vbc/gbc derived generically as ``evaluate - vic*psi_c`` and
 ``snGrad(evaluate) - gic*psi_c`` (the reference fvPatchField contract,
 fvPatchField.H:80). Descriptors are frozen dataclasses; their tensor
 parameters live in the field's ``bcdata``. Ported: calculated,
-fixedValue, zeroGradient, empty, mixed, noSlip; the open-boundary set
+fixedValue, zeroGradient, empty, mixed, noSlip, symmetryPlane
+(symmetry) and slip; the open-boundary set
 of a pressure-driven flow (rapidcfd_tpu/fields/bcs.py:290-1157):
 inletOutlet, totalPressure, uniformTotalPressure (p0 a constant, as in
 the JAX package), pressureInletOutletVelocity, flowRateInletVelocity and
@@ -200,6 +201,41 @@ class NoSlip(FixedValue):
 
     def evaluate(self, mesh, patch, field, bd, env=None):
         return torch.zeros_like(field.patch_internal(mesh, patch))
+
+
+@dataclass(frozen=True)
+class Symmetry(BC):
+    """Mirror condition (reference: basicSymmetry): scalars zeroGradient,
+    vectors projected onto the patch plane, with a per-component implicit
+    coefficient 1 - n*n (a 3-vector per face)."""
+    preserves_type = True
+    fixes_value = True
+    word = "symmetryPlane"
+
+    def evaluate(self, mesh, patch, field, bd, env=None):
+        psi_c = field.patch_internal(mesh, patch)
+        if psi_c.dim() == 1:
+            return psi_c
+        n = mesh.patch_normals(patch)
+        return psi_c - (psi_c * n).sum(-1, keepdim=True) * n
+
+    def value_internal_coeff(self, mesh, patch, field, bd, env=None):
+        if field.data.dim() == 1:
+            return _coeff(mesh, patch, field, 1.0)
+        n = mesh.patch_normals(patch)
+        return 1.0 - n * n
+
+    def gradient_internal_coeff(self, mesh, patch, field, bd, env=None):
+        if field.data.dim() == 1:
+            return _coeff(mesh, patch, field, 0.0)
+        n = mesh.patch_normals(patch)
+        return -(n * n) * mesh.patch_delta_coeffs(patch)[:, None]
+
+
+@dataclass(frozen=True)
+class Slip(Symmetry):
+    """Inviscid wall (reference: derived/slip): the symmetry condition."""
+    word = "slip"
 
 
 def _patch_phi(mesh, patch, field, env):
@@ -476,12 +512,16 @@ class OmegaWallFunction(ZeroGradient):
 
 
 BC_TYPES = {cls.word: cls for cls in (
-    Calculated, FixedValue, ZeroGradient, Empty, Mixed, NoSlip, InletOutlet,
+    Calculated, FixedValue, ZeroGradient, Empty, Mixed, NoSlip, Symmetry,
+    Slip, InletOutlet,
     TurbulentIntensityKineticEnergyInlet,
     TurbulentMixingLengthDissipationRateInlet,
     TurbulentMixingLengthFrequencyInlet, TotalPressure, UniformTotalPressure,
     PressureInletOutletVelocity, FlowRateInletVelocity, NutkWallFunction,
     KqRWallFunction, EpsilonWallFunction, OmegaWallFunction)}
+#: the reference's plain `symmetry` patch field: the same condition (it
+#: is written back as symmetryPlane)
+BC_TYPES["symmetry"] = Symmetry
 
 
 def make_bc(type_word: str, patch_idx: int, pd=None) -> BC:

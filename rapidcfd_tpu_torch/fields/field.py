@@ -190,3 +190,29 @@ class VolField:
 
     def patch_values(self, mesh, patch) -> torch.Tensor:
         return self.bvalues[patch.bstart:patch.bstart + patch.size]
+
+
+#: bcdata entries that carry the solution LEVEL (additive under a
+#: constant shift of the field); gradient, fraction and flux entries are
+#: shift-invariant
+_LEVEL_KEYS = ("value", "p0", "inletValue", "outletValue", "refValue",
+               "uniformValue", "freestreamValue")
+
+
+def shift_level(f: VolField, delta) -> VolField:
+    """f + delta as a solution-level shift: internal and boundary values
+    and every level-carrying BC parameter move together, so the shifted
+    field satisfies the same problem re-based at a new origin. The
+    compressible solvers run p in deviation form this way in fp32
+    (shift_level(p, -pRef) on entry, +pRef for the equation of state and
+    on write): SI absolute pressure (~1e5 Pa) in fp32 is known to ~0.008
+    Pa, above the cell-to-cell differences of low-Mach flows."""
+    new_bd = []
+    for bd in f.bcdata:
+        d2 = dict(bd)
+        for k in _LEVEL_KEYS:
+            if k in d2:
+                d2[k] = d2[k] + delta
+        new_bd.append(d2)
+    return f.replace(data=f.data + delta, bvalues=f.bvalues + delta,
+                     bcdata=tuple(new_bd))

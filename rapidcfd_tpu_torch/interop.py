@@ -3,8 +3,10 @@
 Each function takes an object of the JAX package (a MeshArrays with its
 GAMG levels, on the ELL or the gdia layout, merged-cell ghost slots
 included; a VolField with its boundary-condition data and old-time
-level, a SurfaceField, an FvMatrix, a turbulence model's state dict, old
-time levels included, or kOmegaSST's wall distance) and rebuilds the port's counterpart on
+level (a compressible state too: slip and symmetryPlane BCs, the psi
+and rho old levels), a SurfaceField, an FvMatrix, a turbulence model's
+state dict, old time levels included, or kOmegaSST's wall distance) and
+rebuilds the port's counterpart on
 a given device and dtype. The structured multigrid levels are built per
 solve from the matrix, so there is nothing of them to carry. Arrays are
 read through the numpy array protocol (`np.asarray`), so this module never

@@ -274,6 +274,12 @@ def build_gauss_planes(info: GdiaInfo, Sf, weights, *, device,
     return gauss_planes_from_numpy(offs, ct, device=device, dtype=dtype)
 
 
+def pad_cell(x, D: int):
+    """x (n,)+rank zero-padded by D on both ends of axis 0."""
+    z = x.new_zeros((D,) + tuple(x.shape[1:]))
+    return torch.cat([z, x, z])
+
+
 def _shift_last(x, d, n):
     """result[..., s] = x[..., s - d] (zero-filled outside [0, n))."""
     if d == 0:

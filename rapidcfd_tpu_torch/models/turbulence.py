@@ -11,7 +11,8 @@ The wall functions are BC descriptors (fields/bcs.py, re-exported here)
 and a pass that fixes epsilon or omega and the production in the wall
 cells (fvMatrix::setValues). kOmegaSST's wall distance is a host k-d tree
 query over the wall-face centres, once per case. Other RAS models and LES
-are not ported: make_ras_model raises on them.
+are not ported: make_ras_model raises on them. CompressibleTurbulence
+wraps a model for the compressible solvers (mut = rho*nut).
 """
 
 from __future__ import annotations
@@ -25,14 +26,15 @@ import torch
 from ..fields.bcs import (_CMU25, _CMU75, _KAPPA, EpsilonWallFunction,
                           KqRWallFunction, NutkWallFunction,
                           OmegaWallFunction)
-from ..fields.field import Dimensioned, VolField
+from ..fields.field import Dimensioned, SurfaceField, VolField
 from ..linalg.solvers import solve
 from ..ops import fvc, fvm
 from ..utils.dictionary import Dictionary, parse_file
 from ..utils.dimensions import DimensionSet, dim_viscosity
 
-__all__ = ["EpsilonWallFunction", "KEpsilon", "KOmegaSST", "KqRWallFunction",
-           "Laminar", "NutkWallFunction", "OmegaWallFunction", "bound",
+__all__ = ["CompressibleTurbulence", "EpsilonWallFunction", "KEpsilon",
+           "KOmegaSST", "KqRWallFunction", "Laminar", "NutkWallFunction",
+           "OmegaWallFunction", "bound",
            "magsqr_symm_grad", "make_ras_model", "wall_distance"]
 
 _RTIME = DimensionSet.of(0, 0, -1)
@@ -462,3 +464,46 @@ def make_ras_model(case, U):
             f"RASModel '{name}' is not ported yet (ported: "
             f"{', '.join(sorted(RAS_MODELS))})")
     return cls(case, coeffs)
+
+
+class CompressibleTurbulence:
+    """Compressible adapter over the RAS models above (port of
+    rapidcfd_tpu/models/turbulence.py:1348-1390; reference: src/
+    turbulenceModels/compressible/RAS, the rho-weighted forms of the same
+    models): muEff = mu + mut and alphaEff = alpha + mut/Prt with
+    mut = rho*nut.
+
+    As in the JAX package, the turbulence equations are solved in
+    kinematic form with the volumetric flux phi/rho_f and nu = mu/rho
+    (exact where the density is solenoidal; the drho/dt transport terms
+    of the rho-weighted forms are dropped). The momentum and energy
+    equations take the full mut."""
+
+    def __init__(self, case, U, prt: float = 1.0):
+        self.inner = make_ras_model(case, U)
+        self.prt = prt
+
+    @property
+    def laminar(self) -> bool:
+        return isinstance(self.inner, Laminar)
+
+    def init_state(self, U):
+        return self.inner.init_state(U)
+
+    def correct(self, mesh, state, U, phi_mass, rho, nu: VolField,
+                dt=None):
+        if self.laminar:
+            return state, {}
+        rho_f = fvc.face_values(mesh, rho)
+        phi_vol = SurfaceField(phi_mass.data / torch.clamp(rho_f, min=1e-10),
+                               phi_mass.dims / rho.dims, "phiByRho")
+        return self.inner.correct(mesh, state, U, phi_vol, nu, dt=dt)
+
+    def mut_faces(self, mesh, state, rho_f):
+        """Face eddy viscosity rho_f * nut_f, or None (laminar)."""
+        if self.laminar:
+            return None
+        nut = self.inner.nut(state)
+        if nut is None:
+            return None
+        return rho_f * torch.clamp(fvc.face_values(mesh, nut), min=0.0)

@@ -37,6 +37,13 @@ def face_values(mesh: MeshArrays, vf: VolField, scheme="linear",
     return torch.cat([internal, vf.bvalues])
 
 
+def interpolate(mesh: MeshArrays, vf: VolField, scheme="linear",
+                phi: SurfaceField | None = None) -> SurfaceField:
+    """fvc::interpolate: the face values on all faces as a SurfaceField."""
+    return SurfaceField(face_values(mesh, vf, scheme, phi), vf.dims,
+                        f"interpolate({vf.name})")
+
+
 # ---------------------------------------------------------------------------
 # surface sums
 # ---------------------------------------------------------------------------
@@ -115,7 +122,8 @@ def _gdia_rows_tail(mesh: MeshArrays, g_, rows, brows):
 
 
 def div(mesh: MeshArrays, a, b=None, scheme="linear") -> VolField:
-    """fvc::div(ssf) or fvc::div(phi, vf) (Gauss)."""
+    """fvc::div(ssf) or fvc::div(phi, vf) (Gauss, with the face values by
+    any ported interpolation scheme: linear, upwind or a limited one)."""
     if b is None:
         if not isinstance(a, SurfaceField):
             raise TypeError("fvc.div(mesh, ssf) needs a SurfaceField")

@@ -1,7 +1,8 @@
 """fvm — implicit finite-volume operators returning FvMatrix systems
-(port of rapidcfd_tpu/ops/fvm.py: Euler and steadyState ddt, Gauss and
-bounded Gauss div, the orthogonal and corrected laplacian, the Sp/Su/SuSp
-sources, with negSumDiag as an ELL gather or by gdia plane shifts)."""
+(port of rapidcfd_tpu/ops/fvm.py: Euler and steadyState ddt, with a
+density-like coefficient or without, Gauss and bounded Gauss div, the
+orthogonal and corrected laplacian, the Sp/Su/SuSp sources, with
+negSumDiag as an ELL gather or by gdia plane shifts)."""
 
 from __future__ import annotations
 
@@ -37,22 +38,35 @@ def _neg_sum_diag(mesh: MeshArrays, lower, upper):
     return gd.neg_sum_diag(mesh.gdia, lower, upper)
 
 
-def ddt(mesh: MeshArrays, vf: VolField, dt, scheme: str = "Euler"
-        ) -> FvMatrix:
-    """fvm::ddt, Euler (reference: EulerDdtScheme::fvmDdt) or steadyState
-    (the zero matrix). dt is a Python float or a 0-d tensor. backward and
-    CrankNicolson (rapidcfd_tpu/ops/fvm.py:73-207) are not ported and
-    raise."""
+def ddt(mesh: MeshArrays, vf: VolField, dt, scheme: str = "Euler",
+        coeff: VolField | None = None) -> FvMatrix:
+    """fvm::ddt(psi) or fvm::ddt(rho, psi), Euler (reference:
+    EulerDdtScheme::fvmDdt: diag rho V/dt, source rho.old psi.old V/dt)
+    or steadyState (the zero matrix). dt is a Python float or a 0-d
+    tensor; coeff is a density-like VolField that carries its own old
+    level. backward and CrankNicolson (rapidcfd_tpu/ops/fvm.py:73-207)
+    are not ported and raise."""
     if scheme not in ("Euler", "steadyState"):
         raise NotImplementedError(f"ddtScheme '{scheme}' is not ported yet "
                                   "(Euler, steadyState)")
-    m = FvMatrix.zeros(mesh, vf, vf.dims * _VOL / _TIME, symmetric=True)
+    c_dims = coeff.dims if coeff is not None else DimensionSet()
+    m = FvMatrix.zeros(mesh, vf, c_dims * vf.dims * _VOL / _TIME,
+                       symmetric=True)
     if scheme == "steadyState":
         return m
     if vf.old is None:
         raise ValueError(f"ddt({vf.name}): no old-time field stored")
-    diag = mesh.V_asm * (1.0 / dt)
-    return m.replace(diag=diag, source=_ext(diag, vf.old.data) * vf.old.data)
+    rdt = 1.0 / dt
+    if coeff is None:
+        diag = mesh.V_asm * rdt
+        return m.replace(diag=diag,
+                         source=_ext(diag, vf.old.data) * vf.old.data)
+    if coeff.old is None:
+        raise ValueError(f"ddt({coeff.name},{vf.name}): coefficient has no "
+                         "old-time level")
+    diag = mesh.V_asm * rdt * coeff.data
+    src = _ext(mesh.V_asm * rdt * coeff.old.data, vf.old.data) * vf.old.data
+    return m.replace(diag=diag, source=src)
 
 
 def div(mesh: MeshArrays, phi: SurfaceField, vf: VolField,
@@ -101,8 +115,8 @@ def _gamma_faces(mesh, gamma):
         return gamma.data, gamma.dims
     value, dims = (gamma.value, gamma.dims) if isinstance(gamma, Dimensioned) \
         else (gamma, dimless)
-    return torch.full((mesh.n_faces,), float(value), dtype=mesh.dtype,
-                      device=mesh.device), dims
+    value = torch.as_tensor(value, dtype=mesh.dtype, device=mesh.device)
+    return torch.broadcast_to(value, (mesh.n_faces,)), dims
 
 
 def laplacian(mesh: MeshArrays, gamma, vf: VolField,

@@ -95,8 +95,10 @@ class Case:
 
     # -- constant/ dictionaries --------------------------------------------------
     def transport_properties(self) -> Dictionary:
-        return parse_file(os.path.join(self.dir, "constant",
-                                       "transportProperties"))
+        return self.constant_dict("transportProperties")
+
+    def constant_dict(self, name: str) -> Dictionary:
+        return parse_file(os.path.join(self.dir, "constant", name))
 
     # -- fvSchemes resolution ------------------------------------------------------
     def ddt_scheme(self):

@@ -1,5 +1,6 @@
 """Case generator — a numpy copy of rapidcfd_tpu/utils/casegen.py's
-box_mesh, masked_grid_mesh, cavity_case, pitz_daily_case and write_field,
+box_mesh, masked_grid_mesh, cavity_case, pitz_daily_case, forward_step_case,
+hot_channel_case and write_field,
 plus pitz_daily_ico_case (the pitzDaily mesh under the cavity's icoFoam
 dictionaries) and tjunction_case (pimpleFoam's T-junction, which the JAX
 package has no writer for). These write case files only; the JAX solver
@@ -797,3 +798,1476 @@ def write_field(case_dir: str, time: str, name: str, cls: str,
     lines.append("}\n")
     _write(os.path.join(case_dir, time, name),
            foamfile_header(cls, name, time), "".join(lines))
+
+
+def forward_step_case(case_dir: str, scale: int = 1, end_time: float = 0.5,
+                      delta_t: float = 0.0005, write_mesh: bool = True,
+                      write_interval: float = 0.5) -> PolyMesh:
+    """Mach-3 flow over a forward step (sonicFoam forwardStep tutorial,
+    BASELINE config 4): normalized gas (R=0.714286, Cv=1.78571), inviscid
+    walls as slip. A 60 scale x 16 scale lattice over 3 x 1 with the step
+    (x > 0.6, y < 0.2) masked out. write_mesh=False skips the ascii
+    polyMesh (pass the returned mesh to Case(pmesh=...)); write_interval
+    is the controlDict's (in simulated seconds)."""
+    nx, ny = 60 * scale, 16 * scale
+    xs = np.linspace(0.0, 3.0, nx + 1)
+    ys = np.linspace(0.0, 1.0, ny + 1)
+    zs = np.array([-0.05, 0.05])
+    mask = np.ones((nx, ny), dtype=bool)
+    xc = 0.5 * (xs[:-1] + xs[1:])
+    yc = 0.5 * (ys[:-1] + ys[1:])
+    mask[np.ix_(xc > 0.6, yc < 0.2)] = False
+
+    def rule(i, j, side):
+        if side in ("zmin", "zmax"):
+            return "frontAndBack"
+        if side == "xmin" and i == 0:
+            return "inlet"
+        if side == "xmax" and i == nx - 1:
+            return "outlet"
+        return "obstacle"
+    rule.order = ["inlet", "outlet", "obstacle", "frontAndBack"]
+    rule.types = {"inlet": "patch", "outlet": "patch",
+                  "obstacle": "wall", "frontAndBack": "empty"}
+    mesh = masked_grid_mesh(xs, ys, zs, mask, rule)
+    if write_mesh:
+        write_polymesh(mesh, case_dir)
+
+    _write(os.path.join(case_dir, "system", "controlDict"),
+           foamfile_header("dictionary", "controlDict", "system"), f"""
+application     sonicFoam;
+startFrom       startTime;
+startTime       0;
+stopAt          endTime;
+endTime         {end_time};
+deltaT          {delta_t};
+writeControl    runTime;
+writeInterval   {write_interval};
+writeFormat     ascii;
+writePrecision  6;
+""")
+    _write(os.path.join(case_dir, "system", "fvSchemes"),
+           foamfile_header("dictionary", "fvSchemes", "system"), """
+ddtSchemes      { default Euler; }
+gradSchemes     { default Gauss linear; }
+divSchemes
+{
+    default         none;
+    div(phi,U)      Gauss limitedLinear 1;
+    div(phi,e)      Gauss limitedLinear 1;
+    div(phi,Ekp)    Gauss limitedLinear 1;
+    div(phid,p)     Gauss limitedLinear 1;
+}
+laplacianSchemes { default Gauss linear orthogonal; }
+interpolationSchemes { default linear; }
+snGradSchemes   { default orthogonal; }
+""")
+    _write(os.path.join(case_dir, "system", "fvSolution"),
+           foamfile_header("dictionary", "fvSolution", "system"), """
+solvers
+{
+    p
+    {
+        solver          PBiCGStab;
+        preconditioner  DILU;
+        tolerance       1e-09;
+        relTol          0.01;
+    }
+    pFinal
+    {
+        solver          PBiCGStab;
+        preconditioner  DILU;
+        tolerance       1e-09;
+        relTol          0;
+    }
+    "(U|e)"
+    {
+        solver          smoothSolver;
+        smoother        symGaussSeidel;
+        tolerance       1e-09;
+        relTol          0;
+    }
+}
+PISO
+{
+    nCorrectors     2;
+    nNonOrthogonalCorrectors 0;
+    pMin            0.02;
+    TMin            0.02;
+}
+""")
+    _write(os.path.join(case_dir, "constant", "thermophysicalProperties"),
+           foamfile_header("dictionary", "thermophysicalProperties",
+                           "constant"), """
+thermoType
+{
+    type            hePsiThermo;
+    mixture         pureMixture;
+    transport       const;
+    thermo          eConst;
+    equationOfState perfectGas;
+    specie          specie;
+    energy          sensibleInternalEnergy;
+}
+mixture
+{
+    specie         { nMoles 1; molWeight 11640.3; }
+    thermodynamics { Cv 1.78571; Hf 0; }
+    transport      { mu 0; Pr 1; }
+}
+""")
+    _write(os.path.join(case_dir, "constant", "turbulenceProperties"),
+           foamfile_header("dictionary", "turbulenceProperties",
+                           "constant"),
+           "\nsimulationType  laminar;\n")
+
+    write_field(case_dir, "0", "p", "volScalarField", "[1 -1 -2 0 0 0 0]",
+                "uniform 1", {
+                    "inlet": "        type            fixedValue;\n"
+                             "        value           uniform 1;\n",
+                    "outlet": "        type            zeroGradient;\n",
+                    "obstacle": "        type            zeroGradient;\n",
+                    "frontAndBack": "        type            empty;\n"})
+    write_field(case_dir, "0", "T", "volScalarField", "[0 0 0 1 0 0 0]",
+                "uniform 1", {
+                    "inlet": "        type            fixedValue;\n"
+                             "        value           uniform 1;\n",
+                    "outlet": "        type            zeroGradient;\n",
+                    "obstacle": "        type            zeroGradient;\n",
+                    "frontAndBack": "        type            empty;\n"})
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                "uniform (3 0 0)", {
+                    "inlet": "        type            fixedValue;\n"
+                             "        value           uniform (3 0 0);\n",
+                    "outlet": "        type            zeroGradient;\n",
+                    "obstacle": "        type            slip;\n",
+                    "frontAndBack": "        type            empty;\n"})
+    return mesh
+
+
+def hot_channel_case(case_dir: str, nx: int = 50, ny: int = 10,
+                     end_time: int = 200, u_in: float = 10.0,
+                     write_mesh: bool = True) -> PolyMesh:
+    """Subsonic heated-channel case for rhoSimpleFoam (air, hot walls):
+    a 1 x 0.1 m box of nx x ny cells, laminar (no turbulenceProperties).
+    write_mesh=False skips the ascii polyMesh."""
+    mesh = box_mesh(nx, ny, 1, size=(1.0, 0.1, 0.01), patch_spec={
+        "xmin": ("inlet", "patch"),
+        "xmax": ("outlet", "patch"),
+        "ymin": ("walls", "wall"),
+        "ymax": ("walls", "wall"),
+        "zmin": ("frontAndBack", "empty"),
+        "zmax": ("frontAndBack", "empty"),
+    })
+    if write_mesh:
+        write_polymesh(mesh, case_dir)
+    _write(os.path.join(case_dir, "system", "controlDict"),
+           foamfile_header("dictionary", "controlDict", "system"), f"""
+application     rhoSimpleFoam;
+startFrom       startTime;
+startTime       0;
+stopAt          endTime;
+endTime         {end_time};
+deltaT          1;
+writeControl    timeStep;
+writeInterval   {end_time};
+writeFormat     ascii;
+""")
+    _write(os.path.join(case_dir, "system", "fvSchemes"),
+           foamfile_header("dictionary", "fvSchemes", "system"), """
+ddtSchemes      { default steadyState; }
+gradSchemes     { default Gauss linear; }
+divSchemes
+{
+    default         none;
+    div(phi,U)      bounded Gauss upwind;
+    div(phi,h)      bounded Gauss upwind;
+}
+laplacianSchemes { default Gauss linear orthogonal; }
+interpolationSchemes { default linear; }
+snGradSchemes   { default orthogonal; }
+""")
+    _write(os.path.join(case_dir, "system", "fvSolution"),
+           foamfile_header("dictionary", "fvSolution", "system"), """
+solvers
+{
+    p
+    {
+        solver          GAMG;
+        smoother        GaussSeidel;
+        tolerance       1e-08;
+        relTol          0.05;
+    }
+    "(U|h)"
+    {
+        solver          smoothSolver;
+        smoother        symGaussSeidel;
+        tolerance       1e-08;
+        relTol          0.1;
+    }
+}
+SIMPLE
+{
+    nNonOrthogonalCorrectors 0;
+    pRefCell        0;
+    pRefValue       100000;
+    residualControl { p 1e-4; U 1e-5; h 1e-5; }
+}
+relaxationFactors
+{
+    fields    { p 0.3; rho 0.05; }
+    equations { U 0.7; h 0.7; }
+}
+""")
+    _write(os.path.join(case_dir, "constant", "thermophysicalProperties"),
+           foamfile_header("dictionary", "thermophysicalProperties",
+                           "constant"), """
+thermoType
+{
+    type            heRhoThermo;
+    mixture         pureMixture;
+    transport       const;
+    thermo          hConst;
+    equationOfState perfectGas;
+    specie          specie;
+    energy          sensibleEnthalpy;
+}
+mixture
+{
+    specie         { nMoles 1; molWeight 28.9; }
+    thermodynamics { Cp 1005; Hf 0; }
+    transport      { mu 1.8e-05; Pr 0.7; }
+}
+""")
+    write_field(case_dir, "0", "p", "volScalarField", "[1 -1 -2 0 0 0 0]",
+                "uniform 100000", {
+                    "inlet": "        type            zeroGradient;\n",
+                    "outlet": "        type            fixedValue;\n"
+                              "        value           uniform 100000;\n",
+                    "walls": "        type            zeroGradient;\n",
+                    "frontAndBack": "        type            empty;\n"})
+    write_field(case_dir, "0", "T", "volScalarField", "[0 0 0 1 0 0 0]",
+                "uniform 300", {
+                    "inlet": "        type            fixedValue;\n"
+                             "        value           uniform 300;\n",
+                    "outlet": "        type            zeroGradient;\n",
+                    "walls": "        type            fixedValue;\n"
+                             "        value           uniform 350;\n",
+                    "frontAndBack": "        type            empty;\n"})
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                f"uniform ({u_in} 0 0)", {
+                    "inlet": "        type            fixedValue;\n"
+                             f"        value           uniform ({u_in} 0 0);\n",
+                    "outlet": "        type            zeroGradient;\n",
+                    "walls": "        type            fixedValue;\n"
+                             "        value           uniform (0 0 0);\n",
+                    "frontAndBack": "        type            empty;\n"})
+    return mesh
+
+
+def dam_break_case(case_dir: str, n: int = 23, end_time: float = 0.1,
+                   delta_t: float = 0.001, mules_corr: bool = False,
+                   n_alpha_sub: int = 1):
+    """Closed-box dam break for interFoam (water column collapse; closed
+    lid keeps total water volume exactly conserved — a strong MULES
+    check)."""
+    from ..mesh.geometry import cell_centres_and_vols, face_centres_and_areas
+    from ..fields.io import _body_value
+
+    L = 0.584
+    mesh = box_mesh(n, n, 1, size=(L, L, 0.0146), patch_spec={
+        "xmin": ("walls", "wall"), "xmax": ("walls", "wall"),
+        "ymin": ("walls", "wall"), "ymax": ("walls", "wall"),
+        "zmin": ("frontAndBack", "empty"),
+        "zmax": ("frontAndBack", "empty"),
+    })
+    write_polymesh(mesh, case_dir)
+    Cf, Sf = face_centres_and_areas(mesh)
+    C, V = cell_centres_and_vols(mesh, Cf, Sf)
+    alpha0 = ((C[:, 0] < 0.25 * L) & (C[:, 1] < 0.5 * L)).astype(float)
+
+    _write(os.path.join(case_dir, "system", "controlDict"),
+           foamfile_header("dictionary", "controlDict", "system"), f"""
+application     interFoam;
+startFrom       startTime;
+startTime       0;
+stopAt          endTime;
+endTime         {end_time};
+deltaT          {delta_t};
+writeControl    runTime;
+writeInterval   {end_time};
+writeFormat     ascii;
+adjustTimeStep  no;
+maxCo           0.5;
+""")
+    _write(os.path.join(case_dir, "system", "fvSchemes"),
+           foamfile_header("dictionary", "fvSchemes", "system"), """
+ddtSchemes      { default Euler; }
+gradSchemes     { default Gauss linear; }
+divSchemes
+{
+    default         none;
+    div(phi,alpha)  Gauss vanLeer;
+    div(phirb,alpha) Gauss linear;
+    div(rhoPhi,U)   Gauss upwind;
+}
+laplacianSchemes { default Gauss linear orthogonal; }
+interpolationSchemes { default linear; }
+snGradSchemes   { default orthogonal; }
+""")
+    alpha_block = f"""
+    alpha1
+    {{
+        nAlphaSubCycles {n_alpha_sub};
+        cAlpha          1;
+        MULESCorr       {"yes" if mules_corr else "no"};
+        nAlphaCorr      2;
+        nLimiterIter    3;
+        solver          smoothSolver;
+        smoother        symGaussSeidel;
+        tolerance       1e-8;
+        relTol          0;
+    }}"""
+    _write(os.path.join(case_dir, "system", "fvSolution"),
+           foamfile_header("dictionary", "fvSolution", "system"), """
+solvers
+{""" + alpha_block + """
+    p_rgh
+    {
+        solver          PCG;
+        preconditioner  DIC;
+        tolerance       1e-07;
+        relTol          0.05;
+    }
+    p_rghFinal
+    {
+        solver          PCG;
+        preconditioner  DIC;
+        tolerance       1e-07;
+        relTol          0;
+    }
+    U
+    {
+        solver          smoothSolver;
+        smoother        symGaussSeidel;
+        tolerance       1e-06;
+        relTol          0;
+    }
+}
+PIMPLE
+{
+    momentumPredictor no;
+    nOuterCorrectors 1;
+    nCorrectors     3;
+    nNonOrthogonalCorrectors 0;
+    nAlphaSubCycles 1;
+    pRefCell        0;
+    pRefValue       0;
+}
+""")
+    _write(os.path.join(case_dir, "constant", "transportProperties"),
+           foamfile_header("dictionary", "transportProperties", "constant"),
+           """
+phases          (water air);
+water { rho rho [1 -3 0 0 0 0 0] 1000; nu nu [0 2 -1 0 0 0 0] 1e-06; }
+air   { rho rho [1 -3 0 0 0 0 0] 1;    nu nu [0 2 -1 0 0 0 0] 1.48e-05; }
+sigma           sigma [1 0 -2 0 0 0 0] 0.07;
+""")
+    _write(os.path.join(case_dir, "constant", "g"),
+           foamfile_header("uniformDimensionedVectorField", "g", "constant"),
+           "\ndimensions      [0 1 -2 0 0 0 0];\nvalue           (0 -9.81 0);\n")
+
+    wall_a = "        type            zeroGradient;\n"
+    write_field(case_dir, "0", "alpha1", "volScalarField", "[0 0 0 0 0 0 0]",
+                "nonuniform List<scalar>\n"
+                + _body_value(alpha0).split("nonuniform List<scalar>\n")[-1]
+                if alpha0.std() > 0 else "uniform 0",
+                {"walls": wall_a, "frontAndBack":
+                 "        type            empty;\n"})
+    write_field(case_dir, "0", "p_rgh", "volScalarField", "[1 -1 -2 0 0 0 0]",
+                "uniform 0", {"walls": wall_a, "frontAndBack":
+                              "        type            empty;\n"})
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                "uniform (0 0 0)", {
+                    "walls": "        type            fixedValue;\n"
+                             "        value           uniform (0 0 0);\n",
+                    "frontAndBack": "        type            empty;\n"})
+    return mesh
+
+
+def depth_charge_case(case_dir: str, n: int = 24, end_time: float = 5e-4,
+                      delta_t: float = 1e-5):
+    """compressibleInterFoam depth charge: a high-pressure air bubble in
+    water inside a closed 2D box (reference tutorial family:
+    multiphase/compressibleInterFoam/laminar/depthCharge2D)."""
+    from ..mesh.geometry import cell_centres_and_vols, face_centres_and_areas
+    from ..fields.io import _body_value
+
+    L = 1.0
+    mesh = box_mesh(n, n, 1, size=(L, L, L / n), patch_spec={
+        "xmin": ("walls", "wall"), "xmax": ("walls", "wall"),
+        "ymin": ("walls", "wall"), "ymax": ("walls", "wall"),
+        "zmin": ("frontAndBack", "empty"),
+        "zmax": ("frontAndBack", "empty"),
+    })
+    write_polymesh(mesh, case_dir)
+    Cf, Sf = face_centres_and_areas(mesh)
+    C, V = cell_centres_and_vols(mesh, Cf, Sf)
+    r = np.sqrt((C[:, 0] - 0.5 * L) ** 2 + (C[:, 1] - 0.5 * L) ** 2)
+    bubble = r < 0.15 * L
+    alpha0 = (~bubble).astype(float)          # water = phase 1
+    p0 = np.where(bubble, 1e6, 1e5)
+
+    _write(os.path.join(case_dir, "system", "controlDict"),
+           foamfile_header("dictionary", "controlDict", "system"), f"""
+application     compressibleInterFoam;
+startFrom       startTime;
+startTime       0;
+stopAt          endTime;
+endTime         {end_time};
+deltaT          {delta_t};
+writeControl    runTime;
+writeInterval   {end_time};
+writeFormat     ascii;
+adjustTimeStep  no;
+maxCo           0.5;
+""")
+    _write(os.path.join(case_dir, "system", "fvSchemes"),
+           foamfile_header("dictionary", "fvSchemes", "system"), """
+ddtSchemes      { default Euler; }
+gradSchemes     { default Gauss linear; }
+divSchemes
+{
+    default         none;
+    div(phi,alpha)  Gauss vanLeer;
+    div(phirb,alpha) Gauss linear;
+    div(rhoPhi,U)   Gauss upwind;
+    div(phi,p)      Gauss upwind;
+    div(rhoPhi,T)   Gauss upwind;
+}
+laplacianSchemes { default Gauss linear orthogonal; }
+interpolationSchemes { default linear; }
+snGradSchemes   { default orthogonal; }
+""")
+    _write(os.path.join(case_dir, "system", "fvSolution"),
+           foamfile_header("dictionary", "fvSolution", "system"), """
+solvers
+{
+    alpha.water { nAlphaSubCycles 2; cAlpha 1; }
+    p_rgh
+    {
+        solver          PCG;
+        preconditioner  DIC;
+        tolerance       1e-08;
+        relTol          0.01;
+    }
+    p_rghFinal
+    {
+        solver          PCG;
+        preconditioner  DIC;
+        tolerance       1e-08;
+        relTol          0;
+    }
+    T
+    {
+        solver          PBiCGStab;
+        preconditioner  DILU;
+        tolerance       1e-08;
+        relTol          0;
+    }
+    U
+    {
+        solver          PBiCGStab;
+        preconditioner  DILU;
+        tolerance       1e-08;
+        relTol          0;
+    }
+}
+PIMPLE
+{
+    momentumPredictor no;
+    nOuterCorrectors 1;
+    nCorrectors     2;
+    nNonOrthogonalCorrectors 0;
+    nAlphaSubCycles 2;
+}
+""")
+    _write(os.path.join(case_dir, "constant", "thermophysicalProperties"),
+           foamfile_header("dictionary", "thermophysicalProperties",
+                           "constant"), """
+phases          (water air);
+pMin            pMin [1 -1 -2 0 0 0 0] 10000;
+sigma           sigma [1 0 -2 0 0 0 0] 0.07;
+""")
+    _write(os.path.join(case_dir, "constant",
+                        "thermophysicalProperties.water"),
+           foamfile_header("dictionary", "thermophysicalProperties.water",
+                           "constant"), """
+thermoType
+{
+    type            heRhoThermo;
+    mixture         pureMixture;
+    transport       const;
+    thermo          hConst;
+    equationOfState perfectFluid;
+    specie          specie;
+    energy          sensibleInternalEnergy;
+}
+mixture
+{
+    specie          { nMoles 1; molWeight 18.0; }
+    equationOfState { R 3000; rho0 1027; }
+    thermodynamics  { Cp 4195; Hf 0; }
+    transport       { mu 3.645e-4; Pr 2.289; }
+}
+""")
+    _write(os.path.join(case_dir, "constant",
+                        "thermophysicalProperties.air"),
+           foamfile_header("dictionary", "thermophysicalProperties.air",
+                           "constant"), """
+thermoType
+{
+    type            hePsiThermo;
+    mixture         pureMixture;
+    transport       const;
+    thermo          hConst;
+    equationOfState perfectGas;
+    specie          specie;
+    energy          sensibleInternalEnergy;
+}
+mixture
+{
+    specie          { nMoles 1; molWeight 28.9; }
+    thermodynamics  { Cp 1007; Hf 0; }
+    transport       { mu 1.84e-5; Pr 0.7; }
+}
+""")
+    _write(os.path.join(case_dir, "constant", "g"),
+           foamfile_header("uniformDimensionedVectorField", "g", "constant"),
+           "\ndimensions      [0 1 -2 0 0 0 0];\n"
+           "value           (0 -9.81 0);\n")
+
+    wall_zg = "        type            zeroGradient;\n"
+    emp = "        type            empty;\n"
+    write_field(case_dir, "0", "alpha.water", "volScalarField",
+                "[0 0 0 0 0 0 0]", _body_value(alpha0),
+                {"walls": wall_zg, "frontAndBack": emp})
+    write_field(case_dir, "0", "p_rgh", "volScalarField",
+                "[1 -1 -2 0 0 0 0]", _body_value(p0),
+                {"walls": wall_zg, "frontAndBack": emp})
+    write_field(case_dir, "0", "p", "volScalarField",
+                "[1 -1 -2 0 0 0 0]", _body_value(p0),
+                {"walls": wall_zg, "frontAndBack": emp})
+    write_field(case_dir, "0", "T", "volScalarField",
+                "[0 0 0 1 0 0 0]", "uniform 300",
+                {"walls": wall_zg, "frontAndBack": emp})
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                "uniform (0 0 0)", {
+                    "walls": "        type            fixedValue;\n"
+                             "        value           uniform (0 0 0);\n",
+                    "frontAndBack": emp})
+    return mesh
+
+
+def bubble_column_case(case_dir: str, nx: int = 12, ny: int = 30,
+                       end_time: float = 0.05, delta_t: float = 1e-3,
+                       turbulence: str | None = None,
+                       forces: bool = False):
+    """twoPhaseEulerFoam bubble column: air initially in the lower half
+    of a closed water box rises under buoyancy against SchillerNaumann
+    drag (reference tutorial family: multiphase/twoPhaseEulerFoam/
+    bubbleColumn). turbulence='mixtureKEpsilon'/'LaheyKEpsilon' adds
+    turbulenceProperties.<phase> + k/epsilon fields; forces=True turns
+    on the Tomiyama lift + Frank wall lubrication + Burns turbulent
+    dispersion closures (reference bubbleColumnEvaporatingReacting
+    tutorial set)."""
+    from ..mesh.geometry import cell_centres_and_vols, face_centres_and_areas
+    from ..fields.io import _body_value
+
+    W, H = 0.15, 1.0
+    mesh = box_mesh(nx, ny, 1, size=(W, H, 0.05), patch_spec={
+        "xmin": ("walls", "wall"), "xmax": ("walls", "wall"),
+        "ymin": ("walls", "wall"), "ymax": ("walls", "wall"),
+        "zmin": ("frontAndBack", "empty"),
+        "zmax": ("frontAndBack", "empty"),
+    })
+    write_polymesh(mesh, case_dir)
+    Cf, Sf = face_centres_and_areas(mesh)
+    C, V = cell_centres_and_vols(mesh, Cf, Sf)
+    alpha0 = np.where(C[:, 1] < 0.5 * H, 0.1, 0.0)
+
+    _write(os.path.join(case_dir, "system", "controlDict"),
+           foamfile_header("dictionary", "controlDict", "system"), f"""
+application     twoPhaseEulerFoam;
+startFrom       startTime;
+startTime       0;
+stopAt          endTime;
+endTime         {end_time};
+deltaT          {delta_t};
+writeControl    runTime;
+writeInterval   {end_time};
+writeFormat     ascii;
+adjustTimeStep  no;
+maxCo           0.5;
+""")
+    _write(os.path.join(case_dir, "system", "fvSchemes"),
+           foamfile_header("dictionary", "fvSchemes", "system"), """
+ddtSchemes      { default Euler; }
+gradSchemes     { default Gauss linear; }
+divSchemes      { default Gauss upwind; div(phi,alpha.air) Gauss vanLeer; }
+laplacianSchemes { default Gauss linear orthogonal; }
+interpolationSchemes { default linear; }
+snGradSchemes   { default orthogonal; }
+""")
+    _write(os.path.join(case_dir, "system", "fvSolution"),
+           foamfile_header("dictionary", "fvSolution", "system"), """
+solvers
+{
+    "alpha.air.*" { nAlphaSubCycles 2; nAlphaCorr 1; }
+    p
+    {
+        solver          PCG;
+        preconditioner  DIC;
+        tolerance       1e-08;
+        relTol          0.01;
+    }
+    pFinal
+    {
+        solver          PCG;
+        preconditioner  DIC;
+        tolerance       1e-08;
+        relTol          0;
+    }
+    T
+    {
+        solver          PBiCGStab;
+        preconditioner  DILU;
+        tolerance       1e-08;
+        relTol          0;
+    }
+}
+PIMPLE
+{
+    nOuterCorrectors 1;
+    nCorrectors      2;
+    nNonOrthogonalCorrectors 0;
+}
+""")
+    _write(os.path.join(case_dir, "constant", "phaseProperties"),
+           foamfile_header("dictionary", "phaseProperties", "constant"), """
+phases          (air water);
+
+air
+{
+    diameterModel   constant;
+    constantCoeffs  { d  d [0 1 0 0 0 0 0] 3e-3; }
+    alphaMax        0.62;
+    residualAlpha   1e-6;
+}
+water
+{
+    diameterModel   constant;
+    constantCoeffs  { d  d [0 1 0 0 0 0 0] 1e-4; }
+    residualAlpha   1e-6;
+}
+
+drag            { type SchillerNaumann; }
+virtualMass     { type constantCoefficient; Cvm 0.5; }
+heatTransfer    { type RanzMarshall; }
+sigma           sigma [1 0 -2 0 0 0 0] 0.07;
+""" + ("""
+lift            { type Tomiyama; }
+turbulentDispersion { type Burns; sigma 0.9; }
+wallLubrication { type Frank; Cwd 6.8; Cwc 10; p 1.7; }
+""" if forces else """
+lift            { type none; }
+turbulentDispersion { type none; }
+wallLubrication { type none; }
+""") + """
+pMin            pMin [1 -1 -2 0 0 0 0] 10000;
+""")
+    _write(os.path.join(case_dir, "constant",
+                        "thermophysicalProperties.air"),
+           foamfile_header("dictionary", "thermophysicalProperties.air",
+                           "constant"), """
+thermoType
+{
+    type            hePsiThermo;
+    mixture         pureMixture;
+    transport       const;
+    thermo          hConst;
+    equationOfState perfectGas;
+    specie          specie;
+    energy          sensibleInternalEnergy;
+}
+mixture
+{
+    specie          { nMoles 1; molWeight 28.9; }
+    thermodynamics  { Cp 1007; Hf 0; }
+    transport       { mu 1.84e-5; Pr 0.7; }
+}
+""")
+    _write(os.path.join(case_dir, "constant",
+                        "thermophysicalProperties.water"),
+           foamfile_header("dictionary",
+                           "thermophysicalProperties.water",
+                           "constant"), """
+thermoType
+{
+    type            heRhoThermo;
+    mixture         pureMixture;
+    transport       const;
+    thermo          hConst;
+    equationOfState perfectFluid;
+    specie          specie;
+    energy          sensibleInternalEnergy;
+}
+mixture
+{
+    specie          { nMoles 1; molWeight 18.0; }
+    equationOfState { R 3000; rho0 1027; }
+    thermodynamics  { Cp 4195; Hf 0; }
+    transport       { mu 1.0e-3; Pr 7.0; }
+}
+""")
+    _write(os.path.join(case_dir, "constant", "g"),
+           foamfile_header("uniformDimensionedVectorField", "g",
+                           "constant"),
+           "\ndimensions      [0 1 -2 0 0 0 0];\n"
+           "value           (0 -9.81 0);\n")
+
+    zg = "        type            zeroGradient;\n"
+    emp = "        type            empty;\n"
+    noslip = ("        type            fixedValue;\n"
+              "        value           uniform (0 0 0);\n")
+    write_field(case_dir, "0", "alpha.air", "volScalarField",
+                "[0 0 0 0 0 0 0]", _body_value(alpha0),
+                {"walls": zg, "frontAndBack": emp})
+    write_field(case_dir, "0", "p", "volScalarField",
+                "[1 -1 -2 0 0 0 0]", "uniform 1e5",
+                {"walls": zg, "frontAndBack": emp})
+    for name in ("T.air", "T.water"):
+        write_field(case_dir, "0", name, "volScalarField",
+                    "[0 0 0 1 0 0 0]", "uniform 300",
+                    {"walls": zg, "frontAndBack": emp})
+    for name in ("U.air", "U.water"):
+        write_field(case_dir, "0", name, "volVectorField",
+                    "[0 1 -1 0 0 0 0]", "uniform (0 0 0)",
+                    {"walls": noslip, "frontAndBack": emp})
+    if turbulence:
+        for ph in ("air", "water"):
+            _write(os.path.join(case_dir, "constant",
+                                f"turbulenceProperties.{ph}"),
+                   foamfile_header("dictionary",
+                                   f"turbulenceProperties.{ph}",
+                                   "constant"), f"""
+simulationType  RAS;
+RAS
+{{
+    RASModel        {turbulence};
+    turbulence      on;
+    printCoeffs     on;
+}}
+""")
+        write_field(case_dir, "0", "k.water", "volScalarField",
+                    "[0 2 -2 0 0 0 0]", "uniform 1e-4",
+                    {"walls": zg, "frontAndBack": emp})
+        write_field(case_dir, "0", "epsilon.water", "volScalarField",
+                    "[0 2 -3 0 0 0 0]", "uniform 1e-4",
+                    {"walls": zg, "frontAndBack": emp})
+        # k/epsilon solver controls for the mixture system
+        fvs = os.path.join(case_dir, "system", "fvSolution")
+        txt = open(fvs).read()
+        txt = txt.replace(
+            "solvers\n{", "solvers\n{\n"
+            '    "(k|epsilon)" { solver PBiCGStab; preconditioner '
+            "DILU;\n                    tolerance 1e-08; relTol 0; }")
+        open(fvs, "w").write(txt)
+    return mesh
+
+
+def wedge_mesh(nx: int = 10, nr: int = 12, r0: float = 0.5,
+               r1: float = 1.5, length: float = 1.0,
+               angle_deg: float = 5.0) -> PolyMesh:
+    """Axisymmetric wedge mesh about the x-axis: one cell thick in the
+    circumferential direction with `wedge` front/back patches (reference
+    mesh form consumed by wedgePolyPatch, SURVEY §2.3; the annulus
+    [r0, r1] avoids collapsed axis faces). Patches: inner (r=r0),
+    outer (r=r1), left (x=0), right (x=length), front/back (wedge)."""
+    m = box_mesh(nx, nr, 1, size=(length, r1 - r0, 1.0),
+                 origin=(0.0, r0, 0.0),
+                 patch_spec={
+                     "xmin": ("left", "patch"),
+                     "xmax": ("right", "patch"),
+                     "ymin": ("inner", "patch"),
+                     "ymax": ("outer", "patch"),
+                     "zmin": ("front", "wedge"),
+                     "zmax": ("back", "wedge")})
+    pts = m.points.copy()
+    theta = np.deg2rad(angle_deg)
+    r = pts[:, 1].copy()
+    phi = (pts[:, 2] - 0.5) * theta
+    pts[:, 1] = r * np.cos(phi)
+    pts[:, 2] = r * np.sin(phi)
+    return PolyMesh(pts, m.face_points, m.face_offsets, m.owner,
+                    m.neighbour, m.patches)
+
+
+def reacting_box_case(case_dir: str, n: int = 16, end_time: float = 2e-3,
+                      delta_t: float = 1e-4,
+                      y_scheme: str = "Gauss upwind"):
+    """reactingFoam ignition box: a closed 2D box of premixed fuel F +
+    inert N2 with a hot kernel in the middle; one irreversible
+    Arrhenius reaction F = P releases heat (reference tutorial family:
+    combustion/reactingFoam)."""
+    from ..mesh.geometry import cell_centres_and_vols, face_centres_and_areas
+    from ..fields.io import _body_value
+
+    L = 0.1
+    mesh = box_mesh(n, n, 1, size=(L, L, L / n), patch_spec={
+        "xmin": ("walls", "wall"), "xmax": ("walls", "wall"),
+        "ymin": ("walls", "wall"), "ymax": ("walls", "wall"),
+        "zmin": ("frontAndBack", "empty"),
+        "zmax": ("frontAndBack", "empty"),
+    })
+    write_polymesh(mesh, case_dir)
+    Cf, Sf = face_centres_and_areas(mesh)
+    C, V = cell_centres_and_vols(mesh, Cf, Sf)
+    r = np.sqrt((C[:, 0] - 0.5 * L) ** 2 + (C[:, 1] - 0.5 * L) ** 2)
+    T0 = np.where(r < 0.2 * L, 1500.0, 600.0)
+
+    _write(os.path.join(case_dir, "system", "controlDict"),
+           foamfile_header("dictionary", "controlDict", "system"), f"""
+application     reactingFoam;
+startFrom       startTime;
+startTime       0;
+stopAt          endTime;
+endTime         {end_time};
+deltaT          {delta_t};
+writeControl    runTime;
+writeInterval   {end_time};
+writeFormat     ascii;
+""")
+    _write(os.path.join(case_dir, "system", "fvSchemes"),
+           foamfile_header("dictionary", "fvSchemes", "system"), f"""
+ddtSchemes      {{ default Euler; }}
+gradSchemes     {{ default Gauss linear; }}
+divSchemes
+{{
+    default         none;
+    div(phi,U)      Gauss upwind;
+    div(phi,Yi_h)   {y_scheme};
+    div(phi,K)      Gauss upwind;
+}}
+laplacianSchemes {{ default Gauss linear orthogonal; }}
+interpolationSchemes {{ default linear; }}
+snGradSchemes   {{ default orthogonal; }}
+""")
+    _write(os.path.join(case_dir, "system", "fvSolution"),
+           foamfile_header("dictionary", "fvSolution", "system"), """
+solvers
+{
+    p
+    {
+        solver          PCG;
+        preconditioner  DIC;
+        tolerance       1e-07;
+        relTol          0.01;
+    }
+    pFinal
+    {
+        solver          PCG;
+        preconditioner  DIC;
+        tolerance       1e-07;
+        relTol          0;
+    }
+    "(U|h|Yi)"
+    {
+        solver          PBiCGStab;
+        preconditioner  DILU;
+        tolerance       1e-07;
+        relTol          0;
+    }
+}
+PIMPLE
+{
+    nOuterCorrectors 1;
+    nCorrectors     2;
+    nNonOrthogonalCorrectors 0;
+    nChemistrySubSteps 2;
+}
+""")
+    _write(os.path.join(case_dir, "constant", "thermophysicalProperties"),
+           foamfile_header("dictionary", "thermophysicalProperties",
+                           "constant"), """
+thermoType
+{
+    type            hePsiThermo;
+    mixture         multiComponentMixture;
+    transport       const;
+    thermo          hConst;
+    energy          sensibleEnthalpy;
+    equationOfState perfectGas;
+    specie          specie;
+}
+
+inertSpecie     N2;
+
+species         ( F P N2 );
+
+F
+{
+    specie          { molWeight 16; }
+    thermodynamics  { Cp 2200; Hf 5e7; }
+    transport       { mu 1.8e-05; Pr 0.7; }
+}
+P
+{
+    specie          { molWeight 16; }
+    thermodynamics  { Cp 2200; Hf 0; }
+    transport       { mu 1.8e-05; Pr 0.7; }
+}
+N2
+{
+    specie          { molWeight 28; }
+    thermodynamics  { Cp 1040; Hf 0; }
+    transport       { mu 1.8e-05; Pr 0.7; }
+}
+
+reactions
+{
+    fuelReaction
+    {
+        type            irreversibleArrheniusReaction;
+        reaction        "F = P";
+        A               5e6;
+        beta            0;
+        Ta              10000;
+    }
+}
+""")
+    wall_zg = "        type            zeroGradient;\n"
+    wall_empty = "        type            empty;\n"
+    write_field(case_dir, "0", "p", "volScalarField", "[1 -1 -2 0 0 0 0]",
+                "uniform 1e5",
+                {"walls": wall_zg, "frontAndBack": wall_empty})
+    write_field(case_dir, "0", "T", "volScalarField", "[0 0 0 1 0 0 0]",
+                _body_value(T0),
+                {"walls": wall_zg, "frontAndBack": wall_empty})
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                "uniform (0 0 0)",
+                {"walls": "        type            fixedValue;\n"
+                          "        value           uniform (0 0 0);\n",
+                 "frontAndBack": wall_empty})
+    for name, val in (("F", 0.1), ("P", 0.0), ("N2", 0.9)):
+        write_field(case_dir, "0", name, "volScalarField",
+                    "[0 0 0 0 0 0 0]", f"uniform {val}",
+                    {"walls": wall_zg, "frontAndBack": wall_empty})
+    _write(os.path.join(case_dir, "constant", "transportProperties"),
+           foamfile_header("dictionary", "transportProperties",
+                           "constant"), "\n")
+
+
+def merge_disjoint_meshes(m1: PolyMesh, m2: PolyMesh) -> PolyMesh:
+    """Concatenate two meshes into one (no topological connection —
+    interfaces between them are coupled via cyclicAMI patch pairs).
+    Same-named patches merge; patch metadata comes from whichever mesh
+    defines the name first."""
+    np1, nc1 = len(m1.points), m1.n_cells
+    pts = np.concatenate([m1.points, m2.points])
+
+    def faces_of(m):
+        return [m.face_points[m.face_offsets[i]:m.face_offsets[i + 1]]
+                for i in range(m.n_faces)]
+    f1, f2 = faces_of(m1), faces_of(m2)
+    int_faces = f1[:m1.n_internal_faces] \
+        + [f + np1 for f in f2[:m2.n_internal_faces]]
+    owners = list(m1.owner[:m1.n_internal_faces]) \
+        + list(m2.owner[:m2.n_internal_faces] + nc1)
+    neighbours = list(m1.neighbour) + list(m2.neighbour + nc1)
+
+    groups: dict[str, tuple[str, object, list]] = {}
+    for m, poff, coff in ((m1, 0, 0), (m2, np1, nc1)):
+        fs = faces_of(m)
+        for p in m.patches:
+            g = groups.setdefault(p.name, (p.type, p.extra, []))
+            for k in range(p.n_faces):
+                f = p.start_face + k
+                g[2].append((fs[f] + poff, int(m.owner[f]) + coff))
+
+    all_faces = list(int_faces)
+    patches = []
+    for name, (typ, extra, lst) in groups.items():
+        start = len(all_faces)
+        for fpts, own in lst:
+            all_faces.append(fpts)
+            owners.append(own)
+        patches.append(BoundaryPatch(name, typ, start, len(lst), extra))
+
+    flat = np.concatenate(all_faces)
+    offsets = np.zeros(len(all_faces) + 1, dtype=np.int64)
+    np.cumsum([len(f) for f in all_faces], out=offsets[1:])
+    return PolyMesh(pts, flat, offsets, np.asarray(owners, np.int64),
+                    np.asarray(neighbours, np.int64), patches)
+
+
+def ami_channel_case(case_dir: str, ny1: int = 8, ny2: int = 12,
+                     nx: int = 6, end_time: float = 0.5,
+                     delta_t: float = 0.01, t_left: float = 400.0,
+                     t_right: float = 300.0):
+    """laplacianFoam conduction across a NON-CONFORMING cyclicAMI
+    interface: two blocks of different y-resolution joined at x=0.5.
+    The steady solution is linear in x, so any interface error shows
+    directly (reference test analog: AMI tutorials)."""
+    from ..utils.dictionary import Dictionary as _D
+    L, H = 1.0, 0.2
+    mk = lambda name: _D()
+    e1 = _D()
+    e1["neighbourPatch"] = "ami2"
+    e2 = _D()
+    e2["neighbourPatch"] = "ami1"
+    m1 = box_mesh(nx, ny1, 1, size=(L / 2, H, 0.05), patch_spec={
+        "xmin": ("left", "patch"), "xmax": ("ami1", "cyclicAMI"),
+        "ymin": ("walls", "wall"), "ymax": ("walls", "wall"),
+        "zmin": ("fb", "empty"), "zmax": ("fb", "empty")})
+    m2 = box_mesh(nx, ny2, 1, size=(L / 2, H, 0.05),
+                  origin=(L / 2, 0, 0), patch_spec={
+        "xmin": ("ami2", "cyclicAMI"), "xmax": ("right", "patch"),
+        "ymin": ("walls", "wall"), "ymax": ("walls", "wall"),
+        "zmin": ("fb", "empty"), "zmax": ("fb", "empty")})
+    for m, nbr in ((m1, "ami2"), (m2, "ami1")):
+        for p in m.patches:
+            if p.type == "cyclicAMI":
+                p.extra["neighbourPatch"] = nbr
+                p.extra["transform"] = "none"
+    mesh = merge_disjoint_meshes(m1, m2)
+    write_polymesh(mesh, case_dir)
+
+    _write(os.path.join(case_dir, "system", "controlDict"),
+           foamfile_header("dictionary", "controlDict", "system"), f"""
+application     laplacianFoam;
+startFrom       startTime;
+startTime       0;
+stopAt          endTime;
+endTime         {end_time};
+deltaT          {delta_t};
+writeControl    runTime;
+writeInterval   {end_time};
+writeFormat     ascii;
+""")
+    _write(os.path.join(case_dir, "system", "fvSchemes"),
+           foamfile_header("dictionary", "fvSchemes", "system"), """
+ddtSchemes      { default Euler; }
+gradSchemes     { default Gauss linear; }
+divSchemes      { default none; }
+laplacianSchemes { default Gauss linear orthogonal; }
+interpolationSchemes { default linear; }
+snGradSchemes   { default orthogonal; }
+""")
+    _write(os.path.join(case_dir, "system", "fvSolution"),
+           foamfile_header("dictionary", "fvSolution", "system"), """
+solvers
+{
+    T
+    {
+        solver          PCG;
+        preconditioner  DIC;
+        tolerance       1e-09;
+        relTol          0;
+    }
+}
+SIMPLE { nNonOrthogonalCorrectors 0; }
+""")
+    _write(os.path.join(case_dir, "constant", "transportProperties"),
+           foamfile_header("dictionary", "transportProperties",
+                           "constant"), """
+DT              DT [0 2 -1 0 0 0 0] 0.05;
+""")
+    write_field(case_dir, "0", "T", "volScalarField", "[0 0 0 1 0 0 0]",
+                f"uniform {t_right}",
+                {"left": "        type            fixedValue;\n"
+                         f"        value           uniform {t_left};\n",
+                 "right": "        type            fixedValue;\n"
+                          f"        value           uniform {t_right};\n",
+                 "walls": "        type            zeroGradient;\n",
+                 "fb": "        type            empty;\n",
+                 '"(ami1|ami2)"': "        type            cyclicAMI;\n"})
+
+
+def duplicate_patch(mesh: PolyMesh, name: str, new_name: str,
+                    new_type: str) -> PolyMesh:
+    """Append a patch duplicating `name`'s faces (same polygons, same
+    owners) — the createBaffles couple/blockage construction the
+    reference's cyclicACMI cases use (each interface face exists twice:
+    once on the coupled patch, once on the non-overlap wall; mesh-build
+    area scaling makes the pair sum to one physical face)."""
+    src = next(p for p in mesh.patches if p.name == name)
+    fp = [mesh.face_points[mesh.face_offsets[f]:mesh.face_offsets[f + 1]]
+          for f in range(src.start_face, src.start_face + src.n_faces)]
+    add_pts = np.concatenate(fp) if fp else np.zeros(0, np.int64)
+    add_off = np.cumsum([len(f) for f in fp])
+    nf0 = mesh.n_faces
+    face_points = np.concatenate([mesh.face_points, add_pts])
+    offsets = np.concatenate([mesh.face_offsets,
+                              mesh.face_offsets[-1] + add_off])
+    owner = np.concatenate([
+        mesh.owner,
+        mesh.owner[src.start_face:src.start_face + src.n_faces]])
+    patches = list(mesh.patches) + [
+        BoundaryPatch(new_name, new_type, nf0, src.n_faces)]
+    return PolyMesh(mesh.points, face_points, offsets, owner,
+                    mesh.neighbour, patches)
+
+
+def acmi_channel_case(case_dir: str, ny: int = 8, nx: int = 6,
+                      shift_frac: float = 0.5, end_time: float = 0.5,
+                      delta_t: float = 0.01, t_left: float = 400.0,
+                      t_right: float = 300.0):
+    """laplacianFoam conduction across a PARTIALLY-overlapping
+    cyclicACMI interface (reference: cyclicACMIPolyPatch + tutorial
+    oscillatingInletACMI2D topology): two blocks joined at x=0.5, the
+    right block shifted +y by shift_frac*H so only (1-shift_frac) of
+    the interface couples; each side's interface faces are duplicated
+    into a couple patch (cyclicACMI) and a non-overlap blockage wall.
+    shift_frac=0 reduces to a conforming AMI (mask ~ 1); shift_frac>=1
+    isolates the blocks (mask ~ tol)."""
+    L, H = 1.0, 0.2
+    yshift = shift_frac * H
+    m1 = box_mesh(nx, ny, 1, size=(L / 2, H, 0.05), patch_spec={
+        "xmin": ("left", "patch"), "xmax": ("ACMI1_couple", "cyclicACMI"),
+        "ymin": ("walls", "wall"), "ymax": ("walls", "wall"),
+        "zmin": ("fb", "empty"), "zmax": ("fb", "empty")})
+    m2 = box_mesh(nx, ny, 1, size=(L / 2, H, 0.05),
+                  origin=(L / 2, yshift, 0), patch_spec={
+        "xmin": ("ACMI2_couple", "cyclicACMI"), "xmax": ("right", "patch"),
+        "ymin": ("walls", "wall"), "ymax": ("walls", "wall"),
+        "zmin": ("fb", "empty"), "zmax": ("fb", "empty")})
+    m1 = duplicate_patch(m1, "ACMI1_couple", "ACMI1_blockage", "wall")
+    m2 = duplicate_patch(m2, "ACMI2_couple", "ACMI2_blockage", "wall")
+    for m, me, nbr, no in ((m1, "ACMI1_couple", "ACMI2_couple",
+                            "ACMI1_blockage"),
+                           (m2, "ACMI2_couple", "ACMI1_couple",
+                            "ACMI2_blockage")):
+        for p in m.patches:
+            if p.name == me:
+                p.extra["neighbourPatch"] = nbr
+                p.extra["nonOverlapPatch"] = no
+                p.extra["transform"] = "none"
+    mesh = merge_disjoint_meshes(m1, m2)
+    write_polymesh(mesh, case_dir)
+
+    _write(os.path.join(case_dir, "system", "controlDict"),
+           foamfile_header("dictionary", "controlDict", "system"), f"""
+application     laplacianFoam;
+startFrom       startTime;
+startTime       0;
+stopAt          endTime;
+endTime         {end_time};
+deltaT          {delta_t};
+writeControl    runTime;
+writeInterval   {end_time};
+writeFormat     ascii;
+""")
+    _write(os.path.join(case_dir, "system", "fvSchemes"),
+           foamfile_header("dictionary", "fvSchemes", "system"), """
+ddtSchemes      { default Euler; }
+gradSchemes     { default Gauss linear; }
+divSchemes      { default none; }
+laplacianSchemes { default Gauss linear orthogonal; }
+interpolationSchemes { default linear; }
+snGradSchemes   { default orthogonal; }
+""")
+    _write(os.path.join(case_dir, "system", "fvSolution"),
+           foamfile_header("dictionary", "fvSolution", "system"), """
+solvers
+{
+    T
+    {
+        solver          PCG;
+        preconditioner  DIC;
+        tolerance       1e-09;
+        relTol          0;
+    }
+}
+SIMPLE { nNonOrthogonalCorrectors 0; }
+""")
+    _write(os.path.join(case_dir, "constant", "transportProperties"),
+           foamfile_header("dictionary", "transportProperties",
+                           "constant"), """
+DT              DT [0 2 -1 0 0 0 0] 0.05;
+""")
+    write_field(case_dir, "0", "T", "volScalarField", "[0 0 0 1 0 0 0]",
+                f"uniform {t_right}",
+                {"left": "        type            fixedValue;\n"
+                         f"        value           uniform {t_left};\n",
+                 "right": "        type            fixedValue;\n"
+                          f"        value           uniform {t_right};\n",
+                 "walls": "        type            zeroGradient;\n",
+                 "fb": "        type            empty;\n",
+                 '"ACMI.*_blockage"':
+                     "        type            zeroGradient;\n",
+                 '"ACMI.*_couple"':
+                     "        type            cyclicACMI;\n"})
+
+
+def fluidized_bed_case(case_dir: str, nx: int = 15, ny: int = 45,
+                       end_time: float = 0.02, delta_t: float = 5e-4,
+                       u_gas: float = 0.3, alpha_pack: float = 0.55,
+                       equilibrium: str = "on",
+                       drag: str = "GidaspowErgunWenYu"):
+    """twoPhaseEulerFoam gas-solid fluidized bed with kinetic theory on
+    the particle phase (reference tutorial: multiphase/
+    twoPhaseEulerFoam/fluidisedBed — Gidaspow drag, kineticTheory
+    RASModel with JohnsonJackson frictional stress). Air blows upward
+    through a packed particle bed occupying the lower third."""
+    from ..mesh.geometry import cell_centres_and_vols, face_centres_and_areas
+    from ..fields.io import _body_value
+
+    W, H = 0.15, 0.7
+    mesh = box_mesh(nx, ny, 1, size=(W, H, 0.01), patch_spec={
+        "xmin": ("walls", "wall"), "xmax": ("walls", "wall"),
+        "ymin": ("inlet", "patch"), "ymax": ("outlet", "patch"),
+        "zmin": ("frontAndBack", "empty"),
+        "zmax": ("frontAndBack", "empty"),
+    })
+    write_polymesh(mesh, case_dir)
+    Cf, Sf = face_centres_and_areas(mesh)
+    C, V = cell_centres_and_vols(mesh, Cf, Sf)
+    alpha0 = np.where(C[:, 1] < 0.28 * H, alpha_pack, 0.0)
+    # hydrostatic initial p (mixture column weight): starting from
+    # uniform p slams the packed bed with a ~kPa pressure shock that
+    # fixed-dt runs cannot survive (the reference tutorial relies on
+    # adjustable maxCo during the same transient)
+    rho_mix = alpha0 * 2500.0 + (1.0 - alpha0) * 1.2
+    y = C[:, 1]
+    order = np.argsort(-y)
+    p0 = np.full(C.shape[0], 1e5)
+    # integrate downward column weight per x-column
+    xcol = np.floor(C[:, 0] / (W / nx)).astype(int)
+    dy = H / ny
+    for col in np.unique(xcol):
+        sel = np.nonzero(xcol == col)[0]
+        s = sel[np.argsort(-y[sel])]
+        p0[s] = 1e5 + 9.81 * np.cumsum(rho_mix[s] * dy) \
+            - 0.5 * 9.81 * rho_mix[s] * dy
+
+    _write(os.path.join(case_dir, "system", "controlDict"),
+           foamfile_header("dictionary", "controlDict", "system"), f"""
+application     twoPhaseEulerFoam;
+startFrom       startTime;
+startTime       0;
+stopAt          endTime;
+endTime         {end_time};
+deltaT          {delta_t};
+writeControl    runTime;
+writeInterval   {end_time};
+writeFormat     ascii;
+adjustTimeStep  no;
+maxCo           0.5;
+""")
+    _write(os.path.join(case_dir, "system", "fvSchemes"),
+           foamfile_header("dictionary", "fvSchemes", "system"), """
+ddtSchemes      { default Euler; }
+gradSchemes     { default Gauss linear; }
+divSchemes      { default Gauss upwind;
+                  div(phi,alpha.particles) Gauss vanLeer; }
+laplacianSchemes { default Gauss linear orthogonal; }
+interpolationSchemes { default linear; }
+snGradSchemes   { default orthogonal; }
+""")
+    _write(os.path.join(case_dir, "system", "fvSolution"),
+           foamfile_header("dictionary", "fvSolution", "system"), """
+solvers
+{
+    "alpha.particles.*" { nAlphaSubCycles 2; nAlphaCorr 1; }
+    p
+    {
+        solver          PCG;
+        preconditioner  DIC;
+        tolerance       1e-08;
+        relTol          0.01;
+    }
+    pFinal
+    {
+        solver          PCG;
+        preconditioner  DIC;
+        tolerance       1e-08;
+        relTol          0;
+    }
+    T
+    {
+        solver          PBiCGStab;
+        preconditioner  DILU;
+        tolerance       1e-08;
+        relTol          0;
+    }
+}
+PIMPLE
+{
+    nOuterCorrectors 2;
+    nCorrectors      2;
+    nNonOrthogonalCorrectors 0;
+}
+""")
+    _write(os.path.join(case_dir, "constant", "phaseProperties"),
+           foamfile_header("dictionary", "phaseProperties",
+                           "constant"), f"""
+phases          (particles air);
+
+particles
+{{
+    diameterModel   constant;
+    constantCoeffs  {{ d  d [0 1 0 0 0 0 0] 3e-4; }}
+    alphaMax        0.62;
+    residualAlpha   1e-6;
+}}
+air
+{{
+    diameterModel   constant;
+    constantCoeffs  {{ d  d [0 1 0 0 0 0 0] 1; }}
+    residualAlpha   0;
+}}
+
+drag            {{ type {drag}; }}
+virtualMass     {{ type none; }}
+heatTransfer    {{ type RanzMarshall; }}
+lift            {{ type none; }}
+turbulentDispersion {{ type none; }}
+wallLubrication {{ type none; }}
+sigma           sigma [1 0 -2 0 0 0 0] 0;
+pMin            pMin [1 -1 -2 0 0 0 0] 10000;
+""")
+    _write(os.path.join(case_dir, "constant",
+                        "turbulenceProperties.particles"),
+           foamfile_header("dictionary",
+                           "turbulenceProperties.particles",
+                           "constant"), f"""
+simulationType  RAS;
+RAS
+{{
+    RASModel        kineticTheory;
+    turbulence      on;
+    printCoeffs     on;
+
+    kineticTheoryCoeffs
+    {{
+        equilibrium             {equilibrium};
+        e                       0.8;
+        alphaMax                0.62;
+        alphaMinFriction        0.5;
+        residualAlpha           1e-4;
+        viscosityModel          Gidaspow;
+        conductivityModel       Gidaspow;
+        granularPressureModel   Lun;
+        frictionalStressModel   JohnsonJackson;
+        radialModel             SinclairJackson;
+
+        JohnsonJacksonCoeffs
+        {{
+            Fr                      0.05;
+            eta                     2;
+            p                       5;
+            phi                     28.5;
+        }}
+    }}
+}}
+""")
+    _write(os.path.join(case_dir, "constant",
+                        "turbulenceProperties.air"),
+           foamfile_header("dictionary", "turbulenceProperties.air",
+                           "constant"), """
+simulationType  laminar;
+""")
+    _write(os.path.join(case_dir, "constant",
+                        "thermophysicalProperties.air"),
+           foamfile_header("dictionary",
+                           "thermophysicalProperties.air",
+                           "constant"), """
+thermoType
+{
+    type            hePsiThermo;
+    mixture         pureMixture;
+    transport       const;
+    thermo          hConst;
+    equationOfState perfectGas;
+    specie          specie;
+    energy          sensibleInternalEnergy;
+}
+mixture
+{
+    specie          { nMoles 1; molWeight 28.9; }
+    thermodynamics  { Cp 1007; Hf 0; }
+    transport       { mu 1.84e-5; Pr 0.7; }
+}
+""")
+    _write(os.path.join(case_dir, "constant",
+                        "thermophysicalProperties.particles"),
+           foamfile_header("dictionary",
+                           "thermophysicalProperties.particles",
+                           "constant"), """
+thermoType
+{
+    type            heRhoThermo;
+    mixture         pureMixture;
+    transport       const;
+    thermo          hConst;
+    equationOfState perfectFluid;
+    specie          specie;
+    energy          sensibleInternalEnergy;
+}
+mixture
+{
+    specie          { nMoles 1; molWeight 100; }
+    equationOfState { R 1e10; rho0 2500; }
+    thermodynamics  { Cp 800; Hf 0; }
+    transport       { mu 0; Pr 1; }
+}
+""")
+    _write(os.path.join(case_dir, "constant", "g"),
+           foamfile_header("uniformDimensionedVectorField", "g",
+                           "constant"),
+           "\ndimensions      [0 1 -2 0 0 0 0];\n"
+           "value           (0 -9.81 0);\n")
+
+    zg = "        type            zeroGradient;\n"
+    emp = "        type            empty;\n"
+    noslip = ("        type            fixedValue;\n"
+              "        value           uniform (0 0 0);\n")
+    io0 = ("        type            inletOutlet;\n"
+           "        inletValue      uniform 0;\n"
+           "        value           uniform 0;\n")
+    write_field(case_dir, "0", "alpha.particles", "volScalarField",
+                "[0 0 0 0 0 0 0]", _body_value(alpha0),
+                {"inlet": ("        type            fixedValue;\n"
+                           "        value           uniform 0;\n"),
+                 "outlet": io0, "walls": zg, "frontAndBack": emp})
+    ffp = ("        type            fixedFluxPressure;\n"
+           "        value           uniform 1e5;\n")
+    write_field(case_dir, "0", "p", "volScalarField",
+                "[1 -1 -2 0 0 0 0]", _body_value(p0),
+                {"inlet": ffp,
+                 "outlet": ("        type            fixedValue;\n"
+                            "        value           uniform 1e5;\n"),
+                 "walls": ffp, "frontAndBack": emp})
+    for name in ("T.particles", "T.air"):
+        write_field(case_dir, "0", name, "volScalarField",
+                    "[0 0 0 1 0 0 0]", "uniform 300",
+                    {"inlet": zg, "outlet": zg, "walls": zg,
+                     "frontAndBack": emp})
+    write_field(case_dir, "0", "U.air", "volVectorField",
+                "[0 1 -1 0 0 0 0]", "uniform (0 0 0)",
+                {"inlet": (f"        type            fixedValue;\n"
+                           f"        value           uniform "
+                           f"(0 {u_gas} 0);\n"),
+                 "outlet": ("        type            inletOutlet;\n"
+                            "        inletValue      uniform (0 0 0);\n"
+                            "        value           uniform (0 0 0);\n"),
+                 "walls": noslip, "frontAndBack": emp})
+    write_field(case_dir, "0", "U.particles", "volVectorField",
+                "[0 1 -1 0 0 0 0]", "uniform (0 0 0)",
+                {"inlet": noslip,
+                 "outlet": ("        type            inletOutlet;\n"
+                            "        inletValue      uniform (0 0 0);\n"
+                            "        value           uniform (0 0 0);\n"),
+                 "walls": noslip, "frontAndBack": emp})
+    return mesh

@@ -112,13 +112,17 @@ def test_port_runs_without_jax(tmp_path):
     the gdia lattice), one of the polyhedral channel (kOmegaSST, the
     corrected laplacian, the merged-cell 3-D gdia lattice) and two
     pimpleFoam steps of the small T-junction (kEpsilon, the open-boundary
-    conditions, adaptive dt), on the CPU pulls no jax module and no module
-    of the JAX package into the process."""
+    conditions, adaptive dt), two sonicFoam steps of the forward step
+    (gdia, the limited schemes, slip) and two rhoSimpleFoam iterations of
+    the heated channel (ELL, GAMG p in deviation form), on the CPU pulls
+    no jax module and no module of the JAX package into the process."""
     d = str(tmp_path / "case")
     c = str(tmp_path / "cavity")
     s = str(tmp_path / "simple")
     ch = str(tmp_path / "channel")
     tj = str(tmp_path / "tjunction")
+    fs = str(tmp_path / "forward_step")
+    hc = str(tmp_path / "hot_channel")
     script = f"""
 import sys
 
@@ -163,6 +167,21 @@ case, U, p, phi, ts = pimplefoam.run({tj!r}, device=torch.device("cpu"),
                                      max_steps=2)
 assert case.mesh.gdia is not None and len(case.step_log) == 2
 assert all(torch.isfinite(f.data).all() for f in [U, p, *ts.values()])
+from rapidcfd_tpu_torch.solvers import rhosimplefoam, sonicfoam
+from rapidcfd_tpu_torch.utils.casegen import (forward_step_case,
+                                              hot_channel_case)
+forward_step_case({fs!r})
+case, U, p, T, rho, phi = sonicfoam.run({fs!r}, device=torch.device("cpu"),
+                                        dtype=torch.float32, write=False,
+                                        max_steps=2)
+assert case.mesh.gdia is not None and len(case.step_log) == 2
+assert all(torch.isfinite(f.data).all() for f in [U, p, T, rho])
+hot_channel_case({hc!r})
+case, U, p, T, rho, phi = rhosimplefoam.run(
+    {hc!r}, device=torch.device("cpu"), dtype=torch.float32, write=False,
+    max_steps=2)
+assert case.mesh.gdia is None and len(case.step_log) == 2
+assert all(torch.isfinite(f.data).all() for f in [U, p, T, rho])
 print("NEW_FOREIGN_MODULES", sorted(foreign() - before))
 print("JAX_LEFT_OUT", not before and "jax" not in sys.modules)
 print("JAX_PRELOADED", bool(before))
