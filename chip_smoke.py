@@ -119,15 +119,42 @@ Phases (any failure raises and the script exits non-zero):
    timed the same way, then one profiled iteration; fields finite, T
    within the inlet's and the walls' temperatures, rho and p near air's at
    1e5 Pa, no shift-MAC launch;
-20. a JSON line of kernel results (the kernel's four forms, its two K = 7
+20. rhoPimpleFoam, rhoPimplecFoam and rhoLTSPimpleFoam on the 50x10
+   heated channel (transient, PCG p) and rhoSimplecFoam on its steady
+   form, fp64, 5 steps each on cuda and on cpu: fields within 1e-10
+   relative with equal iteration counts; viscous rhoCentralFoam on the
+   forward step at scale 1 (gdia, both K = 5 forms: 14 C = 3 and 9 C = 1
+   launches per step, checked): within RC_SPREAD_X1 with the kernel and
+   1e-12 with its plain version, equal counts; and inviscid rhoCentralFoam
+   on the full-size forward step in fp64 on the card for 3 steps, Courant
+   max and max Mach within RC_RTOL_FP64 of the JAX package's fp64
+   readings (RC_REFERENCE);
+21. the main path of rhoCentralFoam: the forward step at scale 16
+   (206,592 cells on 245,760 lattice slots, gdia, K = 5, inviscid, dt
+   1.25e-4) in fp32 from the uniform Mach-3 state, timed as phase 18, then
+   one profiled step; fields finite, p and T positive, the inflow at p = 1
+   and Ux = 3 (the JAX test's tolerances), K = 5, C = 3 launched 7 times at
+   every step and C = 1 never (the count per step printed), steps 1-3
+   within RC_RTOL of RC_REFERENCE, U, p and T after step 3 within
+   RC_FIELD_RTOL of phase 20's fp64 run (as a share of what its steps
+   changed); ms/step, live-cell updates/s, set-up by
+   stage, peak memory, the profiled step's launches, busy share, top
+   kernels and shift-MAC kernels;
+22. the main path of rhoPimpleFoam: the heated channel at 1024x256
+   (262,144 cells, ELL, GAMG p, laminar, p in deviation form, dt
+   9.765625e-6) in fp32, timed the same way, then one profiled step;
+   fields finite, T within the inlet's and the walls' temperatures, rho
+   and p near air's at 1e5 Pa, no shift-MAC launch;
+23. a JSON line of kernel results (the kernel's four forms, its two K = 7
    forms on the T-junction's planes and its K = 5, C = 3 form on the
    forward step's planes: cold times of the kernel, the baseline, the
    plain version and cuSPARSE as `ms`, `baseline_ms`, `plain_ms` and
    `library_ms`, held against `bound_ms`, and their warm times as
    `*warm_ms`, with their launches on their main path — simpleFoam
    pitzDaily x5 for K = 5, the channel for K = 7, the T-junction and the
-   forward step for their planes — and on each path), the card's name
-   and power limit, and the result line {"ok": true, "device": {...}}
+   forward step (sonicFoam) for their planes — and on each path,
+   rhoCentralFoam's and rhoPimpleFoam's included), the card's name and
+   power limit, and the result line {"ok": true, "device": {...}}
    last.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -1465,6 +1492,8 @@ FSTEP_CELLS = 206592
 FSTEP_OFFSETS = (-960, -1, 0, 1, 960)
 HOT = dict(nx=1024, ny=256)
 HOT_CELLS = 1024 * 256
+# rhoPimpleFoam's dt there (transient_hot_channel_case's 0.0002 * 50/nx)
+HOT_DT = 0.0002 * 50 / HOT["nx"]
 # bench_compressible.py's timing: one call, 3 warm-up steps, 3 windows of 30
 BENCH_WARMUP, BENCH_WINDOWS, BENCH_STEPS = 3, 3, 30
 # the JAX package's readings of the first 3 steps of the full-size forward
@@ -1569,28 +1598,40 @@ def _plain_shift_mac():
 
 
 def _compressible_run(solver: str, d: str, dev: str, dtype, steps: int):
-    from rapidcfd_tpu_torch.solvers import rhosimplefoam, sonicfoam
+    """solver's run on a case directory: (case, {field name: field}) with
+    p absolute."""
+    from rapidcfd_tpu_torch.solvers import (rhocentralfoam, rhopimplefoam,
+                                            rhosimplefoam, sonicfoam)
     from rapidcfd_tpu_torch.utils.logging import captured
-    mod = sonicfoam if solver == "sonicFoam" else rhosimplefoam
+    mod, kw = {
+        "sonicFoam": (sonicfoam, {}),
+        "rhoSimpleFoam": (rhosimplefoam, {}),
+        "rhoSimplecFoam": (rhosimplefoam, dict(consistent=True)),
+        "rhoPimpleFoam": (rhopimplefoam, {}),
+        "rhoPimplecFoam": (rhopimplefoam, dict(consistent=True)),
+        "rhoLTSPimpleFoam": (rhopimplefoam, dict(lts=True)),
+        "rhoCentralFoam": (rhocentralfoam, {})}[solver]
     with captured():
-        case, U, p, T, rho, phi = mod.run(d, device=torch.device(dev),
-                                          dtype=dtype, write=False,
-                                          max_steps=steps)
-    return case, dict(U=U, p=p, T=T, rho=rho, phi=phi)
+        case, *fields = mod.run(d, device=torch.device(dev), dtype=dtype,
+                                write=False, max_steps=steps, **kw)
+    names = ("U", "p", "T", "phi") if solver == "rhoCentralFoam" \
+        else ("U", "p", "T", "rho", "phi")
+    return case, dict(zip(names, fields))
 
 
 def _compressible_errs(a, b):
-    """Relative max|d| per field of two compressible runs (file order; phi
-    in file orientation)."""
+    """Relative max|d| per field of two compressible runs (cells in file
+    order; phi in file orientation)."""
     (ca, fa), (cb, fb) = a, b
     maps = cb.maps
-    errs = {name: _rel(maps.cells_to_file(fa[name].data.cpu().numpy()),
-                       maps.cells_to_file(fb[name].data.cpu().numpy()))
-            for name in ("U", "p", "T", "rho")}
-    errs["phi"] = _rel(maps.faces_to_file(fa["phi"].data.cpu().numpy(),
-                                          flux=True),
-                       maps.faces_to_file(fb["phi"].data.cpu().numpy(),
-                                          flux=True))
+    errs = {}
+    for name in fa:
+        x, y = (f[name].data.double().cpu().numpy() for f in (fa, fb))
+        if name == "phi":
+            errs[name] = _rel(maps.faces_to_file(x, flux=True),
+                              maps.faces_to_file(y, flux=True))
+        else:
+            errs[name] = _rel(maps.cells_to_file(x), maps.cells_to_file(y))
     return errs
 
 
@@ -1819,49 +1860,64 @@ def phase_sonic_main(tmp: str, smi: str) -> dict:
     return launches
 
 
-def phase_rho_main(tmp: str, smi: str) -> dict:
-    """The main path of rhoSimpleFoam: the heated channel at 1024x256
-    (262,144 cells, padded ELL, GAMG p, laminar, p in deviation form) in
-    fp32, timed as bench_compressible.py times it, then one profiled
-    iteration. No shift-MAC launch (ELL). Returns the launches by (K, C)
-    over the timed drive (none)."""
-    from rapidcfd_tpu_torch.solvers import rhosimplefoam
+def _channel_main(tag: str, tmp: str, smi: str, transient: bool) -> dict:
+    """A main path on the heated channel at HOT's size (262,144 cells,
+    padded ELL, GAMG p, laminar, p in deviation form) in fp32:
+    rhoSimpleFoam on hot_channel_case, or rhoPimpleFoam (transient) on
+    transient_hot_channel_case at HOT_DT; timed as bench_compressible.py
+    times it, then one profiled step. Fields finite, T within the inlet's
+    and the walls' temperatures, rho and p near air's at 1e5 Pa, no
+    shift-MAC launch. Returns the launches by (K, C) over the timed drive
+    (none)."""
+    from rapidcfd_tpu_torch.solvers import rhopimplefoam, rhosimplefoam
     from rapidcfd_tpu_torch.solvers.case import Case
-    from rapidcfd_tpu_torch.utils.casegen import hot_channel_case
+    from rapidcfd_tpu_torch.utils.casegen import (hot_channel_case,
+                                                  transient_hot_channel_case)
     from rapidcfd_tpu_torch.utils.logging import captured
-    tag = "[19] rhoSimpleFoam heated channel 1024x256 (laminar)"
+    mod = rhopimplefoam if transient else rhosimplefoam
+    unit = "step" if transient else "iteration"
     torch.cuda.reset_peak_memory_stats()
     with captured():
         t0 = time.perf_counter()
-        pm = hot_channel_case(f"{tmp}/hot", end_time=10 ** 9,
-                              write_mesh=False, **HOT)
+        if transient:
+            pm = transient_hot_channel_case(f"{tmp}/hot_t", end_time=1e9,
+                                            p_solver="GAMG",
+                                            write_mesh=False, **HOT)
+        else:
+            pm = hot_channel_case(f"{tmp}/hot", end_time=10 ** 9,
+                                  write_mesh=False, **HOT)
         t_gen = time.perf_counter() - t0
         t0 = time.perf_counter()
-        case = Case(f"{tmp}/hot", device=torch.device("cuda"),
-                    dtype=torch.float32, pmesh=pm)
+        case = Case(f"{tmp}/hot_t" if transient else f"{tmp}/hot",
+                    device=torch.device("cuda"), dtype=torch.float32,
+                    pmesh=pm)
         t_case = time.perf_counter() - t0
         t0 = time.perf_counter()
-        _, state, step, p_offset = rhosimplefoam.setup(case)
+        _, state, step, p_offset = mod.setup(case)
         torch.cuda.synchronize()
         t_setup = time.perf_counter() - t0
     mesh = case.mesh
     check(mesh.gdia is None and mesh.n_cells == HOT_CELLS,
           f"{tag}: expected {HOT_CELLS} cells on the ELL path")
     check(p_offset == 1e5, f"{tag}: p not in deviation form ({p_offset})")
-    print(f"{tag} fp32: {mesh.n_cells} cells (ELL K={mesh.K}), p_offset "
-          f"{p_offset:g}; set-up by stage: generate {t_gen:.2f} s, "
+    print(f"{tag} fp32{f' (dt {HOT_DT!r})' if transient else ''}: "
+          f"{mesh.n_cells} cells (ELL K={mesh.K}), p_offset {p_offset:g}; "
+          f"set-up by stage: generate {t_gen:.2f} s, "
           + ", ".join(f"{k} {v:.2f} s" for k, v in case.setup_seconds.items())
           + f", case total {t_case:.2f} s, fields, models and step "
           f"{t_setup:.2f} s; GAMG cells per level {_gamg_sizes(case)}")
 
+    def timed_step(*s):
+        return step(*s, HOT_DT) if transient else step(*s)
+
     def readings_of(new, st, before):
-        return dict(cont=float(st["cont"][0]),
-                    its=rhosimplefoam.iteration_counts(st))
+        return dict(co=float(st["co"][1]) if transient else None,
+                    cont=float(st["cont"][0]), its=mod.iteration_counts(st))
     with captured():
         state, records, t_first, windows, per_step = _bench_drive(
-            step, state, readings_of, 4)
+            timed_step, state, readings_of, 4)
         state, st, n_kernels, busy, t_prof, mac, top = _profiled_iteration(
-            step, state)
+            timed_step, state)
     U, p, T, rho, phi, ts = state
     for f in (U, p, T, rho, phi):
         check(bool(torch.isfinite(f.data).all()), f"{tag}: {f.name} not "
@@ -1871,7 +1927,7 @@ def phase_rho_main(tmp: str, smi: str) -> dict:
     t_lo, t_hi = float(T.data.min()), float(T.data.max())
     r_lo, r_hi = float(rho.data.min()), float(rho.data.max())
     p_lo, p_hi = (float(x) + p_offset for x in (p.data.min(), p.data.max()))
-    print(f"{tag} after {len(per_step) + 1} iterations: T {t_lo:.4f}-"
+    print(f"{tag} after {len(per_step) + 1} {unit}s: T {t_lo:.4f}-"
           f"{t_hi:.4f} K, rho {r_lo:.5f}-{r_hi:.5f} kg/m^3, p "
           f"{p_lo:.2f}-{p_hi:.2f} Pa, |U| max "
           f"{float(U.data.norm(dim=-1).max()):.4f} m/s")
@@ -1883,7 +1939,8 @@ def phase_rho_main(tmp: str, smi: str) -> dict:
           f"{tag}: state out of bounds: T {t_lo}-{t_hi}, rho {r_lo}-{r_hi}, "
           f"p {p_lo}-{p_hi}")
     for i, r in enumerate(records, 1):
-        print(f"{tag} iteration {i}: continuity {r['cont']:.4e}; "
+        co = f"Courant max {r['co']:.6g}, " if transient else ""
+        print(f"{tag} {unit} {i}: {co}continuity {r['cont']:.4e}; "
               f"iterations {r['its']}")
     launches = {}
     for d_ in per_step:
@@ -1895,18 +1952,307 @@ def phase_rho_main(tmp: str, smi: str) -> dict:
     print(f"{tag} first call {t_first * 1e3:.1f} ms; windows of "
           f"{BENCH_STEPS}: "
           + ", ".join(f"{1e3 * w / BENCH_STEPS:.3f}" for w in windows)
-          + f" ms/iteration; median {1e3 * med / BENCH_STEPS:.3f} "
-          f"ms/iteration, {mesh.n_cells * BENCH_STEPS / med:.1f} "
+          + f" ms/{unit}; median {1e3 * med / BENCH_STEPS:.3f} "
+          f"ms/{unit}, {mesh.n_cells * BENCH_STEPS / med:.1f} "
           f"cell-updates/s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (card: "
           f"{smi})")
-    print(f"{tag} profiled iteration: {t_prof * 1e3:.1f} ms, {n_kernels} "
+    print(f"{tag} profiled {unit}: {t_prof * 1e3:.1f} ms, {n_kernels} "
           f"kernel launches, device busy {busy * 1e3:.2f} ms "
           f"({busy / t_prof:.1%}); iterations "
-          f"{rhosimplefoam.iteration_counts(st)} (card: {smi})")
-    print(f"{tag} profiled iteration, top kernels by device time (name, "
+          f"{mod.iteration_counts(st)} (card: {smi})")
+    print(f"{tag} profiled {unit}, top kernels by device time (name, "
           f"launches, ms): {top}")
+    torch.cuda.empty_cache()
     return launches
+
+
+def phase_rho_main(tmp: str, smi: str) -> dict:
+    """The main path of rhoSimpleFoam: the heated channel at 1024x256 in
+    fp32 (_channel_main)."""
+    return _channel_main("[19] rhoSimpleFoam heated channel 1024x256 "
+                         "(laminar)", tmp, smi, transient=False)
+
+
+# rhoCentralFoam on the Mach-3 forward step (OpenFOAM's compressible/
+# rhoCentralFoam/forwardStep tutorial; utils/casegen.
+# rhocentral_forward_step_case, scale 16, dt 0.002/16) on the same lattice as
+# phase 18, and rhoPimpleFoam on the heated channel at 1024 x 256
+# (utils/casegen.transient_hot_channel_case, GAMG p, HOT_DT)
+RC_DT = 0.002 / FSTEP_SCALE
+# the JAX package's readings of the first 3 steps of the full-size case,
+# fp64 on the CPU of the card's machine (tests/crosscheck_rhocentral.py
+# --scale 16 --steps 3 --port-device cuda, its default jitted step):
+# (Courant max, max Mach)
+RC_REFERENCE = ((0.13599996837325665, 3.000005930029076),
+                (0.13616959800685893, 3.0000059300290745),
+                (0.1363376909709357, 3.000005930029077))
+# fp64 on the card against those readings; fp32 within RC_RTOL (the fp32
+# run read 1.6e-5 in max Mach at step 1 on the H100)
+RC_RTOL_FP64 = 1e-9
+RC_RTOL = 1e-3
+# the fp32 run's U, p and T after step 3 against the fp64 run's on the card,
+# as a share of what the fp64 run's three steps changed (max over live
+# cells of |fp32 - fp64| over max |fp64 step 3 - start|): 6.0e-5 (p) to
+# 2.6e-4 (T) on the H100; a step that changes nothing reads 1
+RC_FIELD_RTOL = 1e-2
+# the viscous small case on cuda against cpu with the kernel (which fuses
+# its multiply-adds): the reconstructions weight only psiN - psiO, zero
+# wherever rounding sets the limiters' r, so the runs stay at rounding
+RC_SPREAD_X1 = 1e-10
+# the JAX test's bounds on the untouched inflow (x < 0.1):
+# tests/test_compressible.py::test_rhocentralfoam_mach3_step
+RC_UPSTREAM_ATOL = dict(p=0.2, Ux=0.3)
+
+
+def _count_diffs(tag, its_a, its_b):
+    """Iteration counts of two runs, solve by solve: the same solves, each
+    within one; returns how many differ."""
+    check(len(its_a) == len(its_b), f"{tag} step counts differ")
+    n_off = 0
+    for i, (a, b) in enumerate(zip(its_a, its_b), 1):
+        check([f for f, _ in a] == [f for f, _ in b]
+              and all(abs(x - y) <= 1 for (_, x), (_, y) in zip(a, b)),
+              f"{tag} step {i}: iteration counts {a} against {b}")
+        n_off += sum(x != y for (_, x), (_, y) in zip(a, b))
+    return n_off
+
+
+def phase_rho_transient_agreement(tmp: str):
+    """rhoPimpleFoam, rhoPimplecFoam, rhoLTSPimpleFoam (the 50x10 heated
+    channel, ELL, PCG p) and rhoSimplecFoam (its steady form), fp64, 5
+    steps each on cuda and on cpu: fields within 1e-10 relative (phase 13's
+    bound) with equal iteration counts. The viscous rhoCentralFoam on the
+    forward step at scale 1 (gdia, both K = 5 forms): within RC_SPREAD_X1
+    with counts within one, and within 1e-12 with equal counts when the
+    kernel's plain version stands in for it on the card. Then the
+    full-size forward step in fp64 on the card for 3 steps against the
+    JAX package's readings (RC_REFERENCE), whose fields it returns
+    (_central_readings_fp64)."""
+    from rapidcfd_tpu_torch.ops import gdia_mac
+    from rapidcfd_tpu_torch.utils.casegen import (
+        hot_channel_case, rhocentral_forward_step_case,
+        transient_hot_channel_case)
+    cases = (("rhoPimpleFoam", lambda d: transient_hot_channel_case(d)),
+             ("rhoPimplecFoam", lambda d: transient_hot_channel_case(d)),
+             ("rhoLTSPimpleFoam",
+              lambda d: transient_hot_channel_case(d, lts=True)),
+             ("rhoSimplecFoam", lambda d: hot_channel_case(d)),
+             ("rhoCentralFoam",
+              lambda d: rhocentral_forward_step_case(d, viscous=True)))
+    for solver, writer in cases:
+        d = f"{tmp}/{solver}_small"
+        writer(d)
+        tag = f"[20] fp64 {solver} (small),"
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            gdia_mac.reset_launches()
+            t0 = time.perf_counter()
+            outs[dev] = _compressible_run(solver, d, dev, torch.float64, 5)
+            launches = dict(gdia_mac.LAUNCHES_BY_KC)
+            print(f"{tag} 5 steps on {dev}: {time.perf_counter() - t0:.2f} "
+                  f"s; shift-MAC launches {launches}")
+            if dev == "cuda" and solver == "rhoCentralFoam":
+                check(launches == {(5, 3): 70, (5, 1): 45},
+                      f"{tag} the viscous step did not launch both K = 5 "
+                      f"forms 14 + 9 times per step: {launches}")
+        its = {dev: [r["iterations"] for r in out[0].step_log]
+               for dev, out in outs.items()}
+        errs = _compressible_errs(outs["cuda"], outs["cpu"])
+        n_off = _count_diffs(tag, its["cuda"], its["cpu"])
+        print(f"{tag} cuda vs cpu, relative max|d|: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f"; {n_off} iteration counts differ; cuda step 1: "
+              f"{its['cuda'][0]}")
+        if solver != "rhoCentralFoam":
+            check(n_off == 0 and max(errs.values()) <= 1e-10,
+                  f"{tag} fp64 cuda and cpu runs disagree: {errs}")
+            continue
+        check(max(errs.values()) <= RC_SPREAD_X1,
+              f"{tag} fp64 cuda and cpu runs disagree beyond "
+              f"{RC_SPREAD_X1}: {errs}")
+        with _plain_shift_mac():
+            plain = _compressible_run(solver, d, "cuda", torch.float64, 5)
+        errs = _compressible_errs(plain, outs["cpu"])
+        p_its = [r["iterations"] for r in plain[0].step_log]
+        print(f"{tag} with the kernel's plain version on cuda, cuda vs cpu, "
+              f"relative max|d|: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f"; iterations equal: {p_its == its['cpu']}")
+        check(p_its == its["cpu"] and max(errs.values()) <= 1e-12,
+              f"{tag} with the plain version the card's run leaves the "
+              f"CPU's: {errs}")
+    return _central_readings_fp64(tmp)
+
+
+def _central_setup(tmp: str, name: str, dtype):
+    """The full-size rhoCentralFoam case on the card: (case, (U, p, T),
+    step, set-up seconds by stage)."""
+    from rapidcfd_tpu_torch.solvers import rhocentralfoam
+    from rapidcfd_tpu_torch.solvers.case import Case
+    from rapidcfd_tpu_torch.utils.casegen import rhocentral_forward_step_case
+    from rapidcfd_tpu_torch.utils.logging import captured
+    with captured():
+        t0 = time.perf_counter()
+        pm = rhocentral_forward_step_case(f"{tmp}/{name}", scale=FSTEP_SCALE,
+                                          end_time=1e9, write_mesh=False)
+        t_gen = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        case = Case(f"{tmp}/{name}", device=torch.device("cuda"),
+                    dtype=dtype, pmesh=pm)
+        t_case = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, state, step = rhocentralfoam.setup(case)
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
+    return case, state, step, dict(generate=t_gen, **case.setup_seconds,
+                                   case_total=t_case,
+                                   fields_and_step=t_setup)
+
+
+def _check_central_readings(tag: str, readings, rtol: float):
+    """readings: per step (Courant max, max Mach) against RC_REFERENCE,
+    each within rtol."""
+    for i, (got, ref) in enumerate(zip(readings, RC_REFERENCE), 1):
+        dev = [abs(x - r) / abs(r) for x, r in zip(got, ref)]
+        print(f"{tag} step {i}: Courant max {got[0]!r} (JAX {ref[0]!r}, "
+              f"{dev[0]:.2e}), max Mach {got[1]!r} (JAX {ref[1]!r}, "
+              f"{dev[1]:.2e}); limit {rtol:g}")
+        check(max(dev) <= rtol, f"{tag} step {i} leaves the JAX package's "
+              f"readings {ref}: {got}")
+
+
+def _central_readings_fp64(tmp: str) -> dict:
+    """The full-size forward step with rhoCentralFoam in fp64 on the card,
+    3 steps: Courant max and max Mach within RC_RTOL_FP64 of the JAX
+    package's. Returns the live cells' U, p and T at the start
+    ('start') and after step 3 ('step3') for phase 21's fp32 run."""
+    tag = "[20] fp64 rhoCentralFoam forward step x16 on cuda,"
+    t0 = time.perf_counter()
+    case, (U, p, T), step, _ = _central_setup(tmp, "rc64", torch.float64)
+    prim = torch.as_tensor(case.maps.cell_primary, device=p.data.device)
+    fields = dict(start=[f.data[prim] for f in (U, p, T)])
+    readings = []
+    for _ in range(3):
+        U, p, T, _, st = step(U, p, T, RC_DT)
+        readings.append((float(st["co_max"]), float(st["mach_max"])))
+    fields["step3"] = [f.data[prim] for f in (U, p, T)]
+    print(f"{tag} 3 steps in {time.perf_counter() - t0:.2f} s with set-up")
+    _check_central_readings(tag, readings, RC_RTOL_FP64)
+    torch.cuda.empty_cache()
+    return fields
+
+
+def _check_central_fields(tag: str, got, ref: dict):
+    """got: the fp32 run's live-cell U, p and T after step 3; each within
+    RC_FIELD_RTOL of the fp64 run's (ref), as a share of what the fp64
+    run's steps changed."""
+    for name, g, r, r0 in zip("UpT", got, ref["step3"], ref["start"]):
+        dev = float((g.double() - r).abs().max())
+        moved = float((r - r0).abs().max())
+        print(f"{tag} {name} after step 3 against fp64: max|d| {dev:.3e}, "
+              f"{dev / moved:.3e} of the fp64 steps' change {moved:.3e}; "
+              f"limit {RC_FIELD_RTOL:g}")
+        check(dev <= RC_FIELD_RTOL * moved, f"{tag}: {name} after step 3 "
+              f"leaves the fp64 run's: {dev} against a change of {moved}")
+
+
+def phase_central_main(tmp: str, smi: str, ref64: dict) -> dict:
+    """The main path of rhoCentralFoam: the full-size forward step
+    (206,592 cells on 245,760 lattice slots, gdia, K = 5, inviscid) in
+    fp32 from the writer's uniform Mach-3 state, timed as phase 18, then
+    one profiled step. K = 5, C = 3 must launch at every step (7 times:
+    one gradient per reconstructed field) and C = 1 never; steps 1-3
+    within RC_RTOL of RC_REFERENCE; U, p and T after step 3 within
+    RC_FIELD_RTOL of the fp64 run's (ref64, from phase 20); fields finite,
+    p and T positive, the inflow (x < 0.1) at p = 1 and Ux = 3 within
+    RC_UPSTREAM_ATOL. Returns the shift-MAC launches by (K, C) over the
+    timed drive."""
+    tag = "[21] rhoCentralFoam forward step x16"
+    torch.cuda.reset_peak_memory_stats()
+    case, state, step, setup_s = _central_setup(tmp, "rc", torch.float32)
+    mesh = case.mesh
+    live = int(case.maps.cell_primary.sum())
+    check(mesh.gdia is not None and mesh.n_cells == FSTEP_N
+          and live == FSTEP_CELLS
+          and tuple(mesh.gauss.offsets) == FSTEP_OFFSETS,
+          f"{tag}: expected {FSTEP_CELLS} cells on the {FSTEP_N}-slot gdia "
+          f"lattice, got {live} on {mesh.n_cells}")
+    print(f"{tag} fp32 (inviscid, dt {RC_DT!r}): {live} cells on "
+          f"{mesh.n_cells} slots; set-up by stage: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in setup_s.items()))
+
+    def central_step(U, p, T, phi=None):
+        return step(U, p, T, RC_DT)
+
+    prim = torch.as_tensor(case.maps.cell_primary, device=mesh.device)
+    early = []                   # live-cell U, p, T after each read step
+
+    def readings_of(new, st, before):
+        early.append([f.data[prim] for f in new[:3]])
+        return (float(st["co_max"]), float(st["mach_max"]))
+    state, records, t_first, windows, per_step = _bench_drive(
+        central_step, state, readings_of, 4)
+    launches = {}
+    for d_ in per_step:
+        for kc, v in d_.items():
+            launches[kc] = launches.get(kc, 0) + v
+    state, st, n_kernels, busy, t_prof, mac, top = _profiled_iteration(
+        central_step, state)
+    U, p, T, phi = state
+    for f in (U, p, T, phi):
+        check(bool(torch.isfinite(f.data).all()), f"{tag}: {f.name} not "
+              "finite")
+    check(bool((p.data[prim] > 0).all() and (T.data[prim] > 0).all()),
+          f"{tag}: p or T not positive")
+    up = prim & (mesh.C[:, 0] < 0.1)
+    dp = float((p.data[up] - 1.0).abs().max())
+    du = float((U.data[up, 0] - 3.0).abs().max())
+    print(f"{tag} after {len(per_step) + 1} steps: p {float(p.data[prim].min()):.4f}"
+          f"-{float(p.data[prim].max()):.4f}, T {float(T.data[prim].min()):.4f}"
+          f"-{float(T.data[prim].max()):.4f}; inflow (x < 0.1) |p - 1| max "
+          f"{dp:.3e}, |Ux - 3| max {du:.3e}")
+    check(dp <= RC_UPSTREAM_ATOL["p"] and du <= RC_UPSTREAM_ATOL["Ux"],
+          f"{tag}: the inflow left its state: |p - 1| {dp}, |Ux - 3| {du}")
+    counts = [d_.get((5, 3), 0) for d_ in per_step]
+    print(f"{tag} mac_stencil<float, 5, 3> launches per step over the "
+          f"{len(per_step)} steps: {sorted(set(counts))} (total "
+          f"{sum(counts)}); all forms: {launches}")
+    check(all(c == 7 for c in counts)
+          and all(set(d_) == {(5, 3)} for d_ in per_step),
+          f"{tag}: a step did not launch K = 5, C = 3 seven times alone: "
+          f"{per_step}")
+    _check_central_readings(tag, records[:3], RC_RTOL)
+    _check_central_fields(tag, early[2], ref64)
+    med = statistics.median(windows)
+    print(f"{tag} first call {t_first * 1e3:.1f} ms; windows of "
+          f"{BENCH_STEPS}: "
+          + ", ".join(f"{1e3 * w / BENCH_STEPS:.3f}" for w in windows)
+          + f" ms/step; median {1e3 * med / BENCH_STEPS:.3f} ms/step, "
+          f"{live * BENCH_STEPS / med:.1f} live-cell updates/s "
+          f"({mesh.n_cells * BENCH_STEPS / med:.1f} over lattice slots); "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (card: "
+          f"{smi})")
+    print(f"{tag} profiled step: {t_prof * 1e3:.1f} ms, {n_kernels} kernel "
+          f"launches, device busy {busy * 1e3:.2f} ms ({busy / t_prof:.1%}) "
+          f"(card: {smi})")
+    print(f"{tag} profiled step, top kernels by device time (name, "
+          f"launches, ms): {top}")
+    print(f"{tag} profiled step, shift-MAC kernels: {mac}")
+    check(any("mac_stencil<float, 5, 3>" in name for name in mac)
+          and not any("generic" in name for name in mac),
+          f"{tag}: the profiled step did not run mac_stencil<float, 5, 3> "
+          f"alone: {mac}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_rho_pimple_main(tmp: str, smi: str) -> dict:
+    """The main path of rhoPimpleFoam: the heated channel at 1024x256 in
+    fp32 with GAMG p at HOT_DT (_channel_main)."""
+    return _channel_main("[22] rhoPimpleFoam heated channel 1024x256 "
+                         "(laminar)", tmp, smi, transient=True)
 
 
 def main():
@@ -1930,13 +2276,18 @@ def main():
         phase_compressible_agreement(tmp)
         sonic = phase_sonic_main(tmp, smi)
         rho = phase_rho_main(tmp, smi)
+        rc64 = phase_rho_transient_agreement(tmp)
+        central = phase_central_main(tmp, smi, rc64)
+        rho_pimple = phase_rho_pimple_main(tmp, smi)
     paths = {"simpleFoam pitzDaily x5": simple, "icoFoam pitzDaily x5": ico,
              "icoFoam cavity 384": cavity,
              "simpleFoam channel 160x80x80": channel,
              "simpleFoam curved duct 128x64x64": duct,
              "pimpleFoam T-junction": tjunction,
              "sonicFoam forward step x16": sonic,
-             "rhoSimpleFoam heated channel 1024x256": rho}
+             "rhoSimpleFoam heated channel 1024x256": rho,
+             "rhoCentralFoam forward step x16": central,
+             "rhoPimpleFoam heated channel 1024x256": rho_pimple}
     kernels = []
     for (K, c), what, main_path, times in (
             ((5, 3), "Gauss gradient", "simpleFoam pitzDaily x5", k[5, 3]),

@@ -11,9 +11,10 @@ Device and dtype policy:
   ``cuda`` on a machine without a card raises, nothing moves to the CPU
   quietly;
 - the float width follows the JAX dispatcher (rapidcfd_tpu/__main__.py:
-  115-153): every ported solver runs fp32 by default, sonicFoam and
-  rhoSimpleFoam included (rhoSimpleFoam with p in deviation form);
-  ``-precision fp64`` overrides.
+  115-153): every ported solver runs fp32 by default, the
+  pressure-based compressible ones included (rhoSimpleFoam and
+  rhoPimpleFoam with p in deviation form), except rhoCentralFoam, which
+  the JAX dispatcher keeps in fp64; ``-precision`` overrides.
 """
 
 from __future__ import annotations
@@ -24,10 +25,10 @@ __version__ = "0.1.0"
 
 _DTYPES = {"fp32": torch.float32, "fp64": torch.float64}
 
-#: ported solvers whose default width is fp64 (the JAX dispatcher's
-#: X64_DEFAULT): none; every ported solver, sonicFoam and rhoSimpleFoam
-#: included, is fp32 by default there
-X64_DEFAULT: frozenset = frozenset()
+#: ported solvers whose default width is fp64 (those of the JAX
+#: dispatcher's X64_DEFAULT): rhoCentralFoam; every other ported solver,
+#: the pressure-based compressible ones included, is fp32 by default there
+X64_DEFAULT: frozenset = frozenset({"rhoCentralFoam"})
 
 
 def resolve_device(name) -> torch.device:

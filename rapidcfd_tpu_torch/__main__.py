@@ -24,6 +24,14 @@ SOLVERS = {
                  {"piso_mode": True}),
     "sonicFoam": ("rapidcfd_tpu_torch.solvers.sonicfoam", {}),
     "rhoSimpleFoam": ("rapidcfd_tpu_torch.solvers.rhosimplefoam", {}),
+    "rhoSimplecFoam": ("rapidcfd_tpu_torch.solvers.rhosimplefoam",
+                       {"consistent": True}),
+    "rhoPimpleFoam": ("rapidcfd_tpu_torch.solvers.rhopimplefoam", {}),
+    "rhoPimplecFoam": ("rapidcfd_tpu_torch.solvers.rhopimplefoam",
+                       {"consistent": True}),
+    "rhoLTSPimpleFoam": ("rapidcfd_tpu_torch.solvers.rhopimplefoam",
+                         {"lts": True}),
+    "rhoCentralFoam": ("rapidcfd_tpu_torch.solvers.rhocentralfoam", {}),
 }
 
 

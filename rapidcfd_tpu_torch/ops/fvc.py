@@ -349,6 +349,39 @@ def constrain_hbya(mesh: MeshArrays, hbya: VolField,
     return hbya.replace(bvalues=b)
 
 
+def zero_unread_faces(mesh: MeshArrays, face_data: torch.Tensor
+                      ) -> torch.Tensor:
+    """face_data (all faces) with 0 on the faces no face sum reads and the
+    reference has none of: the dummy plane faces of a gdia lattice and
+    the faces of empty patches."""
+    g = mesh.gdia
+    if g is not None and g.plane_mask is not None:
+        n_int = mesh.n_internal
+        internal = torch.where(g.plane_mask > 0, face_data[:n_int],
+                               torch.zeros_like(face_data[:n_int]))
+        face_data = torch.cat([internal, face_data[n_int:]])
+    empty = [p for p in mesh.patches if p.is_empty and p.size]
+    if empty:
+        face_data = face_data.clone()
+        for p in empty:
+            face_data[p.start:p.start + p.size] = 0.0
+    return face_data
+
+
+def smooth(mesh: MeshArrays, data: torch.Tensor, coeff: float,
+           sweeps: int = 8) -> torch.Tensor:
+    """fvc::smooth (reference: fvcSmooth/fvcSmooth.C): raise each cell to
+    at least coeff times the largest of its neighbours, over a fixed
+    number of sweeps (the reference runs a FaceCellWave to completion).
+    ELL meshes only: cell_nbr pads each row with the cell itself."""
+    if mesh.gdia is not None:
+        raise NotImplementedError("fvc.smooth is not ported to gdia "
+                                  "meshes (ELL only)")
+    for _ in range(sweeps):
+        data = torch.maximum(data, coeff * data[mesh.cell_nbr].amax(1))
+    return data
+
+
 def adjust_phi(mesh: MeshArrays, phi: SurfaceField, U: VolField
                ) -> SurfaceField:
     """Balance the boundary flux over the patches whose U is not fixed

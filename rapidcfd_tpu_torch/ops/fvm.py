@@ -1,7 +1,7 @@
 """fvm — implicit finite-volume operators returning FvMatrix systems
-(port of rapidcfd_tpu/ops/fvm.py: Euler and steadyState ddt, with a
-density-like coefficient or without, Gauss and bounded Gauss div, the
-orthogonal and corrected laplacian, the Sp/Su/SuSp sources, with
+(port of rapidcfd_tpu/ops/fvm.py: Euler, local-Euler and steadyState ddt,
+with a density-like coefficient or without, Gauss and bounded Gauss div,
+the orthogonal and corrected laplacian, the Sp/Su/SuSp sources, with
 negSumDiag as an ELL gather or by gdia plane shifts)."""
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ from .interpolation import scheme_weights
 _VOL = DimensionSet.of(0, 3)
 _TIME = DimensionSet.of(0, 0, 1)
 _AREA = dim_length ** 2
+#: the local time-stepping ddt schemes: the Euler stencil with a per-cell dt
+LTS_SCHEMES = ("localEuler", "CoEuler", "SLTS")
 
 
 def _pair_gather(mesh: MeshArrays, own_arr, nei_arr):
@@ -44,11 +46,14 @@ def ddt(mesh: MeshArrays, vf: VolField, dt, scheme: str = "Euler",
     EulerDdtScheme::fvmDdt: diag rho V/dt, source rho.old psi.old V/dt)
     or steadyState (the zero matrix). dt is a Python float or a 0-d
     tensor; coeff is a density-like VolField that carries its own old
-    level. backward and CrankNicolson (rapidcfd_tpu/ops/fvm.py:73-207)
-    are not ported and raise."""
-    if scheme not in ("Euler", "steadyState"):
+    level. localEuler, CoEuler and SLTS (reference: localEulerDdtScheme)
+    share the Euler stencil with a per-cell dt: pass dt as an (nCells,)
+    tensor of 1/rDeltaT. backward and CrankNicolson
+    (rapidcfd_tpu/ops/fvm.py:73-207) are not ported and raise."""
+    if scheme not in ("Euler", "steadyState") + LTS_SCHEMES:
         raise NotImplementedError(f"ddtScheme '{scheme}' is not ported yet "
-                                  "(Euler, steadyState)")
+                                  "(Euler, localEuler, CoEuler, SLTS, "
+                                  "steadyState)")
     c_dims = coeff.dims if coeff is not None else DimensionSet()
     m = FvMatrix.zeros(mesh, vf, c_dims * vf.dims * _VOL / _TIME,
                        symmetric=True)

@@ -1,6 +1,6 @@
 """FvMatrix — the implicit finite-volume system (port of the padded-ELL
-and gdia-lattice branches of rapidcfd_tpu/ops/fvmatrix.py, relax and
-set_values included).
+and gdia-lattice branches of rapidcfd_tpu/ops/fvmatrix.py, relax,
+set_values and H1 included).
 
 LDU semantics as in the reference's fvMatrix : lduMatrix — face-indexed
 lower/upper coefficients, per-patch internal/boundary coefficients, an
@@ -230,6 +230,21 @@ class FvMatrix:
         h = h / _ext(mesh.V, h)
         return _extrapolated(mesh, h, self.dims / _VOL_DIMS,
                              f"H({self.psi.name})")
+
+    def H1(self, mesh: MeshArrays) -> VolField:
+        """-(row sum of the off-diagonal coefficients)/V, i.e. H at psi = 1
+        without the source (reference: lduMatrix::H1 and fvMatrix::H1; the
+        SIMPLEC denominator 1/(1/rAU - H1)). Only coupled patches add to
+        it, and the port has none: the row sums alone, folded and synced
+        on gdia meshes."""
+        from .fvc import _extrapolated
+        h = -self.offdiag_mv(mesh)(torch.ones_like(self.diag))
+        g = mesh.gdia
+        if g is not None:
+            h = gd.sync(g, gd.fold(g, h))
+        return _extrapolated(mesh, h / mesh.V,
+                             self.dims / (self.psi.dims * _VOL_DIMS),
+                             f"H1({self.psi.name})")
 
     def flux(self, mesh: MeshArrays):
         """Face flux consistent with the assembled operator (reference:

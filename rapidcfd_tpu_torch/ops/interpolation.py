@@ -32,17 +32,17 @@ def _upwind_weights(mesh, phi):
     return (phi.data[:mesh.n_internal] >= 0.0).to(mesh.weights.dtype)
 
 
-def _linear(mesh, vf, phi):
+def _linear(mesh, vf, phi, g=None):
     return mesh.weights
 
 
-def _upwind(mesh, vf, phi):
+def _upwind(mesh, vf, phi, g=None):
     if phi is None:
         raise ValueError("upwind interpolation requires a flux field")
     return _upwind_weights(mesh, phi)
 
 
-def _linear_upwind(mesh, vf, phi, *args):
+def _linear_upwind(mesh, vf, phi, *args, g=None):
     """Second-order upwind is value-corrected, not weight-expressible: the
     fvm path takes pure upwind weights, as the JAX package does (its
     explicit correction is not ported)."""
@@ -66,17 +66,19 @@ def _guard(den):
                        den)
 
 
-def _face_r(mesh: MeshArrays, vf: VolField, phi: SurfaceField
-            ) -> torch.Tensor:
+def _face_r(mesh: MeshArrays, vf: VolField, phi: SurfaceField,
+            g: VolField | None = None) -> torch.Tensor:
     """Upwind gradient ratio r per internal face. For vector fields the
     limiter contracts over components: one r per face, from (d . gradc)
-    against (psiN - psiO), as the JAX package does."""
+    against (psiN - psiO), as the JAX package does. g: fvc.grad(vf),
+    computed here when not given."""
     from . import fvc
+    if g is None:
+        g = fvc.grad(mesh, vf)       # scalar->vector, vector->tensor
     if mesh.gdia is not None:
-        return _face_r_gdia(mesh, vf, phi)
+        return _face_r_gdia(mesh, vf, phi, g)
     C_o, C_n = fvc.face_own_nei(mesh, mesh.C)
     d = C_n - C_o
-    g = fvc.grad(mesh, vf)           # scalar->vector, vector->tensor
     g_o, g_n = fvc.face_own_nei(mesh, g.data)
     v_o, v_n = fvc.face_own_nei(mesh, vf.data)
     up = phi.data[:mesh.n_internal] >= 0.0
@@ -92,20 +94,19 @@ def _face_r(mesh: MeshArrays, vf: VolField, phi: SurfaceField
     return num / _guard(den) - 1.0
 
 
-def _face_r_gdia(mesh: MeshArrays, vf: VolField, phi: SurfaceField
-                 ) -> torch.Tensor:
+def _face_r_gdia(mesh: MeshArrays, vf: VolField, phi: SurfaceField,
+                 grad: VolField) -> torch.Tensor:
     """_face_r on gdia lattice meshes, per plane over (n,) component
     slices, in slot orientation: plane face s joins slot s (owner) and
     slot s + step (neighbour). Dummy and dead faces get a finite r (the
     1e-30 guard), which the null rows of the matrix never read."""
     from ..mesh import gdia as gd
-    from . import fvc
     g_ = mesh.gdia
     n = g_.n_lat
     steps = g_.steps
     D = max(steps)
     x = gd.sync(g_, vf.data)
-    g = gd.sync(g_, fvc.grad(mesh, vf).data)    # grad is ghost-synced
+    g = gd.sync(g_, grad.data)                  # grad is ghost-synced
     C = mesh.C                                   # ghost-synced by build
 
     def sl(xp, st):
@@ -162,10 +163,10 @@ def _make_limited(name, limiter):
     The reference's V variants limit all components with one scalar
     limiter, which _face_r already does for vectors; the 01 variants
     (Limited01) are the same limiter here, as in the JAX package."""
-    def scheme(mesh, vf, phi, *args):
+    def scheme(mesh, vf, phi, *args, g=None):
         if phi is None:
             raise ValueError(f"{name} interpolation requires a flux field")
-        r = _face_r(mesh, vf, phi)
+        r = _face_r(mesh, vf, phi, g)
         return _limited_weights(mesh, phi, limiter(r, *args))
     for word in (name, name + "V", name + "01"):
         SCHEMES[word] = scheme
@@ -198,8 +199,11 @@ _make_limited("limitedLinear", lambda r, k=1.0: torch.clamp(
 
 
 def scheme_weights(mesh: MeshArrays, vf: VolField, scheme="linear",
-                   phi: SurfaceField | None = None) -> torch.Tensor:
-    """Owner weights on internal faces (used by fvm::div assembly)."""
+                   phi: SurfaceField | None = None,
+                   g: VolField | None = None) -> torch.Tensor:
+    """Owner weights on internal faces (used by fvm::div assembly). g:
+    fvc.grad(vf) for the limited schemes, taken by them when not given;
+    the other schemes ignore it."""
     scheme = _unwrap(scheme)
     name, args = (scheme[0], scheme[1:]) if isinstance(scheme, tuple) \
         else (scheme, ())
@@ -208,14 +212,15 @@ def scheme_weights(mesh: MeshArrays, vf: VolField, scheme="linear",
         raise NotImplementedError(
             f"interpolation scheme '{name}' is not ported yet (ported: "
             f"{', '.join(sorted(SCHEMES))})")
-    return fn(mesh, vf, phi, *args)
+    return fn(mesh, vf, phi, *args, g=g)
 
 
 def interpolate_internal(mesh: MeshArrays, vf: VolField, scheme="linear",
-                         phi: SurfaceField | None = None) -> torch.Tensor:
-    """Internal-face values by the named scheme."""
+                         phi: SurfaceField | None = None,
+                         g: VolField | None = None) -> torch.Tensor:
+    """Internal-face values by the named scheme (g as in scheme_weights)."""
     from .fvc import face_own_nei
-    w = scheme_weights(mesh, vf, scheme, phi)
+    w = scheme_weights(mesh, vf, scheme, phi, g)
     own, nei = face_own_nei(mesh, vf.data)
     if own.dim() > w.dim():
         w = w.reshape(w.shape + (1,) * (own.dim() - w.dim()))

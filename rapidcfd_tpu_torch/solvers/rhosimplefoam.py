@@ -12,8 +12,9 @@ p, the momentum correction, rho from the equation of state and the
 turbulence model's correct(). In fp32 `run` solves p in deviation form
 (fields.field.shift_level) when its mean dwarfs its range; every
 equation-of-state evaluation adds the offset back and written fields are
-absolute. The SIMPLEC variant (rhoSimplecFoam, consistent=True) needs
-FvMatrix.H1, which is not ported: it raises.
+absolute. consistent=True runs the SIMPLEC corrector (rhoSimplecFoam):
+rAtU = 1/(1/rAU - H1), the flux gains interp(rho (rAtU - rAU)) snGrad(p)
+|Sf| and HbyA loses (rAU - rAtU) grad(p).
 """
 
 from __future__ import annotations
@@ -45,6 +46,23 @@ def _dev2t(t):
     return t.transpose(-1, -2) - (2.0 / 3.0) * tr[..., None, None] * eye
 
 
+def simplec_correction(mesh, phi_hbya: SurfaceField, HbyA: VolField,
+                       rho: VolField, rAU: VolField, rAtU: VolField,
+                       p: VolField):
+    """The consistent (SIMPLEC/PIMPLEC) terms of a compressible pEqn.H:
+    phiHbyA += interp(rho (rAtU - rAU)) snGrad(p) |Sf| and
+    HbyA -= (rAU - rAtU) grad(p). Returns (phiHbyA, HbyA). The flux term
+    is 0 on empty patches, which have no faces in the reference: there
+    rAtU's extrapolated boundary value is 1/(1 - 1), and the JAX package's
+    phi holds NaN."""
+    drho_rau_f = fvc.face_values(mesh, rho * (rAtU - rAU))
+    corr = fvc.zero_unread_faces(
+        mesh, drho_rau_f * fvc.sn_grad(mesh, p).data * mesh.mag_sf)
+    phi_hbya = SurfaceField(phi_hbya.data + corr, phi_hbya.dims,
+                            phi_hbya.name)
+    return phi_hbya, HbyA - (rAU - rAtU) * fvc.grad(mesh, p)
+
+
 def make_step(case: Case, thermo: PsiThermo, simple: SimpleControl,
               turb: CompressibleTurbulence | None = None,
               consistent: bool = False, p_offset: float = 0.0):
@@ -53,10 +71,7 @@ def make_step(case: Case, thermo: PsiThermo, simple: SimpleControl,
     momentum and energy diffusivities (alphaEff = alpha + mut/Prt) and
     the explicit div(muEff dev2(T(grad U))). p_offset: the level p is
     shifted by (p holds p - p_offset), added back for the equation of
-    state and the reference pin."""
-    if consistent:
-        raise NotImplementedError("rhoSimplecFoam (consistent=True) needs "
-                                  "FvMatrix.H1, which is not ported yet")
+    state and the reference pin. consistent=True: rhoSimplecFoam."""
     from ..linalg.precompute import attach_solver_layouts
     m = thermo.model
     div_u = case.div_scheme("div(phi,U)")
@@ -132,12 +147,16 @@ def make_step(case: Case, thermo: PsiThermo, simple: SimpleControl,
         # pEqn.H: subsonic SIMPLE
         UEqn_c = UEqn.replace(psi=U)
         rAU = 1.0 / UEqn_c.A(mesh)
+        rAtU = 1.0 / (1.0 / rAU - UEqn_c.H1(mesh)) if consistent else rAU
         HbyA = fvc.constrain_hbya(mesh, rAU * UEqn_c.H(mesh), U)
         phi_hbya = SurfaceField(
             fvc.face_values(mesh, rho) * fvc.flux(mesh, HbyA).data,
             _MASS_FLUX, "phiHbyA")
         phi_hbya = fvc.adjust_phi(mesh, phi_hbya, U)
-        rho_rau = rho * rAU
+        if consistent:
+            phi_hbya, HbyA = simplec_correction(mesh, phi_hbya, HbyA, rho,
+                                                rAU, rAtU, p)
+        rho_rau = rho * rAtU
 
         p_prev = p
         p_perf_all = []
@@ -151,7 +170,7 @@ def make_step(case: Case, thermo: PsiThermo, simple: SimpleControl,
         cont = fvc.div(mesh, phi).data
 
         p = relax_field(p, p_prev, p_relax)
-        U_star = HbyA - rAU * fvc.grad(mesh, p)
+        U_star = HbyA - rAtU * fvc.grad(mesh, p)
         U = U.replace(data=U_star.data).correct_boundary_conditions(mesh)
         rho = rho.replace(data=m.rho(p.data + p_offset, T.data),
                           bvalues=m.rho(p.bvalues + p_offset, T.bvalues))
@@ -194,10 +213,11 @@ def deviation_offset(p: VolField) -> float:
     return lvl if abs(lvl) > 100.0 * max(dyn, 1e-30) else 0.0
 
 
-def setup(case: Case):
+def setup(case: Case, consistent: bool = False):
     """Thermo, fields, turbulence and the step of a case: (thermo,
     (U, p, T, rho, phi, turb_state), step, p_offset). p is returned in
-    deviation form when p_offset is not 0."""
+    deviation form when p_offset is not 0. consistent=True:
+    rhoSimplecFoam."""
     model = read_thermo(case.constant_dict("thermophysicalProperties"))
     thermo = PsiThermo(case, model)
     p = case.read_field("p")
@@ -216,23 +236,25 @@ def setup(case: Case):
     simple = SimpleControl(case)
     turb = CompressibleTurbulence(case, U)
     turb_state = turb.init_state(U)
-    step = make_step(case, thermo, simple, turb=turb, p_offset=p_offset)
+    step = make_step(case, thermo, simple, turb=turb, consistent=consistent,
+                     p_offset=p_offset)
     return thermo, (U, p, T, rho, phi, turb_state), step, p_offset
 
 
 def run(case_dir: str, *, device: torch.device, dtype: torch.dtype,
         write: bool = True, max_steps: int | None = None,
-        case: Case | None = None):
-    """Run rhoSimpleFoam on a case directory until residualControl is
-    met, endTime or max_steps. Returns (case, U, p, T, rho, phi) with p
-    absolute; case.step_seconds holds each iteration's wall time and
+        case: Case | None = None, consistent: bool = False):
+    """Run rhoSimpleFoam (rhoSimplecFoam with consistent=True) on a case
+    directory until residualControl is met, endTime or max_steps. Returns
+    (case, U, p, T, rho, phi) with p absolute; case.step_seconds holds each iteration's wall time and
     case.step_log its continuity errors (local, global) and
     iteration_counts."""
     if case is None:
         case = Case(case_dir, device=device, dtype=dtype)
     if case.control_dict.lookup("functions"):
         raise NotImplementedError("functionObjects are not ported yet")
-    _, (U, p, T, rho, phi, turb_state), step, p_offset = setup(case)
+    _, (U, p, T, rho, phi, turb_state), step, p_offset = setup(case,
+                                                               consistent)
     simple = SimpleControl(case)
     timer = ExecutionTimer()
     cumulative_err = 0.0

@@ -1065,6 +1065,125 @@ mixture
     return mesh
 
 
+def rhocentral_forward_step_case(case_dir: str, scale: int = 1,
+                                 viscous: bool = False,
+                                 end_time: float = 1.0,
+                                 adjust_time_step: bool = False,
+                                 write_mesh: bool = True) -> PolyMesh:
+    """rhoCentralFoam on the Mach-3 forward step (OpenFOAM's
+    compressible/rhoCentralFoam/forwardStep tutorial): forward_step_case's
+    mesh, fields and gas with the controlDict and fvSchemes of
+    tests/test_compressible.py's rhoCentralFoam tests (Kurganov fluxes,
+    reconstruct(rho|T) vanLeer and reconstruct(U) vanLeerV, Euler,
+    deltaT 0.002/scale, which keeps the Courant number near 0.2 at every
+    scale). viscous=True sets mu 0.002 as the viscous test does.
+    adjust_time_step writes adjustTimeStep yes with maxCo 0.2 and
+    maxDeltaT 0.003.
+    Departures from the tutorial: a uniform lattice, inviscid slip walls
+    (the tutorial's walls are slip too), no write during the run
+    (writeInterval 10000 steps). write_mesh=False skips the ascii
+    polyMesh."""
+    delta_t = 0.002 / scale
+    mesh = forward_step_case(case_dir, scale=scale, end_time=end_time,
+                             delta_t=delta_t, write_mesh=write_mesh)
+    adjust = ("adjustTimeStep yes; maxCo 0.2; maxDeltaT 0.003;\n"
+              if adjust_time_step else "")
+    _write(os.path.join(case_dir, "system", "controlDict"),
+           foamfile_header("dictionary", "controlDict", "system"), f"""
+application rhoCentralFoam; startFrom startTime; startTime 0;
+stopAt endTime; endTime {end_time}; deltaT {delta_t};
+writeControl timeStep; writeInterval 10000; writeFormat ascii;
+{adjust}""")
+    _write(os.path.join(case_dir, "system", "fvSchemes"),
+           foamfile_header("dictionary", "fvSchemes", "system"), """
+fluxScheme      Kurganov;
+ddtSchemes { default Euler; }
+gradSchemes { default Gauss linear; }
+divSchemes { default none; }
+laplacianSchemes { default Gauss linear corrected; }
+interpolationSchemes
+{
+    default         linear;
+    reconstruct(rho) vanLeer;
+    reconstruct(U)  vanLeerV;
+    reconstruct(T)  vanLeer;
+}
+snGradSchemes { default corrected; }
+""")
+    if viscous:
+        tp = os.path.join(case_dir, "constant", "thermophysicalProperties")
+        with open(tp) as f:
+            body = f.read()
+        with open(tp, "w") as f:
+            f.write(body.replace("mu 0;", "mu 0.002;"))
+    return mesh
+
+
+def transient_hot_channel_case(case_dir: str, nx: int = 50, ny: int = 10,
+                               end_time: float = 0.01, lts: bool = False,
+                               p_solver: str = "PCG",
+                               write_mesh: bool = True) -> PolyMesh:
+    """rhoPimpleFoam (lts=True: rhoLTSPimpleFoam) on the heated channel:
+    hot_channel_case's mesh, fields and air with the controlDict,
+    fvSchemes and fvSolution of tests/test_compressible.py's transient
+    tests (Euler or localEuler, Gauss upwind for U, h and K, PIMPLE 1 x 2;
+    under LTS maxCo 0.5, rDeltaTSmoothingCoeff 0.02, rDeltaTDampingCoeff
+    0.5, maxDeltaT 0.01 and deltaT 0.0005, which only advances the
+    clock). deltaT is 0.0002 * 50/nx, which keeps that case's Courant
+    number (~0.1) at every width. p_solver: "PCG" (DIC, the tests' setup)
+    or "GAMG" (GaussSeidel smoother, the heated channel's steady setup),
+    relTol 0.01 and 0 for pFinal either way. Departures: the tests write
+    only at the end (writeInterval 1000 steps) and so does this case;
+    "(U|h)" solve to 1e-8 with relTol 0, as the tests do.
+    write_mesh=False skips the ascii polyMesh."""
+    if p_solver not in ("PCG", "GAMG"):
+        raise ValueError(f"p_solver must be PCG or GAMG, got '{p_solver}'")
+    mesh = hot_channel_case(case_dir, nx=nx, ny=ny, write_mesh=write_mesh)
+    app, ddt, delta_t = (("rhoLTSPimpleFoam", "localEuler", 0.0005) if lts
+                         else ("rhoPimpleFoam", "Euler", 0.0002 * 50 / nx))
+    _write(os.path.join(case_dir, "system", "controlDict"),
+           foamfile_header("dictionary", "controlDict", "system"), f"""
+application {app}; startFrom startTime; startTime 0;
+stopAt endTime; endTime {end_time}; deltaT {delta_t};
+writeControl timeStep; writeInterval 1000; writeFormat ascii;
+""")
+    _write(os.path.join(case_dir, "system", "fvSchemes"),
+           foamfile_header("dictionary", "fvSchemes", "system"), f"""
+ddtSchemes {{ default {ddt}; }}
+gradSchemes {{ default Gauss linear; }}
+divSchemes
+{{
+    default none;
+    div(phi,U) Gauss upwind;
+    div(phi,h) Gauss upwind;
+    div(phi,K) Gauss upwind;
+}}
+laplacianSchemes {{ default Gauss linear orthogonal; }}
+interpolationSchemes {{ default linear; }}
+snGradSchemes {{ default orthogonal; }}
+""")
+    p_spec = ("solver PCG; preconditioner DIC;" if p_solver == "PCG"
+              else "solver GAMG; smoother GaussSeidel;")
+    lts_controls = ("\n         maxCo 0.5; rDeltaTSmoothingCoeff 0.02;\n"
+                    "         rDeltaTDampingCoeff 0.5; maxDeltaT 0.01;"
+                    if lts else "")
+    _write(os.path.join(case_dir, "system", "fvSolution"),
+           foamfile_header("dictionary", "fvSolution", "system"), f"""
+solvers
+{{
+    p      {{ {p_spec} tolerance 1e-08; relTol 0.01; }}
+    pFinal {{ {p_spec} tolerance 1e-08; relTol 0; }}
+    "(U|h)" {{ solver smoothSolver; smoother symGaussSeidel;
+              tolerance 1e-08; relTol 0; }}
+    "(U|h)Final" {{ solver smoothSolver; smoother symGaussSeidel;
+                   tolerance 1e-08; relTol 0; }}
+}}
+PIMPLE {{ nOuterCorrectors 1; nCorrectors 2;
+         nNonOrthogonalCorrectors 0;{lts_controls} }}
+""")
+    return mesh
+
+
 def dam_break_case(case_dir: str, n: int = 23, end_time: float = 0.1,
                    delta_t: float = 0.001, mules_corr: bool = False,
                    n_alpha_sub: int = 1):

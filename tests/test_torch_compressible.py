@@ -740,11 +740,16 @@ def test_rho_deviation_form_in_fp32(hot):
 
 
 def test_consistent_and_dym_raise(hot, fstep):
+    """rhoSimplecFoam (consistent=True) builds its step now that
+    FvMatrix.H1 is ported (held against the JAX package in
+    tests/test_torch_rhofoams.py); sonicDyMFoam still raises."""
+    from rapidcfd_tpu_torch.solvers.controls import SimpleControl
     with captured():
         case = Case(hot, device=CPU, dtype=F64)
         thermo, _, _, _ = trhosimple.setup(case)
-        with pytest.raises(NotImplementedError, match="H1"):
-            trhosimple.make_step(case, thermo, None, consistent=True)
+        assert callable(trhosimple.make_step(case, thermo,
+                                             SimpleControl(case),
+                                             consistent=True))
         case = Case(fstep, device=CPU, dtype=F64)
         with pytest.raises(NotImplementedError, match="sonicDyMFoam"):
             tsonic.make_step(case, None, None, dym=True)

@@ -113,9 +113,11 @@ def test_port_runs_without_jax(tmp_path):
     corrected laplacian, the merged-cell 3-D gdia lattice) and two
     pimpleFoam steps of the small T-junction (kEpsilon, the open-boundary
     conditions, adaptive dt), two sonicFoam steps of the forward step
-    (gdia, the limited schemes, slip) and two rhoSimpleFoam iterations of
-    the heated channel (ELL, GAMG p in deviation form), on the CPU pulls
-    no jax module and no module of the JAX package into the process."""
+    (gdia, the limited schemes, slip), two rhoSimpleFoam iterations of
+    the heated channel (ELL, GAMG p in deviation form), one rhoCentralFoam
+    step of the forward step (gdia) and one rhoPimpleFoam step of the
+    heated channel (ELL), on the CPU pulls no jax module and no module of
+    the JAX package into the process."""
     d = str(tmp_path / "case")
     c = str(tmp_path / "cavity")
     s = str(tmp_path / "simple")
@@ -123,6 +125,8 @@ def test_port_runs_without_jax(tmp_path):
     tj = str(tmp_path / "tjunction")
     fs = str(tmp_path / "forward_step")
     hc = str(tmp_path / "hot_channel")
+    rc = str(tmp_path / "central")
+    rp = str(tmp_path / "transient_hot_channel")
     script = f"""
 import sys
 
@@ -181,6 +185,21 @@ case, U, p, T, rho, phi = rhosimplefoam.run(
     {hc!r}, device=torch.device("cpu"), dtype=torch.float32, write=False,
     max_steps=2)
 assert case.mesh.gdia is None and len(case.step_log) == 2
+assert all(torch.isfinite(f.data).all() for f in [U, p, T, rho])
+from rapidcfd_tpu_torch.solvers import rhocentralfoam, rhopimplefoam
+from rapidcfd_tpu_torch.utils.casegen import (rhocentral_forward_step_case,
+                                              transient_hot_channel_case)
+rhocentral_forward_step_case({rc!r})
+case, U, p, T, phi = rhocentralfoam.run({rc!r}, device=torch.device("cpu"),
+                                        dtype=torch.float32, write=False,
+                                        max_steps=1)
+assert case.mesh.gdia is not None and len(case.step_log) == 1
+assert all(torch.isfinite(f.data).all() for f in [U, p, T, phi])
+transient_hot_channel_case({rp!r})
+case, U, p, T, rho, phi = rhopimplefoam.run(
+    {rp!r}, device=torch.device("cpu"), dtype=torch.float32, write=False,
+    max_steps=1)
+assert case.mesh.gdia is None and len(case.step_log) == 1
 assert all(torch.isfinite(f.data).all() for f in [U, p, T, rho])
 print("NEW_FOREIGN_MODULES", sorted(foreign() - before))
 print("JAX_LEFT_OUT", not before and "jax" not in sys.modules)

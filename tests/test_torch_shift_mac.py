@@ -237,3 +237,27 @@ def test_cuda_kernel_matches_plain_channel_k7(C, dtype, tol):
     assert gdia_mac.LAUNCHES_BY_KC.get((7, C), 0) == before + 1
     assert out.shape == (C, n)
     assert (out.cpu() - ref).abs().max() <= tol * ref.abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-13)])
+@pytest.mark.parametrize("C", [3, 1])
+def test_cuda_kernel_matches_plain_forward_step(C, dtype, tol):
+    """On the card: both K = 5 forms at the forward step's lattice at
+    scale 16 (960 x 256, offsets 0, +-1, +-960), the shape rhoCentralFoam
+    launches them at (C = 3 in every reconstruction's gradient, C = 1 in
+    its viscous div(tauMC)), counted once by (K, C)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator().manual_seed(10 + C)
+    n, offs = 960 * 256, (-960, -1, 0, 1, 960)
+    x = torch.randn(n, generator=g, dtype=dtype)
+    coeffs = torch.randn(5, C, n, generator=g, dtype=dtype)
+    ref = gdia_mac.shift_mac_cols_plain(x, coeffs, offs)
+    before = gdia_mac.LAUNCHES_BY_KC.get((5, C), 0)
+    out = gdia_mac.shift_mac_cols(x.cuda(), coeffs.cuda(), offs)
+    torch.cuda.synchronize()
+    assert gdia_mac.LAUNCHES_BY_KC.get((5, C), 0) == before + 1
+    assert out.shape == (C, n)
+    assert (out.cpu() - ref).abs().max() <= tol * ref.abs().max()
