@@ -13,8 +13,12 @@ Device and dtype policy:
 - the float width follows the JAX dispatcher (rapidcfd_tpu/__main__.py:
   115-153): every ported solver runs fp32 by default, the
   pressure-based compressible ones included (rhoSimpleFoam and
-  rhoPimpleFoam with p in deviation form), except rhoCentralFoam, which
-  the JAX dispatcher keeps in fp64; ``-precision`` overrides.
+  rhoPimpleFoam with p in deviation form) and the Boussinesq pair,
+  except those the JAX dispatcher keeps in fp64: rhoCentralFoam and the
+  full-density heat-transfer solvers buoyantSimpleFoam,
+  buoyantPimpleFoam and thermoFoam, whose absolute pressures of ~1e5 Pa
+  leave their dynamic part below fp32's resolution; ``-precision``
+  overrides.
 """
 
 from __future__ import annotations
@@ -26,9 +30,11 @@ __version__ = "0.1.0"
 _DTYPES = {"fp32": torch.float32, "fp64": torch.float64}
 
 #: ported solvers whose default width is fp64 (those of the JAX
-#: dispatcher's X64_DEFAULT): rhoCentralFoam; every other ported solver,
-#: the pressure-based compressible ones included, is fp32 by default there
-X64_DEFAULT: frozenset = frozenset({"rhoCentralFoam"})
+#: dispatcher's X64_DEFAULT); every other ported solver is fp32 by
+#: default there
+X64_DEFAULT: frozenset = frozenset({
+    "rhoCentralFoam", "buoyantSimpleFoam", "buoyantPimpleFoam",
+    "thermoFoam"})
 
 
 def resolve_device(name) -> torch.device:

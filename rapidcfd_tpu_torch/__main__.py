@@ -1,16 +1,20 @@
 """Solver dispatcher: `python -m rapidcfd_tpu_torch [solver] -case DIR
-[-precision fp32|fp64] [-device cuda|cpu]`.
+[-precision fp32|fp64] [-device cuda|cpu] [-gdiaBox]`.
 
 Without an explicit solver name, reads `application` from
 system/controlDict (the reference's convention). The device defaults to
 cuda and is never swapped for another: without a card, `-device cuda`
-raises.
+raises. `-gdiaBox` routes a mesh that is a full box lattice (no blanked
+cell) onto the gdia layout and its shift-MAC kernel; without it a full
+box takes the padded ELL, as the JAX package's structured-box layout,
+which takes such meshes there, is not ported.
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib
+import inspect
 import os
 import sys
 
@@ -32,6 +36,15 @@ SOLVERS = {
     "rhoLTSPimpleFoam": ("rapidcfd_tpu_torch.solvers.rhopimplefoam",
                          {"lts": True}),
     "rhoCentralFoam": ("rapidcfd_tpu_torch.solvers.rhocentralfoam", {}),
+    "buoyantBoussinesqSimpleFoam": ("rapidcfd_tpu_torch.solvers.buoyantfoam",
+                                    {}),
+    "buoyantBoussinesqPimpleFoam": ("rapidcfd_tpu_torch.solvers.buoyantfoam",
+                                    {"transient": True}),
+    "buoyantSimpleFoam": ("rapidcfd_tpu_torch.solvers.buoyantsimplefoam",
+                          {}),
+    "buoyantPimpleFoam": ("rapidcfd_tpu_torch.solvers.buoyantpimplefoam",
+                          {}),
+    "thermoFoam": ("rapidcfd_tpu_torch.solvers.thermofoam", {}),
 }
 
 
@@ -48,6 +61,8 @@ def main(argv=None):
                     help="override the solver's default float width")
     ap.add_argument("-device", default="cuda",
                     help="torch device to run on (cuda or cpu)")
+    ap.add_argument("-gdiaBox", action="store_true",
+                    help="route a full box lattice onto the gdia layout")
     args = ap.parse_args(argv)
 
     name = args.solver
@@ -58,10 +73,17 @@ def main(argv=None):
         sys.exit(f"solver '{name}' is not ported. Available: "
                  f"{', '.join(sorted(SOLVERS))}")
     device = resolve_device(args.device)
+    dtype = solver_dtype(name, args.precision)
     module, kwargs = SOLVERS[name]
-    importlib.import_module(module).run(
-        args.case, device=device, dtype=solver_dtype(name, args.precision),
-        write=not args.noWrite, **kwargs)
+    run = importlib.import_module(module).run
+    if args.gdiaBox:
+        if "case" not in inspect.signature(run).parameters:
+            sys.exit(f"-gdiaBox is not supported by {name}")
+        from .solvers.case import Case
+        kwargs = dict(kwargs, case=Case(args.case, device=device,
+                                        dtype=dtype, gdia_box=True))
+    run(args.case, device=device, dtype=dtype, write=not args.noWrite,
+        **kwargs)
 
 
 if __name__ == "__main__":

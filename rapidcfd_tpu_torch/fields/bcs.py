@@ -18,10 +18,13 @@ inletOutlet, totalPressure, uniformTotalPressure (p0 a constant, as in
 the JAX package), pressureInletOutletVelocity, flowRateInletVelocity and
 the turbulentIntensityKineticEnergyInlet, turbulentMixingLength-
 DissipationRateInlet and turbulentMixingLengthFrequencyInlet estimators;
-and the wall functions of kEpsilon and kOmegaSST: nutkWallFunction,
+the wall functions of kEpsilon and kOmegaSST: nutkWallFunction,
 kqRWallFunction, epsilonWallFunction and omegaWallFunction (the JAX
 package keeps those in models/turbulence.py, which re-exports them
-here). Other types raise in `make_bc`.
+here); and the heat-transfer set: fixedGradient, fixedFluxPressure with
+its setSnGrad helpers, prghPressure and the Marshak condition of the P1
+radiation model (kept in models/radiation.py by the JAX package). Other
+types raise in `make_bc`.
 
 The open-boundary types read the flux, the velocity or k from `env`, as
 the JAX call sites pass it; without it they fall back as the JAX package
@@ -236,6 +239,155 @@ class Symmetry(BC):
 class Slip(Symmetry):
     """Inviscid wall (reference: derived/slip): the symmetry condition."""
     word = "slip"
+
+
+@dataclass(frozen=True)
+class FixedGradient(BC):
+    """psi_b = psi_c + gradient/deltaCoeffs (reference: basic/
+    fixedGradient)."""
+    preserves_type = True
+    word = "fixedGradient"
+
+    def _grad(self, bd, psi_c):
+        return torch.broadcast_to(bd["gradient"], psi_c.shape)
+
+    def evaluate(self, mesh, patch, field, bd, env=None):
+        psi_c = field.patch_internal(mesh, patch)
+        dc = _bcast(mesh.patch_delta_coeffs(patch), psi_c)
+        return psi_c + self._grad(bd, psi_c) / dc
+
+    def value_internal_coeff(self, mesh, patch, field, bd, env=None):
+        return _coeff(mesh, patch, field, 1.0)
+
+    def gradient_internal_coeff(self, mesh, patch, field, bd, env=None):
+        return _coeff(mesh, patch, field, 0.0)
+
+
+@dataclass(frozen=True)
+class FixedFluxPressure(FixedGradient):
+    """fixedFluxPressure (port of rapidcfd_tpu/fields/bcs.py:507-535;
+    reference: derived/fixedFluxPressure/fixedFluxPressureFvPatchScalar-
+    Field.C:115-140): a fixed gradient that the buoyant solvers set at
+    every pressure corrector (set_fixed_flux_pressure_gradient, the
+    reference's setSnGrad) so that the boundary pressure flux balances
+    the body-force and HbyA fluxes:
+
+        gradient = (phiHbyA_b - Sf_b & U_b) / (magSf_b * Dp_b)
+
+    The gradient lives in the field's bcdata as `snGrad`, a tensor on the
+    field's device; before the first setSnGrad it is the dictionary's
+    `gradient` entry, or zero."""
+    value_free = True
+    word = "fixedFluxPressure"
+
+    def _grad(self, bd, psi_c):
+        g = bd.get("snGrad", bd.get("gradient"))
+        if g is None:
+            return torch.zeros_like(psi_c)
+        return torch.broadcast_to(g, psi_c.shape)
+
+
+def fixed_flux_pressure_mask(mesh, field) -> torch.Tensor:
+    """(nBoundaryFaces,) 1.0 on the faces of fixedFluxPressure patches
+    (rapidcfd_tpu/fields/bcs.py:537-548): the buoyant solvers keep the
+    body-force boundary flux only where the BC balances it."""
+    m = torch.zeros(mesh.n_boundary, dtype=field.data.dtype,
+                    device=field.data.device)
+    for patch, bc in zip(mesh.patches, field.bcs):
+        if isinstance(bc, FixedFluxPressure) and patch.size:
+            m[patch.bstart:patch.bstart + patch.size] = 1.0
+    return m
+
+
+def set_fixed_flux_pressure_gradient(mesh, field, sngrad_b):
+    """setSnGrad<fixedFluxPressure> (rapidcfd_tpu/fields/bcs.py:550-570):
+    store the solver's boundary snGrad ((nBoundaryFaces,), bstart order)
+    in every fixedFluxPressure patch's bcdata and re-evaluate the
+    boundary values. The field itself when it has no such patch."""
+    new_bd = []
+    changed = False
+    for patch, bc, bd in zip(mesh.patches, field.bcs, field.bcdata):
+        if isinstance(bc, FixedFluxPressure) and patch.size:
+            d = dict(bd)
+            d["snGrad"] = sngrad_b[patch.bstart:patch.bstart + patch.size]
+            new_bd.append(d)
+            changed = True
+        else:
+            new_bd.append(bd)
+    if not changed:
+        return field
+    return field.replace(bcdata=tuple(new_bd)) \
+        .correct_boundary_conditions(mesh)
+
+
+@dataclass(frozen=True)
+class PrghPressure(FixedValue):
+    """p_rgh = p - rho gh at the patch (port of rapidcfd_tpu/fields/
+    bcs.py:1160-1175; reference: derived/prghPressure). env carries
+    'rho' (a VolField) and 'gh_b' (gh at the boundary faces, bstart
+    order); without them the patch holds p, as fixedValue."""
+    word = "prghPressure"
+
+    def evaluate(self, mesh, patch, field, bd, env=None):
+        p = torch.broadcast_to(bd.get("p", bd.get("value")), (patch.size,))
+        if env is None or "rho" not in env or "gh_b" not in env:
+            return p
+        sl = slice(patch.bstart, patch.bstart + patch.size)
+        return p - env["rho"].bvalues[sl] * env["gh_b"][sl]
+
+
+#: Stefan-Boltzmann constant [W/m2/K4] (the reference's physicoChemical)
+SIGMA_SB = 5.670373e-8
+
+
+@dataclass(frozen=True)
+class MarshakRadiation(Mixed):
+    """Marshak condition for the incident radiation G (port of
+    rapidcfd_tpu/models/radiation.py:35-86; reference: radiationModels/
+    derivedFvPatchFields/MarshakRadiation): -gamma dG/dn = e/(2(2 - e))
+    (G - 4 sigma Tw^4) as a mixed condition with valueFraction
+    alpha/(alpha + gamma deltaCoeffs). P1Radiation.correct stores the
+    current wall data in bcdata (marshakRefValue, marshakFraction);
+    before that the wall temperature comes from env 'T' and gamma from
+    env 'gammaRad' (zero and 1 without them)."""
+    word = "MarshakRadiation"
+
+    def _mixed_bd(self, mesh, patch, bd, env, psi_c):
+        if "marshakRefValue" in bd:
+            return dict(refValue=bd["marshakRefValue"],
+                        refGradient=torch.zeros_like(psi_c),
+                        valueFraction=bd["marshakFraction"]
+                        * torch.ones_like(psi_c))
+        e = torch.clamp(bd["emissivity"], 1e-3, 1.0) \
+            if "emissivity" in bd else torch.ones_like(psi_c)
+        t_env = (env or {}).get("T")
+        if t_env is not None:
+            tw = t_env.bvalues[patch.bstart:patch.bstart + patch.size]
+        else:
+            tw = torch.zeros_like(psi_c)
+        gamma = (env or {}).get("gammaRad", 1.0)
+        alpha = e / (2.0 * (2.0 - e))
+        f = alpha / (alpha + gamma * mesh.patch_delta_coeffs(patch))
+        return dict(refValue=4.0 * SIGMA_SB * tw ** 4,
+                    refGradient=torch.zeros_like(psi_c),
+                    valueFraction=f * torch.ones_like(psi_c))
+
+    def evaluate(self, mesh, patch, field, bd, env=None):
+        psi_c = field.patch_internal(mesh, patch)
+        return Mixed.evaluate(self, mesh, patch, field,
+                              self._mixed_bd(mesh, patch, bd, env, psi_c))
+
+    def value_internal_coeff(self, mesh, patch, field, bd, env=None):
+        psi_c = field.patch_internal(mesh, patch)
+        return Mixed.value_internal_coeff(
+            self, mesh, patch, field,
+            self._mixed_bd(mesh, patch, bd, env, psi_c))
+
+    def gradient_internal_coeff(self, mesh, patch, field, bd, env=None):
+        psi_c = field.patch_internal(mesh, patch)
+        return Mixed.gradient_internal_coeff(
+            self, mesh, patch, field,
+            self._mixed_bd(mesh, patch, bd, env, psi_c))
 
 
 def _patch_phi(mesh, patch, field, env):
@@ -518,7 +670,11 @@ BC_TYPES = {cls.word: cls for cls in (
     TurbulentMixingLengthDissipationRateInlet,
     TurbulentMixingLengthFrequencyInlet, TotalPressure, UniformTotalPressure,
     PressureInletOutletVelocity, FlowRateInletVelocity, NutkWallFunction,
-    KqRWallFunction, EpsilonWallFunction, OmegaWallFunction)}
+    KqRWallFunction, EpsilonWallFunction, OmegaWallFunction, FixedGradient,
+    FixedFluxPressure, PrghPressure, MarshakRadiation)}
+#: the reference's other names of the Marshak condition
+BC_TYPES["MarshakRadiationFixedTemperature"] = MarshakRadiation
+BC_TYPES["greyDiffusiveRadiation"] = MarshakRadiation
 #: the reference's plain `symmetry` patch field: the same condition (it
 #: is written back as symmetryPlane)
 BC_TYPES["symmetry"] = Symmetry

@@ -137,13 +137,17 @@ class MeshArrays:
 
     def add_at_patches(self, data: torch.Tensor, items) -> torch.Tensor:
         """data[faceCells(p)] += vals over a list of (patch, vals) of
-        non-empty patches, through add_at_boundary_cells."""
-        if not items:
-            return data
-        b = data.new_zeros((self.n_boundary,) + tuple(data.shape[1:]))
+        non-empty patches, patch after patch and, within a patch, face
+        after face: the order of the JAX package's per-patch scatter-adds
+        (fvMatrix A, H and relax), so that a cell on two patches rounds
+        as it does there. Each add writes unique indices (a cell with
+        several faces on one patch takes them in successive adds), so the
+        result does not depend on the order of atomics on the card."""
         for p, v in items:
-            b[p.bstart:p.bstart + p.size] = v
-        return self.add_at_boundary_cells(data, b)
+            for pos, cells in _patch_add_columns(self, p):
+                data = data.index_add(0, cells, v if pos is None
+                                      else v.index_select(0, pos))
+        return data
 
     def patch_mag_sf(self, p: Patch) -> torch.Tensor:
         return self.mag_sf[p.start:p.start + p.size]
@@ -230,6 +234,39 @@ class MeshMaps:
                        dev_order.dtype)
         out[self.face_perm[real]] = dev_order[real]
         return out
+
+
+#: (id(mesh.owner), patch start) -> (mesh.owner, columns): the per-patch
+#: add columns of add_at_patches, computed once per mesh on the host
+_PATCH_COLUMNS: dict = {}
+
+
+def _patch_add_columns(mesh: MeshArrays, p: Patch):
+    """[(face positions or None, face cells)] splitting a patch's faces
+    into adds of unique cells, the k-th face of each cell in the k-th
+    add (one add of every face, positions None, when the cells are
+    distinct)."""
+    key = (id(mesh.owner), p.start, p.size)
+    hit = _PATCH_COLUMNS.get(key)
+    if hit is not None and hit[0] is mesh.owner:
+        return hit[1]
+    cells_t = mesh.patch_face_cells(p)
+    cells = cells_t.cpu().numpy()
+    if np.unique(cells).size == cells.size:
+        cols = [(None, cells_t)]
+    else:
+        order = np.argsort(cells, kind="stable")
+        first = np.r_[0, np.nonzero(np.diff(cells[order]))[0] + 1]
+        rank = np.empty(cells.size, np.int64)
+        rank[order] = np.arange(cells.size) - np.repeat(
+            first, np.diff(np.r_[first, cells.size]))
+        cols = []
+        for k in range(int(rank.max()) + 1):
+            pos = np.nonzero(rank == k)[0]
+            pos_t = torch.as_tensor(pos, device=cells_t.device)
+            cols.append((pos_t, cells_t.index_select(0, pos_t)))
+    _PATCH_COLUMNS[key] = (mesh.owner, cols)
+    return cols
 
 
 def _bnd_batch(own: np.ndarray, patches):

@@ -35,7 +35,8 @@ from ..utils.dimensions import DimensionSet, dim_viscosity
 __all__ = ["CompressibleTurbulence", "EpsilonWallFunction", "KEpsilon",
            "KOmegaSST", "KqRWallFunction", "Laminar", "NutkWallFunction",
            "OmegaWallFunction", "bound",
-           "magsqr_symm_grad", "make_ras_model", "wall_distance"]
+           "magsqr_symm_grad", "make_ras_model", "ras_model_name",
+           "wall_distance"]
 
 _RTIME = DimensionSet.of(0, 0, -1)
 
@@ -429,9 +430,10 @@ RAS_MODELS = {"laminar": Laminar, "kEpsilon": KEpsilon,
               "kOmegaSST": KOmegaSST}
 
 
-def make_ras_model(case, U):
-    """incompressible::RASModel::New: reads constant/RASProperties or
-    constant/turbulenceProperties; laminar when there is neither."""
+def _ras_selection(case):
+    """(model name, its coefficients dictionary) from constant/
+    RASProperties or constant/turbulenceProperties; ('laminar', None)
+    when there is neither or the model is switched off."""
     props = None
     for fname in ("RASProperties", "turbulenceProperties"):
         path = os.path.join(case.dir, "constant", fname)
@@ -439,14 +441,14 @@ def make_ras_model(case, U):
             props = parse_file(path)
             break
     if props is None:
-        return Laminar(case, Dictionary())
+        return "laminar", None
     sim_type = props.word("simulationType", "RAS") \
         if props.lookup("simulationType") is not None else None
     if sim_type in ("LES", "LESModel") or props.lookup("LES") is not None \
             or props.lookup("LESModel") is not None:
         raise NotImplementedError("LES models are not ported yet")
     if sim_type == "laminar":
-        return Laminar(case, Dictionary())
+        return "laminar", None
     if props.lookup("RAS") is not None:     # the modern format nests RAS {}
         sub = props.subdict("RAS")
         name = sub.word("RASModel", "laminar")
@@ -456,8 +458,20 @@ def make_ras_model(case, U):
         name = props.word("RASModel", "laminar")
         coeffs = props.subdict(name + "Coeffs", required=False)
         on = props.boolean("turbulence", True)
-    if not on:
-        name = "laminar"
+    return (name, coeffs) if on else ("laminar", None)
+
+
+def ras_model_name(case) -> str:
+    """The RAS model a case asks for ('laminar' without one)."""
+    return _ras_selection(case)[0]
+
+
+def make_ras_model(case, U):
+    """incompressible::RASModel::New: reads constant/RASProperties or
+    constant/turbulenceProperties; laminar when there is neither."""
+    name, coeffs = _ras_selection(case)
+    if name == "laminar":
+        return Laminar(case, Dictionary())
     cls = RAS_MODELS.get(name)
     if cls is None:
         raise NotImplementedError(

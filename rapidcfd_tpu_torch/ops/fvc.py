@@ -368,6 +368,62 @@ def zero_unread_faces(mesh: MeshArrays, face_data: torch.Tensor
     return face_data
 
 
+def reconstruct(mesh: MeshArrays, ssf: SurfaceField) -> VolField:
+    """Cell vector from face fluxes (fvc::reconstruct, the JAX package's
+    inverse-dyad form): sum_f(Sf Sf/|Sf|)^-1 & sum_f(Sf ssf_f/|Sf|). Both
+    sums are unsigned (Sf*ssf does not change sign with the side it is
+    seen from). A 2-D mesh leaves a zero row and column for the empty
+    direction, so the dyad is regularised by 1e-10 of its trace; the
+    3x3 inverse is the closed form (adjugate over determinant). Faces no
+    sum reads (gdia dummies, empty patches) are zeroed first, so garbage
+    there cannot reach a cell."""
+    sf_over_mag = mesh.Sf / torch.clamp(mesh.mag_sf, min=1e-30)[:, None]
+    dyad_f = sf_over_mag[:, :, None] * mesh.Sf[:, None, :]
+    rhs_f = sf_over_mag * zero_unread_faces(mesh, ssf.data)[:, None]
+    a = surface_sum_faces(mesh, dyad_f, signed=False)           # (n, 3, 3)
+    rhs = surface_sum_faces(mesh, rhs_f, signed=False)          # (n, 3)
+    tr = a.diagonal(dim1=-2, dim2=-1).sum(-1)
+    a = a + (1e-10 * tr)[:, None, None] * torch.eye(
+        3, dtype=a.dtype, device=a.device)
+    c00 = a[:, 1, 1] * a[:, 2, 2] - a[:, 1, 2] * a[:, 2, 1]
+    c01 = a[:, 1, 2] * a[:, 2, 0] - a[:, 1, 0] * a[:, 2, 2]
+    c02 = a[:, 1, 0] * a[:, 2, 1] - a[:, 1, 1] * a[:, 2, 0]
+    c10 = a[:, 0, 2] * a[:, 2, 1] - a[:, 0, 1] * a[:, 2, 2]
+    c11 = a[:, 0, 0] * a[:, 2, 2] - a[:, 0, 2] * a[:, 2, 0]
+    c12 = a[:, 0, 1] * a[:, 2, 0] - a[:, 0, 0] * a[:, 2, 1]
+    c20 = a[:, 0, 1] * a[:, 1, 2] - a[:, 0, 2] * a[:, 1, 1]
+    c21 = a[:, 0, 2] * a[:, 1, 0] - a[:, 0, 0] * a[:, 1, 2]
+    c22 = a[:, 0, 0] * a[:, 1, 1] - a[:, 0, 1] * a[:, 1, 0]
+    det = a[:, 0, 0] * c00 + a[:, 0, 1] * c01 + a[:, 0, 2] * c02
+    rdet = 1.0 / torch.where(det.abs() < 1e-30,
+                             torch.full_like(det, 1e-30), det)
+    adj = torch.stack([torch.stack([c00, c10, c20], -1),
+                       torch.stack([c01, c11, c21], -1),
+                       torch.stack([c02, c12, c22], -1)], -2)
+    data = rdet[:, None] * (adj * rhs[:, None, :]).sum(-1)
+    return _extrapolated(mesh, data, ssf.dims / _AREA,
+                         f"reconstruct({ssf.name})")
+
+
+def average(mesh: MeshArrays, ssf: SurfaceField) -> VolField:
+    """Area-weighted face-to-cell average (fvc::average), both sums
+    unsigned."""
+    w_sum = surface_sum_faces(mesh, mesh.mag_sf, signed=False)
+    v = zero_unread_faces(mesh, ssf.data)
+    v_sum = surface_sum_faces(mesh, _ext(mesh.mag_sf, v) * v, signed=False)
+    w_sum = torch.where(w_sum > 0, w_sum, torch.ones_like(w_sum))
+    return _extrapolated(mesh, v_sum / _ext(w_sum, v_sum), ssf.dims,
+                         f"average({ssf.name})")
+
+
+def domain_integrate(mesh: MeshArrays, vf: VolField) -> torch.Tensor:
+    """gSum(V*field) over the cells. On gdia meshes the assembly volume
+    is used, which is 0 at dead and ghost slots (the JAX package sums V,
+    which repeats a real cell's volume there; the two agree on a lattice
+    with neither)."""
+    return (vf.data * _ext(mesh.V_asm, vf.data)).sum(0)
+
+
 def smooth(mesh: MeshArrays, data: torch.Tensor, coeff: float,
            sweeps: int = 8) -> torch.Tensor:
     """fvc::smooth (reference: fvcSmooth/fvcSmooth.C): raise each cell to

@@ -28,13 +28,16 @@ from ..utils.unstructured import detect_lattice
 class Case:
     def __init__(self, case_dir: str, *, device: torch.device,
                  dtype: torch.dtype, pmesh=None, lattice: dict | None = None,
-                 gdia_auto: bool = True):
+                 gdia_auto: bool = True, gdia_box: bool = False):
         """pmesh injects an in-memory PolyMesh (large benches skip the
         ascii mesh round-trip); lattice (the embedding that
         utils.unstructured fills through lattice_out) routes the mesh to
         the gdia mode; without one, a masked-lattice mesh is detected
         unless gdia_auto=False (the JAX package's RCFD_GDIA_AUTO=0), which
-        sends it to the ELL path too."""
+        sends it to the ELL path too. A full box lattice (no dead slot)
+        takes the ELL path too unless gdia_box=True, which routes it onto
+        gdia (the JAX package sends full boxes to its structured-box
+        layout, which is not ported)."""
         self.dir = case_dir
         self.device = device
         self.dtype = dtype
@@ -50,7 +53,7 @@ class Case:
             self.setup_seconds["read"] = time.perf_counter() - t0
         if lattice is None and gdia_auto:
             t0 = time.perf_counter()
-            lattice = detect_lattice(pmesh)
+            lattice = detect_lattice(pmesh, full_box=gdia_box)
             self.setup_seconds["detect_lattice"] = time.perf_counter() - t0
             if lattice is not None:
                 nz_, ny_, nx_ = lattice["shape"]
@@ -74,9 +77,10 @@ class Case:
         self.step_seconds: list[float] = []
 
     # -- fields ---------------------------------------------------------------
-    def read_field(self, name: str):
-        return read_vol_field(self.dir, self.time.name, name, self.mesh,
-                              self.maps)
+    def read_field(self, name: str, time: str | None = None):
+        """A field of the current time directory (or of `time`)."""
+        return read_vol_field(self.dir, time or self.time.name, name,
+                              self.mesh, self.maps)
 
     def field_exists(self, name: str) -> bool:
         return os.path.isfile(os.path.join(self.dir, self.time.name, name))

@@ -2,9 +2,11 @@
 box_mesh, masked_grid_mesh, cavity_case, pitz_daily_case, forward_step_case,
 hot_channel_case and write_field,
 plus pitz_daily_ico_case (the pitzDaily mesh under the cavity's icoFoam
-dictionaries) and tjunction_case (pimpleFoam's T-junction, which the JAX
-package has no writer for). These write case files only; the JAX solver
-runs the same directories unchanged."""
+dictionaries), tjunction_case (pimpleFoam's T-junction, which the JAX
+package has no writer for), the heat-transfer cases the JAX package's
+tests write inline (boussinesq_cavity_case, heated_cavity_case,
+thermo_channel_case) and hot_room_case. These write case files only; the
+JAX solver runs the same directories unchanged."""
 
 from __future__ import annotations
 
@@ -2389,4 +2391,582 @@ mixture
                             "        inletValue      uniform (0 0 0);\n"
                             "        value           uniform (0 0 0);\n"),
                  "walls": noslip, "frontAndBack": emp})
+    return mesh
+
+
+# ---------------------------------------------------------------------------
+# heat transfer: the JAX package's test cavities and the hot room
+# ---------------------------------------------------------------------------
+
+_EMPTY = "        type            empty;\n"
+_ZG = "        type            zeroGradient;\n"
+
+#: air as tests/test_heattransfer.py:18-34 writes it
+_AIR_THERMO = """
+thermoType
+{
+    type            heRhoThermo;
+    mixture         pureMixture;
+    transport       const;
+    thermo          hConst;
+    equationOfState perfectGas;
+    specie          specie;
+    energy          sensibleEnthalpy;
+}
+mixture
+{
+    specie         { nMoles 1; molWeight 28.9; }
+    thermodynamics { Cp 1005; Hf 0; }
+    transport      { mu 1.8e-05; Pr 0.7; }
+}
+"""
+
+#: the radiationProperties of tests/test_heattransfer.py:339-358
+_P1_PROPERTIES = """
+radiation       on;
+radiationModel  P1;
+absorptionEmissionModel constantAbsorptionEmission;
+constantAbsorptionEmissionCoeffs
+{
+    absorptivity    absorptivity [ 0 -1 0 0 0 0 0 ] 0.5;
+    emissivity      emissivity [ 0 -1 0 0 0 0 0 ] 0.5;
+    E               E [ 1 -1 -3 0 0 0 0 ] 0;
+}
+scatterModel    constantScatter;
+constantScatterCoeffs
+{
+    sigma           sigma [ 0 -1 0 0 0 0 0 ] 0;
+    C               C [ 0 0 0 0 0 0 0 ] 0;
+}
+"""
+
+
+def _fv(v) -> str:
+    return ("        type            fixedValue;\n"
+            f"        value           uniform {v};\n")
+
+
+def _write_dict(case_dir: str, where: str, name: str, body: str,
+                cls: str = "dictionary"):
+    _write(os.path.join(case_dir, where, name),
+           foamfile_header(cls, name, where), body)
+
+
+def _write_g(case_dir: str):
+    _write_dict(case_dir, "constant", "g",
+                "\ndimensions      [0 1 -2 0 0 0 0];\n"
+                "value           (0 -9.81 0);\n",
+                cls="uniformDimensionedVectorField")
+
+
+def _cavity_mesh(case_dir: str, n: int, size, names) -> PolyMesh:
+    """An n x n x 1 closed 2-D cavity with the given wall names on
+    (xmin, xmax, ymin, ymax) and an empty front and back."""
+    mesh = box_mesh(n, n, 1, size=size, patch_spec={
+        "xmin": (names[0], "wall"), "xmax": (names[1], "wall"),
+        "ymin": (names[2], "wall"), "ymax": (names[3], "wall"),
+        "zmin": (names[4], "empty"), "zmax": (names[4], "empty")})
+    write_polymesh(mesh, case_dir)
+    return mesh
+
+
+def boussinesq_cavity_case(case_dir: str, n: int = 16,
+                           transient: bool = False,
+                           p_bc: str = "zeroGradient") -> PolyMesh:
+    """The differentially heated 1 x 1 m cavity of tests/test_buoyant.py:
+    15-97 (buoyantBoussinesqSimpleFoam: walls at 310 and 290 K, GAMG
+    p_rgh, laminar) or, transient=True, its buoyantBoussinesqPimpleFoam
+    form of :100-150 (Euler, dt 0.05, PCG p_rgh, PIMPLE 1 x 2). p_bc:
+    the walls' p_rgh condition, zeroGradient as in the tests or
+    fixedFluxPressure."""
+    names = ("hotWall", "coldWall", "floor", "ceiling", "frontAndBack")
+    mesh = _cavity_mesh(case_dir, n, (1.0, 1.0, 0.1), names)
+    if transient:
+        control = """
+application buoyantBoussinesqPimpleFoam;
+startFrom startTime; startTime 0; stopAt endTime; endTime 2.0;
+deltaT 0.05; writeControl timeStep; writeInterval 1000;
+writeFormat ascii;
+"""
+        schemes = """
+ddtSchemes { default Euler; }
+gradSchemes { default Gauss linear; }
+divSchemes { default none; div(phi,U) Gauss upwind;
+             div(phi,T) Gauss upwind; }
+laplacianSchemes { default Gauss linear orthogonal; }
+interpolationSchemes { default linear; }
+snGradSchemes { default orthogonal; }
+"""
+        solution = """
+solvers
+{
+    p_rgh { solver PCG; preconditioner DIC; tolerance 1e-08;
+            relTol 0.01; }
+    p_rghFinal { solver PCG; preconditioner DIC; tolerance 1e-08;
+                 relTol 0; }
+    "(U|T)" { solver smoothSolver; smoother symGaussSeidel;
+              tolerance 1e-08; relTol 0; }
+    "(U|T)Final" { solver smoothSolver; smoother symGaussSeidel;
+                   tolerance 1e-08; relTol 0; }
+}
+PIMPLE { nOuterCorrectors 1; nCorrectors 2;
+         nNonOrthogonalCorrectors 0; }
+"""
+    else:
+        control = """
+application buoyantBoussinesqSimpleFoam;
+startFrom startTime; startTime 0; stopAt endTime; endTime 100;
+deltaT 1; writeControl timeStep; writeInterval 100; writeFormat ascii;
+"""
+        schemes = """
+ddtSchemes { default steadyState; }
+gradSchemes { default Gauss linear; }
+divSchemes { default none; div(phi,U) bounded Gauss upwind;
+             div(phi,T) bounded Gauss upwind; }
+laplacianSchemes { default Gauss linear orthogonal; }
+interpolationSchemes { default linear; }
+snGradSchemes { default orthogonal; }
+"""
+        solution = """
+solvers
+{
+    p_rgh { solver GAMG; smoother GaussSeidel; tolerance 1e-08;
+            relTol 0.05; }
+    "(U|T)" { solver smoothSolver; smoother symGaussSeidel;
+              tolerance 1e-07; relTol 0.1; }
+}
+SIMPLE { nNonOrthogonalCorrectors 0; pRefCell 0; pRefValue 0; }
+relaxationFactors
+{
+    fields { p_rgh 0.5; }
+    equations { U 0.5; T 0.5; }
+}
+"""
+    _write_dict(case_dir, "system", "controlDict", control)
+    _write_dict(case_dir, "system", "fvSchemes", schemes)
+    _write_dict(case_dir, "system", "fvSolution", solution)
+    _write_dict(case_dir, "constant", "transportProperties", """
+transportModel Newtonian;
+nu              nu [0 2 -1 0 0 0 0] 1e-03;
+beta            beta [0 0 0 -1 0 0 0] 3e-03;
+TRef            TRef [0 0 0 1 0 0 0] 300;
+Pr              Pr [0 0 0 0 0 0 0] 0.7;
+Prt             Prt [0 0 0 0 0 0 0] 0.85;
+""")
+    _write_g(case_dir)
+    _write_dict(case_dir, "constant", "RASProperties",
+                "\nRASModel laminar;\nturbulence off;\n")
+    walls = names[:4]
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                "uniform (0 0 0)", {**{w: _fv("(0 0 0)") for w in walls},
+                                    names[4]: _EMPTY})
+    p_spec = (_ZG if p_bc == "zeroGradient" else
+              f"        type            {p_bc};\n"
+              "        value           uniform 0;\n")
+    write_field(case_dir, "0", "p_rgh", "volScalarField", "[0 2 -2 0 0 0 0]",
+                "uniform 0", {**{w: p_spec for w in walls},
+                              names[4]: _EMPTY})
+    write_field(case_dir, "0", "T", "volScalarField", "[0 0 0 1 0 0 0]",
+                "uniform 300", {"hotWall": _fv(310), "coldWall": _fv(290),
+                                "floor": _ZG, "ceiling": _ZG,
+                                names[4]: _EMPTY})
+    return mesh
+
+
+def heated_cavity_case(case_dir: str, solver: str = "buoyantSimpleFoam",
+                       radiation: bool = False) -> PolyMesh:
+    """The closed air cavities of tests/test_heattransfer.py (0.1 m, walls
+    hot and cold, p_rgh and p at 1e5 Pa with zeroGradient walls):
+    buoyantSimpleFoam on 16 x 16 (:41-96: 310/290 K, GAMG p_rgh,
+    residualControl), buoyantPimpleFoam on 12 x 12 (:156-230: 320/280 K,
+    dt 0.005, PCG p_rgh, PIMPLE 1 x 2), or, radiation=True,
+    buoyantSimpleFoam with P1 on 12 x 12 (:233-326 and :330-366: G by
+    PCG, Marshak walls of emissivity 1)."""
+    steady = solver == "buoyantSimpleFoam"
+    n = 16 if steady and not radiation else 12
+    names = ("hot", "cold", "floor", "ceiling", "fb")
+    mesh = _cavity_mesh(case_dir, n, (0.1, 0.1, 0.01), names)
+    hot, cold = (310, 290) if steady else (320, 280)
+    schemes = """
+gradSchemes { default Gauss linear; }
+laplacianSchemes { default Gauss linear orthogonal; }
+interpolationSchemes { default linear; }
+snGradSchemes { default orthogonal; }
+"""
+    if steady:
+        end = 12 if radiation else 60
+        control = f"""
+application buoyantSimpleFoam; startFrom startTime; startTime 0;
+stopAt endTime; endTime {end}; deltaT 1;
+writeControl timeStep; writeInterval 1000; writeFormat ascii;
+"""
+        schemes += """
+ddtSchemes { default steadyState; }
+divSchemes { default none; div(phi,U) bounded Gauss upwind;
+             div(phi,h) bounded Gauss upwind; }
+"""
+        residual = ("residualControl { }" if radiation else
+                    "residualControl { p_rgh 1e-5; U 1e-6; h 1e-6; }")
+        g_solver = ("    G { solver PCG; preconditioner DIC; "
+                    "tolerance 1e-10; relTol 0; }\n" if radiation else "")
+        solution = f"""
+solvers
+{{
+    p_rgh {{ solver GAMG; smoother GaussSeidel; tolerance 1e-08;
+            relTol 0.01; }}
+    "(U|h)" {{ solver smoothSolver; smoother symGaussSeidel;
+              tolerance 1e-08; relTol 0.1; }}
+{g_solver}}}
+SIMPLE
+{{
+    nNonOrthogonalCorrectors 0;
+    pRefCell 0; pRefValue 100000;
+    {residual}
+}}
+relaxationFactors
+{{
+    fields    {{ p_rgh 0.7; rho 0.3; }}
+    equations {{ U 0.3; h 0.7; }}
+}}
+"""
+    else:
+        control = """
+application buoyantPimpleFoam; startFrom startTime; startTime 0;
+stopAt endTime; endTime 0.2; deltaT 0.005;
+writeControl timeStep; writeInterval 1000; writeFormat ascii;
+"""
+        schemes += """
+ddtSchemes { default Euler; }
+divSchemes { default none; div(phi,U) Gauss upwind;
+             div(phi,h) Gauss upwind; div(phi,K) Gauss upwind; }
+"""
+        solution = """
+solvers
+{
+    p_rgh { solver PCG; preconditioner DIC; tolerance 1e-08;
+            relTol 0.01; }
+    p_rghFinal { solver PCG; preconditioner DIC; tolerance 1e-08;
+                 relTol 0; }
+    "(U|h)" { solver smoothSolver; smoother symGaussSeidel;
+              tolerance 1e-08; relTol 0; }
+    "(U|h)Final" { solver smoothSolver; smoother symGaussSeidel;
+                   tolerance 1e-08; relTol 0; }
+}
+PIMPLE { nOuterCorrectors 1; nCorrectors 2;
+         nNonOrthogonalCorrectors 0; }
+"""
+    _write_dict(case_dir, "system", "controlDict", control)
+    _write_dict(case_dir, "system", "fvSchemes", schemes)
+    _write_dict(case_dir, "system", "fvSolution", solution)
+    _write_dict(case_dir, "constant", "thermophysicalProperties",
+                _AIR_THERMO)
+    _write_g(case_dir)
+    walls = {"hot": _fv(hot), "cold": _fv(cold), "floor": _ZG,
+             "ceiling": _ZG, "fb": _EMPTY}
+    write_field(case_dir, "0", "T", "volScalarField", "[0 0 0 1 0 0 0]",
+                "uniform 300", walls)
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                "uniform (0 0 0)",
+                {k: (_fv("(0 0 0)") if k != "fb" else _EMPTY)
+                 for k in walls})
+    zgs = {k: (_ZG if k != "fb" else _EMPTY) for k in walls}
+    for name in ("p_rgh", "p"):
+        write_field(case_dir, "0", name, "volScalarField",
+                    "[1 -1 -2 0 0 0 0]", "uniform 100000", zgs)
+    if radiation:
+        _write_dict(case_dir, "constant", "radiationProperties",
+                    _P1_PROPERTIES)
+        marshak = ("        type            MarshakRadiation;\n"
+                   "        emissivity      uniform 1.0;\n"
+                   "        value           uniform 0;\n")
+        write_field(case_dir, "0", "G", "volScalarField", "[1 0 -3 0 0 0 0]",
+                    "uniform 0", {k: (marshak if k != "fb" else _EMPTY)
+                                  for k in walls})
+    return mesh
+
+
+def thermo_channel_case(case_dir: str) -> PolyMesh:
+    """thermoFoam's frozen channel flow of tests/test_heattransfer.py:
+    99-153: a 0.3 x 0.05 m channel of 30 x 6 cells, U = 1 m/s, the lower
+    wall at 400 K, dt 0.002 s, PBiCGStab/DILU h."""
+    mesh = box_mesh(30, 6, 1, size=(0.3, 0.05, 0.01), patch_spec={
+        "xmin": ("inlet", "patch"), "xmax": ("outlet", "patch"),
+        "ymin": ("hotWall", "wall"), "ymax": ("topWall", "wall"),
+        "zmin": ("fb", "empty"), "zmax": ("fb", "empty")})
+    write_polymesh(mesh, case_dir)
+    _write_dict(case_dir, "system", "controlDict", """
+application thermoFoam; startFrom startTime; startTime 0;
+stopAt endTime; endTime 0.1; deltaT 0.002;
+writeControl timeStep; writeInterval 1000; writeFormat ascii;
+""")
+    _write_dict(case_dir, "system", "fvSchemes", """
+ddtSchemes { default Euler; }
+gradSchemes { default Gauss linear; }
+divSchemes { default none; div(phi,h) Gauss upwind; }
+laplacianSchemes { default Gauss linear orthogonal; }
+interpolationSchemes { default linear; }
+snGradSchemes { default orthogonal; }
+""")
+    _write_dict(case_dir, "system", "fvSolution", """
+solvers { h { solver PBiCGStab; preconditioner DILU;
+              tolerance 1e-09; relTol 0; } }
+""")
+    _write_dict(case_dir, "constant", "thermophysicalProperties",
+                _AIR_THERMO)
+    write_field(case_dir, "0", "T", "volScalarField", "[0 0 0 1 0 0 0]",
+                "uniform 300", {"inlet": _fv(300), "outlet": _ZG,
+                                "hotWall": _fv(400), "topWall": _ZG,
+                                "fb": _EMPTY})
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                "uniform (1 0 0)", {"inlet": _fv("(1 0 0)"), "outlet": _ZG,
+                                    "hotWall": _fv("(0 0 0)"),
+                                    "topWall": _fv("(0 0 0)"),
+                                    "fb": _EMPTY})
+    write_field(case_dir, "0", "p", "volScalarField", "[1 -1 -2 0 0 0 0]",
+                "uniform 100000", {"inlet": _ZG, "outlet": _ZG,
+                                   "hotWall": _ZG, "topWall": _ZG,
+                                   "fb": _EMPTY})
+    return mesh
+
+
+ROOM_SIZE = (10.0, 6.0, 4.0)
+
+
+def _room_mesh(nx: int, ny: int, nz: int) -> PolyMesh:
+    """The room's box with its floor split into `floor` and the 1 x 1 m
+    `heater` at its centre: the floor faces whose centre lies within
+    0.5 m (or half a cell, where cells are coarser) of the floor's centre
+    in x and in z."""
+    mesh = box_mesh(nx, ny, nz, size=ROOM_SIZE, patch_spec={
+        "ymin": ("floor", "wall"), "ymax": ("ceiling", "wall"),
+        "xmin": ("fixedWalls", "wall"), "xmax": ("fixedWalls", "wall"),
+        "zmin": ("fixedWalls", "wall"), "zmax": ("fixedWalls", "wall")})
+    floor = mesh.patches[0]
+    s, e = floor.start_face, floor.start_face + floor.n_faces
+    quads = mesh.face_points.reshape(-1, 4)
+    centre = mesh.points[quads[s:e]].mean(axis=1)
+    half = [max(0.5, 0.5 * ROOM_SIZE[a] / n + 1e-9)
+            for a, n in ((0, nx), (2, nz))]
+    heat = ((np.abs(centre[:, 0] - 0.5 * ROOM_SIZE[0]) <= half[0])
+            & (np.abs(centre[:, 2] - 0.5 * ROOM_SIZE[2]) <= half[1]))
+    order = np.concatenate([np.nonzero(~heat)[0], np.nonzero(heat)[0]]) + s
+    quads = quads.copy()
+    owner = mesh.owner.copy()
+    quads[s:e], owner[s:e] = quads[order], owner[order]
+    n_floor = int((~heat).sum())
+    patches = [BoundaryPatch("floor", "wall", s, n_floor),
+               BoundaryPatch("heater", "wall", s + n_floor,
+                             int(heat.sum()))] + list(mesh.patches[1:])
+    return PolyMesh(mesh.points, quads.ravel(), mesh.face_offsets, owner,
+                    mesh.neighbour, patches)
+
+
+def hot_room_case(case_dir: str, nx: int = 160, ny: int = 96, nz: int = 64,
+                  *, solver: str = "buoyantBoussinesqSimpleFoam",
+                  turbulence: str = "kEpsilon", end_time: float = 2000,
+                  delta_t: float = 1.0, write_mesh: bool = True,
+                  lattice_out: dict | None = None) -> PolyMesh:
+    """A closed 10 x 6 x 4 m room heated from the floor, written after
+    OpenFOAM's heatTransfer/buoyantBoussinesqSimpleFoam/hotRoom tutorial.
+    No copy of that tutorial is at hand: every number here is this
+    writer's choice. y is up, g = (0 -9.81 0); a uniform nx x ny x nz
+    lattice (the default 160 x 96 x 64 is 983,040 cells of 0.0625 m);
+    patches floor, heater (1 x 1 m at the floor's centre), ceiling and
+    fixedWalls. The room starts at rest at 300 K; the heater is held at
+    600 K, every other wall at 300 K.
+
+    solver "buoyantBoussinesqSimpleFoam": transportProperties nu 1e-5,
+    beta 3e-3, TRef 300, Pr 0.9, Prt 0.7; noSlip U; p_rgh [m2/s2]
+    fixedFluxPressure on every wall, pRefCell 0, pRefValue 0; kEpsilon
+    (turbulence="laminar" for none) with nutkWallFunction,
+    epsilonWallFunction and kqRWallFunction, k and epsilon starting at
+    8e-2 m2/s2 and 0.23 m2/s3; `bounded Gauss upwind` for U, T, k and
+    epsilon, Gauss linear gradients, orthogonal laplacians (the lattice
+    is orthogonal); p_rgh by GAMG (the structured V-cycle on gdia),
+    relaxation p_rgh 0.7, U 0.3, T 0.5, k and epsilon 0.5. No patch has
+    an outflow, so adjustPhi has nothing to scale.
+
+    solver "buoyantPimpleFoam": the same room filled with air (perfect
+    gas, Cp 1005, mu 1.8e-5, Pr 0.7), p_rgh and p [Pa] at 1e5,
+    fixedFluxPressure walls, laminar, Euler with dt delta_t, PIMPLE 1 x 2,
+    GAMG p_rgh.
+
+    write_mesh=False skips the ascii polyMesh (a million cells); the
+    returned PolyMesh then goes to Case(pmesh=, lattice=).
+    lattice_out receives the gdia embedding: the lattice is the box
+    itself, cells in lattice order, no dead slot."""
+    if solver not in ("buoyantBoussinesqSimpleFoam", "buoyantPimpleFoam"):
+        raise ValueError(f"hot_room_case: unsupported solver '{solver}'")
+    boussinesq = solver == "buoyantBoussinesqSimpleFoam"
+    if not boussinesq and turbulence != "laminar":
+        raise ValueError("buoyantPimpleFoam is laminar")
+    mesh = _room_mesh(nx, ny, nz)
+    if write_mesh:
+        write_polymesh(mesh, case_dir)
+    if lattice_out is not None:
+        n_int = mesh.n_internal_faces
+        nc = nx * ny * nz
+        lattice_out.update(
+            shape=(nz, ny, nx), slot_cell=np.arange(nc, dtype=np.int64),
+            ghost_lead=np.arange(nc, dtype=np.int64),
+            orig_own_int=mesh.owner[:n_int].copy(),
+            orig_nei_int=mesh.neighbour.copy(),
+            orig_own_bnd=mesh.owner[n_int:].copy(),
+            flip_int=np.zeros(n_int, dtype=bool),
+            dead=np.zeros(nc, dtype=bool))
+    walls = ("floor", "heater", "ceiling", "fixedWalls")
+    write_interval = max(1, int(round(end_time / delta_t)))
+    _write_dict(case_dir, "system", "controlDict", f"""
+application     {solver};
+startFrom       startTime;
+startTime       0;
+stopAt          endTime;
+endTime         {end_time:g};
+deltaT          {delta_t:g};
+writeControl    timeStep;
+writeInterval   {write_interval};
+writeFormat     ascii;
+""")
+    no_slip = "        type            noSlip;\n"
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                "uniform (0 0 0)", {w: no_slip for w in walls})
+    write_field(case_dir, "0", "T", "volScalarField", "[0 0 0 1 0 0 0]",
+                "uniform 300", {w: _fv(600 if w == "heater" else 300)
+                                for w in walls})
+    _write_g(case_dir)
+    if boussinesq:
+        turb_words = ("k", "epsilon") if turbulence != "laminar" else ()
+        div = "".join(f"    div(phi,{f}) bounded Gauss upwind;\n"
+                      for f in ("U", "T") + turb_words)
+        _write_dict(case_dir, "system", "fvSchemes", f"""
+ddtSchemes      {{ default steadyState; }}
+gradSchemes     {{ default Gauss linear; }}
+divSchemes
+{{
+    default         none;
+{div}    div((nuEff*dev(T(grad(U))))) Gauss linear;
+}}
+laplacianSchemes {{ default Gauss linear orthogonal; }}
+interpolationSchemes {{ default linear; }}
+snGradSchemes   {{ default orthogonal; }}
+""")
+        _write_dict(case_dir, "system", "fvSolution", """
+solvers
+{
+    p_rgh
+    {
+        solver          GAMG;
+        smoother        GaussSeidel;
+        tolerance       1e-08;
+        relTol          0.01;
+    }
+    "(U|T|k|epsilon)"
+    {
+        solver          smoothSolver;
+        smoother        symGaussSeidel;
+        tolerance       1e-08;
+        relTol          0.1;
+    }
+}
+SIMPLE
+{
+    nNonOrthogonalCorrectors 0;
+    pRefCell        0;
+    pRefValue       0;
+    residualControl { p_rgh 1e-2; U 1e-3; T 1e-3; "(k|epsilon)" 1e-3; }
+}
+relaxationFactors
+{
+    fields    { p_rgh 0.7; }
+    equations { U 0.3; T 0.5; k 0.5; epsilon 0.5; }
+}
+""")
+        _write_dict(case_dir, "constant", "transportProperties", """
+transportModel  Newtonian;
+nu              nu [0 2 -1 0 0 0 0] 1e-05;
+beta            beta [0 0 0 -1 0 0 0] 3e-03;
+TRef            TRef [0 0 0 1 0 0 0] 300;
+Pr              Pr [0 0 0 0 0 0 0] 0.9;
+Prt             Prt [0 0 0 0 0 0 0] 0.7;
+""")
+        ffp = ("        type            fixedFluxPressure;\n"
+               "        value           uniform 0;\n")
+        write_field(case_dir, "0", "p_rgh", "volScalarField",
+                    "[0 2 -2 0 0 0 0]", "uniform 0", {w: ffp for w in walls})
+        if turbulence == "laminar":
+            _write_dict(case_dir, "constant", "RASProperties",
+                        "\nRASModel laminar;\nturbulence off;\n")
+            return mesh
+        if turbulence != "kEpsilon":
+            raise ValueError(f"hot_room_case: turbulence '{turbulence}' "
+                             "(kEpsilon or laminar)")
+        _write_dict(case_dir, "constant", "RASProperties",
+                    "\nRASModel kEpsilon;\nturbulence on;\n"
+                    "printCoeffs on;\n")
+        for name, dims, value, word in (
+                ("k", "[0 2 -2 0 0 0 0]", "8e-2", "kqRWallFunction"),
+                ("epsilon", "[0 2 -3 0 0 0 0]", "0.23",
+                 "epsilonWallFunction"),
+                ("nut", "[0 2 -1 0 0 0 0]", "0", "nutkWallFunction")):
+            spec = (f"        type            {word};\n"
+                    f"        value           uniform {value};\n")
+            write_field(case_dir, "0", name, "volScalarField", dims,
+                        f"uniform {value}", {w: spec for w in walls})
+        return mesh
+    _write_dict(case_dir, "system", "fvSchemes", """
+ddtSchemes      { default Euler; }
+gradSchemes     { default Gauss linear; }
+divSchemes
+{
+    default         none;
+    div(phi,U)      Gauss upwind;
+    div(phi,h)      Gauss upwind;
+    div(phi,K)      Gauss upwind;
+}
+laplacianSchemes { default Gauss linear orthogonal; }
+interpolationSchemes { default linear; }
+snGradSchemes   { default orthogonal; }
+""")
+    _write_dict(case_dir, "system", "fvSolution", """
+solvers
+{
+    p_rgh
+    {
+        solver          GAMG;
+        smoother        GaussSeidel;
+        tolerance       1e-08;
+        relTol          0.01;
+    }
+    p_rghFinal
+    {
+        solver          GAMG;
+        smoother        GaussSeidel;
+        tolerance       1e-08;
+        relTol          0;
+    }
+    "(U|h)"
+    {
+        solver          smoothSolver;
+        smoother        symGaussSeidel;
+        tolerance       1e-08;
+        relTol          0;
+    }
+}
+PIMPLE
+{
+    nOuterCorrectors 1;
+    nCorrectors     2;
+    nNonOrthogonalCorrectors 0;
+}
+""")
+    _write_dict(case_dir, "constant", "thermophysicalProperties",
+                _AIR_THERMO)
+    ffp = ("        type            fixedFluxPressure;\n"
+           "        value           uniform 100000;\n")
+    write_field(case_dir, "0", "p_rgh", "volScalarField", "[1 -1 -2 0 0 0 0]",
+                "uniform 100000", {w: ffp for w in walls})
+    calc = ("        type            calculated;\n"
+            "        value           uniform 100000;\n")
+    write_field(case_dir, "0", "p", "volScalarField", "[1 -1 -2 0 0 0 0]",
+                "uniform 100000", {w: calc for w in walls})
     return mesh

@@ -573,12 +573,13 @@ def _cluster_coords(v: np.ndarray, span: float):
     return centres, out
 
 
-def detect_lattice(mesh: PolyMesh) -> dict | None:
+def detect_lattice(mesh: PolyMesh, full_box: bool = False) -> dict | None:
     """Recover a box-lattice embedding from an axis-aligned masked-grid
     mesh (forward steps, T-junctions, obstacles: a uniform-or-graded grid
     MINUS blanked cells). Returns the lattice dict consumed by
     build_gdia_mesh_arrays (dead slots marked), or None when the mesh is
-    not of this class or is a full box (no dead slot)."""
+    not of this class or, unless full_box, is a full box (no dead
+    slot). How the patches split the boundary does not matter."""
     n_cells = mesh.n_cells
     if n_cells == 0:
         return None
@@ -607,7 +608,7 @@ def detect_lattice(mesh: PolyMesh) -> dict | None:
     slot_cell[slot] = np.arange(n_cells)
     dead = np.ones(n_lat, bool)
     dead[slot] = False
-    if not dead.any():
+    if not dead.any() and not full_box:
         return None
     return {
         "shape": (nz, ny, nx),

@@ -260,15 +260,21 @@ def test_read_thermo_matches_jax(fstep, hot, tmp_path):
 
 def test_read_thermo_refuses_the_general_stack(tmp_path):
     """janaf (and the other stacks the JAX package's SpecieThermo
-    serves) raises in the port, naming it."""
+    serves) goes to the general specie stack in both packages; it raised
+    in the port until the stack was ported (tests/test_torch_thermo.py
+    holds the stack itself): the port's bundle has the JAX package's
+    fields."""
     path = str(tmp_path / "janaf")
     _write(path, foamfile_header("dictionary", "thermophysicalProperties",
                                  "constant"),
            _SUTHERLAND.replace("hConst", "janaf"))
     assert jthermo._wants_general_stack(jparse(path))
     assert tthermo._wants_general_stack(parse_file(path))
-    with pytest.raises(NotImplementedError, match="SpecieThermo"):
-        tthermo.read_thermo(parse_file(path))
+    a = tthermo.read_thermo(parse_file(path))
+    b = jthermo.read_thermo(jparse(path))
+    assert isinstance(a, tthermo.SpecieThermo) and a.cp_mode == "janaf"
+    assert {k: getattr(a, k) for k in a.__dataclass_fields__} \
+        == {k: getattr(b, k) for k in b.__dataclass_fields__}
 
 
 @pytest.mark.parametrize("layout", ["gdia", "ell"])

@@ -116,8 +116,12 @@ def test_port_runs_without_jax(tmp_path):
     (gdia, the limited schemes, slip), two rhoSimpleFoam iterations of
     the heated channel (ELL, GAMG p in deviation form), one rhoCentralFoam
     step of the forward step (gdia) and one rhoPimpleFoam step of the
-    heated channel (ELL), on the CPU pulls no jax module and no module of
-    the JAX package into the process."""
+    heated channel (ELL), and of the heat-transfer slice one
+    buoyantBoussinesqSimpleFoam iteration of the small kEpsilon hot room
+    (3-D gdia), one buoyantBoussinesqPimpleFoam step of the cavity, one
+    buoyantSimpleFoam iteration of the P1 cavity, one buoyantPimpleFoam
+    step and one thermoFoam step, on the CPU pulls no jax module and no
+    module of the JAX package into the process."""
     d = str(tmp_path / "case")
     c = str(tmp_path / "cavity")
     s = str(tmp_path / "simple")
@@ -127,6 +131,9 @@ def test_port_runs_without_jax(tmp_path):
     hc = str(tmp_path / "hot_channel")
     rc = str(tmp_path / "central")
     rp = str(tmp_path / "transient_hot_channel")
+    hr, bc, p1, bp, tf = (str(tmp_path / n) for n in (
+        "hot_room", "boussinesq_cavity", "p1_cavity", "pimple_cavity",
+        "thermo_channel"))
     script = f"""
 import sys
 
@@ -201,6 +208,37 @@ case, U, p, T, rho, phi = rhopimplefoam.run(
     max_steps=1)
 assert case.mesh.gdia is None and len(case.step_log) == 1
 assert all(torch.isfinite(f.data).all() for f in [U, p, T, rho])
+from rapidcfd_tpu_torch.solvers import (buoyantfoam, buoyantpimplefoam,
+                                        buoyantsimplefoam, thermofoam)
+from rapidcfd_tpu_torch.solvers.case import Case
+from rapidcfd_tpu_torch.utils.casegen import (boussinesq_cavity_case,
+                                              heated_cavity_case,
+                                              hot_room_case,
+                                              thermo_channel_case)
+hot_room_case({hr!r}, 8, 6, 4)
+cpu, f32 = torch.device("cpu"), torch.float32
+case, U, p, T, phi, ts = buoyantfoam.run(
+    {hr!r}, device=cpu, dtype=f32, write=False, max_steps=1,
+    case=Case({hr!r}, device=cpu, dtype=f32, gdia_box=True))
+assert case.mesh.gdia is not None and sorted(ts) == ["epsilon", "k", "nut"]
+assert all(torch.isfinite(f.data).all() for f in [U, p, T, *ts.values()])
+boussinesq_cavity_case({bc!r}, n=8, transient=True)
+case, U, p, T, phi, ts = buoyantfoam.run(
+    {bc!r}, device=cpu, dtype=f32, write=False, max_steps=1, transient=True)
+assert all(torch.isfinite(f.data).all() for f in [U, p, T])
+heated_cavity_case({p1!r}, radiation=True)
+heated_cavity_case({bp!r}, "buoyantPimpleFoam")
+f64 = torch.float64
+for module, case_dir in ((buoyantsimplefoam, {p1!r}),
+                         (buoyantpimplefoam, {bp!r})):
+    case, U, p_rgh, T, p, rho, phi = module.run(
+        case_dir, device=cpu, dtype=f64, write=False, max_steps=1)
+    assert all(torch.isfinite(f.data).all() for f in [U, p_rgh, T, rho])
+    assert (case.G is not None) == (module is buoyantsimplefoam)
+thermo_channel_case({tf!r})
+case, T = thermofoam.run({tf!r}, device=cpu, dtype=f64, write=False,
+                         max_steps=1)
+assert torch.isfinite(T.data).all() and len(case.step_log) == 1
 print("NEW_FOREIGN_MODULES", sorted(foreign() - before))
 print("JAX_LEFT_OUT", not before and "jax" not in sys.modules)
 print("JAX_PRELOADED", bool(before))
