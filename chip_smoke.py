@@ -178,17 +178,45 @@ Phases (any failure raises and the script exits non-zero):
    cells, gdia), dt 0.05 s: one warm-up step and 5 timed ones; fields
    finite, T within 300-600 K, the closed room's mass within 1e-6 of the
    initial after every step;
-27. a JSON line of kernel results (the kernel's four forms, its two K = 7
+27. (run right after phase 23) both K = 5 forms on the full-size dam
+   break's own Gauss planes (1024 x 1024, n = 1,048,576, offsets 0, +-1,
+   +-1024) against the plain version, fp32 to 1e-5 and fp64 to 1e-13,
+   timed cold and warm beside cuSPARSE as in phase 3, and both forms in
+   fp32 and fp64 on the planes of the small dam breaks (16x16, 12x12 and
+   6x6, whose offsets +-6 take the generic kernel); the fp32 case, written
+   by `dam_break_case` and routed as `-gdiaBox` routes it, is kept for
+   phase 29;
+28. the VOF family in fp64, 5 steps each on cuda and on cpu: interFoam
+   with explicit MULES and with MULESCorr (dt 0.004), LTSInterFoam and
+   twoLiquidMixingFoam on the 16x16 dam break (gdia; 5 K = 5, C = 3
+   launches per interFoam step, checked), interMixingFoam on the 12x12
+   air-over-two-liquids box (gdia) and interPhaseChangeFoam on the 30x6
+   cavitating channel (ELL): every field within VOF_RTOL relative,
+   iteration counts within one; then `python3 -m rapidcfd_tpu_torch
+   interFoam -case D -gdiaBox` on a 64x64 dam break on the card;
+29. the main path of the VOF slice: interFoam (explicit MULES) on the
+   1024x1024 dam break (1,048,576 cells, a full box on the 2-D gdia
+   lattice) in fp32 from rest at dt 1e-4: one warm-up step, 5 timed
+   windows of 2 steps, one profiled step and one clocked step (the p_rgh
+   solves timed alone), then 3 MULESCorr steps from there; every field
+   finite, alpha within [-1e-6, 1 + 1e-6] and the water volume within
+   1e-5 of its start after every step, 5 K = 5, C = 3 launches at every
+   step; ms/step (median of the windows), cell-updates/s, p_rgh PCG
+   iterations per corrector and the stall guard's cuts, Courant max,
+   set-up by stage, peak memory, the profiled step's launches, busy
+   share and top kernels;
+30. a JSON line of kernel results (the kernel's four forms, its two K = 7
    forms on the T-junction's planes and on the hot room's, and its K = 5,
-   C = 3 form on the
-   forward step's planes: cold times of the kernel, the baseline, the
+   C = 3 form on the forward step's planes and on the dam break's (its
+   C = 1 form there too where that path launches it): cold times of the
+   kernel, the baseline, the
    plain version and cuSPARSE as `ms`, `baseline_ms`, `plain_ms` and
    `library_ms`, held against `bound_ms`, and their warm times as
    `*warm_ms`, with their launches on their main path — simpleFoam
    pitzDaily x5 for K = 5, the channel for K = 7, the T-junction, the
-   forward step (sonicFoam) and the hot room for their planes — and on
-   each path, rhoCentralFoam's, rhoPimpleFoam's and the heat-transfer
-   paths' included), the card's name and
+   forward step (sonicFoam), the hot room and the dam break for their
+   planes — and on each path, rhoCentralFoam's, rhoPimpleFoam's, the
+   heat-transfer and the VOF paths' included), the card's name and
    power limit, and the result line {"ok": true, "device": {...}}
    last.
 
@@ -2813,6 +2841,395 @@ def phase_room_pimple(tmp: str, smi: str) -> dict:
     return launches
 
 
+# the VOF family (phases 27-29): interFoam on the dam break at 1024 x 1024
+# (dam_break_case as written: OpenFOAM's damBreak tutorial without the
+# obstacle, top closed), fp32 on the 2-D gdia lattice, dt 1e-4 from rest
+DAM_N = 1024
+DAM_CELLS = DAM_N * DAM_N
+DAM_DT = 1e-4
+DAM_OFFSETS = (-DAM_N, -1, 0, 1, DAM_N)
+DAM_SMALL = (16, 12, 6)             # the small dam breaks' planes (6: generic)
+DAM_WINDOWS, DAM_WINDOW = 5, 2      # 5 timed windows of 2 steps after 1
+DAM_CORR_STEPS = 3                  # MULESCorr steps after the main path
+# shift-MAC launches of one interFoam step (nCorrectors 3, one alpha
+# sub-cycle): fvc.grad(alpha) for nHatf and for vanLeer's r, and the CSF
+# curvature's in each corrector, all K = 5, C = 3
+DAM_LAUNCHES = {(5, 3): 5}
+# tests/test_interfoam.py's bounds: alpha within [0, 1] to 1e-6; the
+# closed box's water volume within 1e-5 of its start in fp32
+DAM_ALPHA_ATOL = 1e-6
+DAM_VOL_RTOL = 1e-5
+# fp64 cuda against cpu on the small VOF cases (phase 28), as phase 13
+VOF_RTOL = 1e-10
+
+
+def _dam_case(tmp: str, name: str, n: int, dtype, **kw):
+    """A dam break written by the port's writer and read with -gdiaBox's
+    routing: (case, set-up seconds by stage)."""
+    from rapidcfd_tpu_torch.solvers.case import Case
+    from rapidcfd_tpu_torch.utils.casegen import dam_break_case
+    from rapidcfd_tpu_torch.utils.logging import captured
+    with captured():
+        t0 = time.perf_counter()
+        dam_break_case(f"{tmp}/{name}", n=n, **kw)
+        t_gen = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        case = Case(f"{tmp}/{name}", device=torch.device("cuda"),
+                    dtype=dtype, gdia_box=True)
+        t_case = time.perf_counter() - t0
+    return case, dict(write_case=t_gen, **case.setup_seconds,
+                      case_total=t_case)
+
+
+def phase_dam_kernel(tmp: str, smi: str):
+    """Both K = 5 forms on the full-size dam break's own Gauss planes (n =
+    1,048,576, offsets DAM_OFFSETS) against the plain version, fp32 to
+    1e-5 and fp64 to 1e-13, timed cold and warm beside cuSPARSE (before
+    any step is traced, as phase 15); and both forms, fp32 and fp64, on
+    the planes of the small dam breaks (DAM_SMALL; n = 36 takes the
+    generic kernel). Returns (timings by (K, C), the fp32 case with its
+    set-up seconds, for phase 29)."""
+    from rapidcfd_tpu_torch.ops import gdia_mac as gm
+    t0 = time.perf_counter()
+    case, setup_s = _dam_case(tmp, "dam", DAM_N, torch.float32,
+                              delta_t=DAM_DT, end_time=1.0)
+    torch.cuda.synchronize()
+    setup_s["total"] = time.perf_counter() - t0
+    planes = case.mesh.gauss
+    check(tuple(planes.offsets) == DAM_OFFSETS
+          and tuple(planes.coeffs.shape) == (5, 3, DAM_CELLS)
+          and case.mesh.n_cells == DAM_CELLS,
+          f"unexpected dam-break planes {planes.offsets} "
+          f"{tuple(planes.coeffs.shape)}")
+    for n in DAM_SMALL:
+        small, _ = _dam_case(tmp, "dam_planes", n, torch.float64)
+        sp = small.mesh.gauss
+        for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-13)):
+            g = torch.Generator(device="cuda").manual_seed(55)
+            x = torch.randn(small.mesh.n_cells, generator=g, device="cuda",
+                            dtype=dtype)
+            for coeffs in (sp.coeffs.to(dtype), sp.coeffs_i[1].to(dtype)):
+                ref = gm.shift_mac_cols_plain(x, coeffs, sp.offsets)
+                err = (gm.shift_mac_cols(x, coeffs, sp.offsets)
+                       - ref).abs().max().item()
+                check(err <= tol * ref.abs().max().item(),
+                      f"[27] kernel disagrees with the plain version on the "
+                      f"{n}x{n} dam break's planes: {err}")
+        print(f"[27] fp32 and fp64, both K = 5 forms on the planes of the "
+              f"{n}x{n} dam break (n = {small.mesh.n_cells}): within 1e-5 / "
+              f"1e-13 of the plain version")
+    g = torch.Generator(device="cuda").manual_seed(1024)
+    x = torch.randn(DAM_CELLS, generator=g, device="cuda")
+    res = {}
+    for C, coeffs, n_sets in ((3, planes.coeffs, 2),        # 159 MB
+                              (1, planes.coeffs_i[1], 3)):   # 88 MB
+        for dtype, tol in ((torch.float64, 1e-13), (torch.float32, 1e-5)):
+            xd, cd = x.to(dtype), coeffs.to(dtype)
+            ref = gm.shift_mac_cols_plain(xd, cd, planes.offsets)
+            out = gm.shift_mac_cols(xd, cd, planes.offsets)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            lim = tol * ref.abs().max().item()
+            print(f"[27] {str(dtype)[6:]} dam-break planes, K=5 C={C} "
+                  f"n={DAM_CELLS}: max|d| {err:.2e} (limit {lim:.2e})")
+            check(err <= lim, f"kernel disagrees with the plain version on "
+                  f"the dam break's planes (C={C}, {dtype}): {err} > {lim}")
+        del xd, cd, ref, out
+        res[5, C] = dict(max_abs_err=err, **_time_form(
+            gm, 5, C, DAM_CELLS, planes.offsets, n_sets, smi,
+            coeffs=coeffs, label="[27]"))
+        torch.cuda.empty_cache()
+    return res, (case, setup_s)
+
+
+def _vof_run(solver: str, d: str, dev: str, steps: int, case):
+    """A VOF solver's run in fp64: (case, {field: tensor}, per-step
+    iteration counts)."""
+    from rapidcfd_tpu_torch.solvers import (interfoam, interphasechangefoam,
+                                            intermixingfoam)
+    from rapidcfd_tpu_torch.utils.logging import captured
+    mod, kw, names = {
+        "interFoam": (interfoam, {}, ("alpha", "U", "p_rgh", "phi")),
+        "LTSInterFoam": (interfoam, dict(lts=True),
+                         ("alpha", "U", "p_rgh", "phi")),
+        "twoLiquidMixingFoam": (interfoam, dict(mixing=True),
+                                ("alpha", "U", "p_rgh", "phi")),
+        "interMixingFoam": (intermixingfoam, {},
+                            ("alpha1", "alpha2", "U", "p_rgh", "phi")),
+        "interPhaseChangeFoam": (interphasechangefoam, {},
+                                 ("alpha", "U", "p_rgh", "phi"))}[solver]
+    with captured():
+        case, *out = mod.run(d, device=torch.device(dev),
+                             dtype=torch.float64, write=False,
+                             max_steps=steps, case=case, **kw)
+    return (case, {n: f.data for n, f in zip(names, out)},
+            [r["iterations"] for r in case.step_log])
+
+
+def phase_vof_agreement(tmp: str):
+    """The VOF family in fp64 on cuda and on cpu, 5 steps each:
+    interFoam with explicit MULES (16x16 dam break; DAM_LAUNCHES per step
+    on cuda, checked) and MULESCorr (dt 0.004), LTSInterFoam (localEuler)
+    and twoLiquidMixingFoam (Dab 2e-3) on the 16x16 dam break,
+    interMixingFoam on the 12x12 air-over-two-liquids box (gdia) and
+    interPhaseChangeFoam on the 30x6 cavitating channel (ELL): every field
+    within VOF_RTOL relative, iteration counts within one. Then
+    `python3 -m rapidcfd_tpu_torch interFoam -case D -gdiaBox` on a 64x64
+    dam break, on the card."""
+    from rapidcfd_tpu_torch.ops import gdia_mac
+    from rapidcfd_tpu_torch.solvers.case import Case
+    from rapidcfd_tpu_torch.utils import casegen
+    from rapidcfd_tpu_torch.utils.logging import captured
+
+    def lts_dam(d):
+        casegen.dam_break_case(d, n=16, end_time=0.02)
+        casegen.local_euler(d)
+    cases = (
+        ("interFoam", "dam break 16x16",
+         lambda d: casegen.dam_break_case(d, n=16), True),
+        ("interFoam", "dam break 16x16 MULESCorr dt 0.004",
+         lambda d: casegen.dam_break_case(d, n=16, delta_t=0.004,
+                                          mules_corr=True), True),
+        ("LTSInterFoam", "dam break 16x16 localEuler", lts_dam, True),
+        ("twoLiquidMixingFoam", "dam break 16x16 Dab 2e-3",
+         lambda d: casegen.mixing_dam_break_case(d, n=16), True),
+        ("interMixingFoam", "air over two liquids 12x12",
+         lambda d: casegen.intermixing_case(d, n=12), True),
+        ("interPhaseChangeFoam", "cavitating channel 30x6",
+         casegen.cavitating_channel_case, False))
+    for i, (solver, what, writer, box) in enumerate(cases):
+        d = f"{tmp}/vof{i}"
+        with captured():
+            writer(d)
+        tag = f"[28] fp64 {solver} {what},"
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            with captured():
+                case = Case(d, device=torch.device(dev), dtype=torch.float64,
+                            gdia_box=box)
+            gdia_mac.reset_launches()
+            t0 = time.perf_counter()
+            outs[dev] = _vof_run(solver, d, dev, 5, case)
+            launches = dict(gdia_mac.LAUNCHES_BY_KC)
+            print(f"{tag} 5 steps on {dev} ({'gdia' if box else 'ELL'}): "
+                  f"{time.perf_counter() - t0:.2f} s; shift-MAC launches "
+                  f"{launches}")
+            if dev == "cuda" and i < 2:
+                check(launches == {kc: 5 * v for kc, v in
+                                   DAM_LAUNCHES.items()},
+                      f"{tag} expected {DAM_LAUNCHES} launches per step: "
+                      f"{launches}")
+        (gc, gf, g_its), (cc, cf, c_its) = outs["cuda"], outs["cpu"]
+        maps = cc.maps
+        errs = {}
+        for name in cf:
+            x, y = gf[name].cpu().numpy(), cf[name].numpy()
+            if name == "phi":
+                errs[name] = _rel(maps.faces_to_file(x, flux=True),
+                                  maps.faces_to_file(y, flux=True))
+            else:
+                errs[name] = _rel(maps.cells_to_file(x),
+                                  maps.cells_to_file(y))
+        n_off = _count_diffs(tag, g_its, c_its)
+        co = [r.get("co") for r in gc.step_log]
+        print(f"{tag} cuda vs cpu, relative max|d| (limit {VOF_RTOL:g}): "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f"; {n_off} iteration counts differ (by one); cuda step 1: "
+              f"{g_its[0]}" + (f"; Courant max by step "
+                               f"{[round(c[1], 5) for c in co]}"
+                               if co[0] is not None else ""))
+        check(all(v <= VOF_RTOL for v in errs.values()),
+              f"{tag} fp64 cuda and cpu runs disagree: {errs}")
+
+    # the dispatcher, as a user runs it on the card
+    d = f"{tmp}/dam_cli"
+    with captured():
+        casegen.dam_break_case(d, n=64, delta_t=DAM_DT, end_time=5 * DAM_DT)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "rapidcfd_tpu_torch",
+                          "interFoam", "-case", d, "-gdiaBox"],
+                         capture_output=True, text=True, timeout=300)
+    out = res.stdout
+    lines = [ln for ln in out.splitlines() if "Max(alpha1)" in ln]
+    check(res.returncode == 0 and "gdia: lattice 64x64x1 detected" in out
+          and len(lines) == 5 and out.rstrip().endswith("End"),
+          f"[28] python3 -m rapidcfd_tpu_torch interFoam -gdiaBox: rc "
+          f"{res.returncode}, {out[-600:]} {res.stderr[-1500:]}")
+    print(f"[28] python3 -m rapidcfd_tpu_torch interFoam -case <64x64 dam "
+          f"break> -gdiaBox on the card: 5 steps, {time.perf_counter() - t0:.1f}"
+          f" s with start-up; last step: {lines[-1].strip()}")
+
+
+def _p_cuts(perfs, controls) -> int:
+    """Solves that stopped neither converged nor at maxIter: the fp32
+    stall guard's cuts."""
+    n = 0
+    for (res0, res, it), c in zip(perfs, controls):
+        res0, res = float(res0), float(res)
+        done = res <= c.tolerance or (c.rel_tol > 0 and res <= c.rel_tol * res0)
+        n += int(not done and it < c.max_iter)
+    return n
+
+
+def phase_dam_main(tmp: str, smi: str, dam) -> dict:
+    """The main path of the VOF slice: interFoam (explicit MULES, the
+    writer's) on the 1024x1024 dam break (1,048,576 cells, a full box on
+    the 2-D gdia lattice) in fp32 from rest at dt DAM_DT, the case phase
+    27 built: one warm-up step, DAM_WINDOWS timed windows of DAM_WINDOW
+    steps (each ending in a device sync) and one profiled step; then
+    DAM_CORR_STEPS more steps with MULESCorr. alpha within [0, 1] up to
+    DAM_ALPHA_ATOL and the water volume within DAM_VOL_RTOL of its start
+    after every step, every field finite, DAM_LAUNCHES at every step.
+    Returns the launches by (K, C) over the timed steps."""
+    from rapidcfd_tpu_torch.ops import gdia_mac
+    from rapidcfd_tpu_torch.solvers import interfoam
+    from rapidcfd_tpu_torch.utils.logging import captured
+    tag = "[29] interFoam dam break 1024x1024"
+    case, setup_s = dam
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with captured():
+        state, step, _, _ = interfoam.setup(case)
+    torch.cuda.synchronize()
+    setup_s["fields_and_step"] = time.perf_counter() - t0
+    mesh = case.mesh
+    check(mesh.gdia is not None and mesh.n_cells == DAM_CELLS
+          and int(case.maps.cell_primary.sum()) == DAM_CELLS,
+          f"{tag}: expected {DAM_CELLS} cells on the gdia lattice")
+    V = mesh.V.double()
+    vol0 = float((state[0].data.double() * V).sum())
+    pc = [case.solver_controls("p_rgh")] * 2 \
+        + [case.solver_controls("p_rgh", final=True)]
+    print(f"{tag} fp32: {DAM_CELLS} cells (gdia, offsets "
+          f"{tuple(mesh.gauss.offsets)}), dt {DAM_DT}; water volume "
+          f"{vol0:.9e} m^3; set-up by stage: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in setup_s.items()))
+
+    def advance(step_fn, st_log, n):
+        nonlocal state
+        for _ in range(n):
+            before = dict(gdia_mac.LAUNCHES_BY_KC)
+            *state, st = step_fn(*state, DAM_DT)
+            now = dict(gdia_mac.LAUNCHES_BY_KC)
+            a_min, a_max = (float(v) for v in st["alpha"][:2])
+            vol = float((state[0].data.double() * V).sum())
+            st_log.append(dict(
+                launches={kc: now[kc] - before.get(kc, 0) for kc in now},
+                p_its=[int(pf[2]) for pf in st["p_perf"]],
+                cuts=_p_cuts(st["p_perf"], pc), co=float(st["co"][1]),
+                alpha=(a_min, a_max), dvol=abs(vol - vol0) / vol0))
+
+    log, secs = [], []
+    t0 = time.perf_counter()
+    advance(step, log, 1)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    for _ in range(DAM_WINDOWS):
+        t0 = time.perf_counter()
+        advance(step, log, DAM_WINDOW)
+        torch.cuda.synchronize()
+        secs.append((time.perf_counter() - t0) / DAM_WINDOW)
+    state, st, n_kernels, busy, t_prof, mac, top = _profiled_iteration(
+        lambda *s: step(*s, DAM_DT), state)
+    log.append(dict(launches=None,
+                    p_its=[int(pf[2]) for pf in st["p_perf"]],
+                    cuts=_p_cuts(st["p_perf"], pc), co=float(st["co"][1]),
+                    alpha=tuple(float(v) for v in st["alpha"][:2]),
+                    dvol=abs(float((state[0].data.double() * V).sum())
+                             - vol0) / vol0))
+    # one clocked step: the p_rgh solves timed alone, each between syncs
+    p_secs = []
+    solve = interfoam.solve
+
+    def clocked(*a, **k):
+        torch.cuda.synchronize()
+        t_ = time.perf_counter()
+        out = solve(*a, **k)
+        torch.cuda.synchronize()
+        p_secs.append(time.perf_counter() - t_)
+        return out
+    interfoam.solve = clocked
+    try:
+        t0 = time.perf_counter()
+        advance(step, log, 1)
+        torch.cuda.synchronize()
+        t_clocked = time.perf_counter() - t0
+    finally:
+        interfoam.solve = solve
+    med = statistics.median(secs)
+    print(f"{tag} clocked step: {t_clocked * 1e3:.1f} ms, of which the "
+          f"p_rgh solves {sum(p_secs) * 1e3:.1f} ms "
+          f"({sum(p_secs) / t_clocked:.1%}; "
+          + ", ".join(f"{v * 1e3:.1f}" for v in p_secs)
+          + f" ms for {log[-1]['p_its']} PCG iterations)")
+    print(f"{tag} warm-up step {warm * 1e3:.1f} ms; {DAM_WINDOWS} timed "
+          f"windows of {DAM_WINDOW} steps: "
+          + ", ".join(f"{s * 1e3:.3f}" for s in secs)
+          + f" ms/step; median {med * 1e3:.3f} ms/step, "
+          f"{DAM_CELLS / med:.1f} cell-updates/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (card: "
+          f"{smi})")
+    print(f"{tag} p_rgh PCG iterations per corrector by step: "
+          f"{[r['p_its'] for r in log]}; stall-guard cuts by step: "
+          f"{[r['cuts'] for r in log]}")
+    print(f"{tag} Courant max by step: {[round(r['co'], 6) for r in log]}; "
+          f"alpha min/max after the last: {log[-1]['alpha']}; relative "
+          f"change of the water volume by step: "
+          f"{['%.2e' % r['dvol'] for r in log]}")
+    print(f"{tag} profiled step: {t_prof * 1e3:.1f} ms, {n_kernels} kernel "
+          f"launches, device busy {busy * 1e3:.2f} ms ({busy / t_prof:.1%}) "
+          f"(card: {smi})")
+    print(f"{tag} profiled step, top kernels by device time (name, "
+          f"launches, ms): {top}")
+    print(f"{tag} profiled step, shift-MAC kernels: {mac}")
+    per_step = [r["launches"] for r in log if r["launches"] is not None]
+    print(f"{tag} shift-MAC launches per step by (K, C): {per_step[-1]} "
+          f"(C = 1: {per_step[-1].get((5, 1), 0)})")
+    check(all(d_ == DAM_LAUNCHES for d_ in per_step),
+          f"{tag}: a step did not launch {DAM_LAUNCHES}: {per_step}")
+    check(any("mac_stencil<float, 5, 3>" in name for name in mac),
+          f"{tag}: the profiled step did not run mac_stencil<float, 5, 3>: "
+          f"{mac}")
+    launches = {}
+    for d_ in per_step[1:1 + DAM_WINDOWS * DAM_WINDOW]:       # the timed
+        for kc, v in d_.items():
+            launches[kc] = launches.get(kc, 0) + v
+
+    # MULESCorr on the same case, from where the main path stopped
+    with captured():
+        ctrl = interfoam.PimpleControl(case)
+        corr = interfoam.make_step(case, interfoam.read_constants(case), ctrl,
+                                   mules_corr=True)
+    corr_log, corr_secs = [], []
+    for _ in range(DAM_CORR_STEPS):
+        t0 = time.perf_counter()
+        advance(corr, corr_log, 1)
+        torch.cuda.synchronize()
+        corr_secs.append(time.perf_counter() - t0)
+    print(f"{tag} MULESCorr, {DAM_CORR_STEPS} more steps: "
+          + ", ".join(f"{s * 1e3:.3f}" for s in corr_secs)
+          + f" ms; p_rgh iterations {[r['p_its'] for r in corr_log]}, cuts "
+          f"{[r['cuts'] for r in corr_log]}; Courant max "
+          f"{[round(r['co'], 6) for r in corr_log]}; alpha min/max "
+          f"{corr_log[-1]['alpha']}; water volume change "
+          f"{['%.2e' % r['dvol'] for r in corr_log]}; launches per step "
+          f"{corr_log[-1]['launches']}")
+    for f in state[:4]:
+        check(bool(torch.isfinite(f.data).all()), f"{tag}: {f.name} not "
+              "finite")
+    for r in log + corr_log:
+        a_min, a_max = r["alpha"]
+        check(-DAM_ALPHA_ATOL <= a_min and a_max <= 1.0 + DAM_ALPHA_ATOL,
+              f"{tag}: alpha left [0, 1]: {a_min}, {a_max}")
+        check(r["dvol"] <= DAM_VOL_RTOL,
+              f"{tag}: the water volume moved by {r['dvol']} of its start")
+    check(all(r["launches"].get((5, 3), 0) > 0 for r in corr_log),
+          f"{tag}: a MULESCorr step launched no K = 5, C = 3 kernel")
+    del state, case, dam, corr, step
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     smi = phase_setup()
     phase_build()
@@ -2821,6 +3238,7 @@ def main():
         tj_kernel = phase_tjunction_kernel(tmp, smi)
         fs_kernel = phase_fstep_kernel(tmp, smi)
         room_kernel, room_case = phase_room_kernel(tmp, smi)
+        dam_kernel, dam_case = phase_dam_kernel(tmp, smi)
         phase_fp64_agreement(tmp)
         ico = phase_main_path(tmp, smi)
         phase_cavity_agreement(tmp)
@@ -2842,6 +3260,9 @@ def main():
         room = phase_room_main(tmp, smi, room_case)
         del room_case
         room_pimple = phase_room_pimple(tmp, smi)
+        phase_vof_agreement(tmp)
+        dam = phase_dam_main(tmp, smi, dam_case)
+        del dam_case
     paths = {"simpleFoam pitzDaily x5": simple, "icoFoam pitzDaily x5": ico,
              "icoFoam cavity 384": cavity,
              "simpleFoam channel 160x80x80": channel,
@@ -2852,7 +3273,8 @@ def main():
              "rhoCentralFoam forward step x16": central,
              "rhoPimpleFoam heated channel 1024x256": rho_pimple,
              "buoyantBoussinesqSimpleFoam hot room 160x96x64": room,
-             "buoyantPimpleFoam hot room 80x48x32": room_pimple}
+             "buoyantPimpleFoam hot room 80x48x32": room_pimple,
+             "interFoam dam break 1024x1024": dam}
     kernels = []
     for (K, c), what, main_path, times in (
             ((5, 3), "Gauss gradient", "simpleFoam pitzDaily x5", k[5, 3]),
@@ -2873,7 +3295,14 @@ def main():
              room_kernel[7, 3]),
             ((7, 1), "divergence contraction, 3-D, hot-room planes",
              "buoyantBoussinesqSimpleFoam hot room 160x96x64",
-             room_kernel[7, 1])):
+             room_kernel[7, 1]),
+            ((5, 3), "Gauss gradient, dam-break planes",
+             "interFoam dam break 1024x1024", dam_kernel[5, 3]),
+            ((5, 1), "divergence contraction, dam-break planes",
+             "interFoam dam break 1024x1024", dam_kernel[5, 1])):
+        if (K, c) == (5, 1) and main_path == "interFoam dam break 1024x1024" \
+                and not dam.get((5, 1)):
+            continue      # the form is held and timed but not on this path
         kernels.append({
             "name": f"shift_mac K={K} C={c} ({what})", "route": "cuda",
             "source": "rapidcfd_tpu_torch/csrc/shift_mac.cu",

@@ -45,6 +45,13 @@ SOLVERS = {
     "buoyantPimpleFoam": ("rapidcfd_tpu_torch.solvers.buoyantpimplefoam",
                           {}),
     "thermoFoam": ("rapidcfd_tpu_torch.solvers.thermofoam", {}),
+    "interFoam": ("rapidcfd_tpu_torch.solvers.interfoam", {}),
+    "LTSInterFoam": ("rapidcfd_tpu_torch.solvers.interfoam", {"lts": True}),
+    "twoLiquidMixingFoam": ("rapidcfd_tpu_torch.solvers.interfoam",
+                            {"mixing": True}),
+    "interMixingFoam": ("rapidcfd_tpu_torch.solvers.intermixingfoam", {}),
+    "interPhaseChangeFoam": ("rapidcfd_tpu_torch.solvers."
+                             "interphasechangefoam", {}),
 }
 
 

@@ -148,6 +148,44 @@ def surface_sum_internal(info: GdiaInfo, face_data, signed: bool):
     return out
 
 
+def surface_sum_sided(info: GdiaInfo, own_data, nei_data):
+    """Per-slot sum over plane faces with one value for each side:
+    out[own] += own_data[f], out[nei] += nei_data[f] (per slot: no fold).
+    Dummy faces contribute nothing."""
+    n = info.n_lat
+    if info.plane_mask is not None:
+        zero = torch.zeros((), dtype=own_data.dtype, device=own_data.device)
+        m = _bcast(info.plane_mask, own_data) > 0
+        own_data = torch.where(m, own_data, zero)
+        nei_data = torch.where(m, nei_data, zero)
+    out = None
+    for (pi, step), fo, fn in zip(plane_steps(info),
+                                  face_planes(info, own_data),
+                                  face_planes(info, nei_data)):
+        contrib = fo + _shift_flat(fn, step, n)
+        out = contrib if out is None else out + contrib
+    return out
+
+
+def neighbour_max(info: GdiaInfo, x):
+    """Per slot, the largest value across its real plane faces, the slot's
+    own value standing in for every absent neighbour (the padded ELL's
+    cell_nbr, which pads each row with the cell itself). Per slot: no
+    ghost sync."""
+    n = info.n_lat
+    out = None
+    for (pi, step) in plane_steps(info):
+        m = (info.plane_mask[pi * n:(pi + 1) * n] > 0
+             if info.plane_mask is not None
+             else torch.ones(n, dtype=torch.bool, device=x.device))
+        fwd = torch.where(m, _shift_flat(x, -step, n), x)
+        bwd = torch.where(_shift_flat(m, step, n), _shift_flat(x, step, n),
+                          x)
+        both = torch.maximum(fwd, bwd)
+        out = both if out is None else torch.maximum(out, both)
+    return out
+
+
 def neg_sum_diag(info: GdiaInfo, lower, upper):
     """-(column sums of the off-diagonals) (lduMatrix::negSumDiag)."""
     n = info.n_lat

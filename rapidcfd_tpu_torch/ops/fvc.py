@@ -70,6 +70,26 @@ def surface_sum_faces(mesh: MeshArrays, face_data: torch.Tensor,
     return gd.sync(g, gd.fold(g, out))
 
 
+def surface_sum_sided(mesh: MeshArrays, own_data: torch.Tensor,
+                      nei_data: torch.Tensor) -> torch.Tensor:
+    """Per-cell sum over the cell's faces of own_data where the cell owns
+    the face and nei_data where it is the neighbour (both (nFaces,); a
+    boundary face is owned, its nei_data unread). ELL: a select over the
+    K slots by cell_sign; gdia: per slot, with no fold (the JAX package's
+    ELL sum over the lattice's slots)."""
+    g = mesh.gdia
+    if g is None:
+        s = mesh.cell_sign
+        zero = torch.zeros((), dtype=own_data.dtype, device=own_data.device)
+        picked = torch.where(s > 0, own_data[mesh.cell_faces],
+                             torch.where(s < 0, nei_data[mesh.cell_faces],
+                                         zero))
+        return picked.sum(1)
+    n_int = mesh.n_internal
+    out = gd.surface_sum_sided(g, own_data[:n_int], nei_data[:n_int])
+    return mesh.add_at_boundary_cells(out, own_data[n_int:])
+
+
 def surface_integrate(mesh: MeshArrays, ssf: SurfaceField) -> VolField:
     """(1/V) * sum of owner-outward face values (fvc::surfaceIntegrate)."""
     summed = surface_sum_faces(mesh, ssf.data)
@@ -429,12 +449,14 @@ def smooth(mesh: MeshArrays, data: torch.Tensor, coeff: float,
     """fvc::smooth (reference: fvcSmooth/fvcSmooth.C): raise each cell to
     at least coeff times the largest of its neighbours, over a fixed
     number of sweeps (the reference runs a FaceCellWave to completion).
-    ELL meshes only: cell_nbr pads each row with the cell itself."""
-    if mesh.gdia is not None:
-        raise NotImplementedError("fvc.smooth is not ported to gdia "
-                                  "meshes (ELL only)")
+    The neighbours are those across real faces, the cell itself standing
+    in for a boundary face or padding (the ELL's cell_nbr; on gdia meshes
+    the plane shifts, per slot as the JAX package's cell_nbr there)."""
+    g = mesh.gdia
     for _ in range(sweeps):
-        data = torch.maximum(data, coeff * data[mesh.cell_nbr].amax(1))
+        nb = (data[mesh.cell_nbr].amax(1) if g is None
+              else gd.neighbour_max(g, data))
+        data = torch.maximum(data, coeff * nb)
     return data
 
 

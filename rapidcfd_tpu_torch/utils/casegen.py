@@ -2970,3 +2970,178 @@ PIMPLE
     write_field(case_dir, "0", "p", "volScalarField", "[1 -1 -2 0 0 0 0]",
                 "uniform 100000", {w: calc for w in walls})
     return mesh
+
+
+# ---------------------------------------------------------------------------
+# the VOF family's small cases (the JAX package's tests write them inline:
+# tests/test_interfoam.py, test_intermixing.py, test_phasechange.py)
+# ---------------------------------------------------------------------------
+
+def local_euler(case_dir: str):
+    """Switch a case's ddtSchemes default to localEuler (LTSInterFoam, as
+    tests/test_interfoam.py::test_lts_interfoam does)."""
+    p = os.path.join(case_dir, "system", "fvSchemes")
+    with open(p) as f:
+        s = f.read()
+    with open(p, "w") as f:
+        f.write(s.replace("default Euler", "default localEuler"))
+
+
+def mixing_dam_break_case(case_dir: str, n: int = 23, dab: float = 2e-3,
+                          **kw) -> PolyMesh:
+    """dam_break_case with the miscible pair's diffusivity Dab
+    (twoLiquidMixingFoam; Dab of tests/test_interfoam.py::
+    test_two_liquid_mixing_stratified)."""
+    mesh = dam_break_case(case_dir, n=n, **kw)
+    with open(os.path.join(case_dir, "constant", "transportProperties"),
+              "a") as f:
+        f.write(f"\nDab             Dab [0 2 -1 0 0 0 0] {dab};\n"
+                "alphatab        alphatab [0 0 0 0 0 0 0] 1;\n")
+    return mesh
+
+
+def intermixing_case(case_dir: str, n: int = 20) -> PolyMesh:
+    """interMixingFoam: air (alpha.air) over oil (alpha.oil, the left half
+    of the liquid) and water in a closed 0.1 m box, D23 3e-5 (the case of
+    tests/test_intermixing.py, n x n cells)."""
+    from ..fields.io import _body_value
+    from ..mesh.geometry import cell_centres_and_vols, face_centres_and_areas
+    mesh = box_mesh(n, n, 1, size=(0.1, 0.1, 0.005), patch_spec={
+        "xmin": ("walls", "wall"), "xmax": ("walls", "wall"),
+        "ymin": ("walls", "wall"), "ymax": ("walls", "wall"),
+        "zmin": ("fb", "empty"), "zmax": ("fb", "empty")})
+    write_polymesh(mesh, case_dir)
+    Cf, Sf = face_centres_and_areas(mesh)
+    C, _ = cell_centres_and_vols(mesh, Cf, Sf)
+    air = (C[:, 1] > 0.06).astype(float)
+    oil = ((C[:, 1] <= 0.06) & (C[:, 0] < 0.05)).astype(float)
+    _write_dict(case_dir, "system", "controlDict", """
+application interMixingFoam; startFrom startTime; startTime 0;
+stopAt endTime; endTime 0.05; deltaT 0.001;
+writeControl runTime; writeInterval 0.05; writeFormat ascii;
+""")
+    _write_dict(case_dir, "system", "fvSchemes", """
+ddtSchemes { default Euler; }
+gradSchemes { default Gauss linear; }
+divSchemes { default none; div(phi,alpha) Gauss vanLeer;
+             div(phirb,alpha) Gauss linear;
+             div(rhoPhi,U) Gauss upwind; }
+laplacianSchemes { default Gauss linear orthogonal; }
+interpolationSchemes { default linear; }
+snGradSchemes { default orthogonal; }
+""")
+    _write_dict(case_dir, "system", "fvSolution", """
+solvers
+{
+    alpha.air { nAlphaSubCycles 1; cAlpha 1; }
+    alpha2 { solver PBiCGStab; preconditioner DILU; tolerance 1e-08;
+             relTol 0; }
+    p_rgh { solver PCG; preconditioner DIC; tolerance 1e-07;
+            relTol 0.05; }
+    p_rghFinal { solver PCG; preconditioner DIC; tolerance 1e-07;
+                 relTol 0; }
+    U { solver smoothSolver; smoother symGaussSeidel; tolerance 1e-06;
+        relTol 0; }
+}
+PIMPLE
+{
+    momentumPredictor no; nOuterCorrectors 1; nCorrectors 2;
+    nNonOrthogonalCorrectors 0; pRefCell 0; pRefValue 0;
+}
+""")
+    _write_dict(case_dir, "constant", "transportProperties", """
+phases (air oil water);
+
+air   { transportModel Newtonian; nu nu [0 2 -1 0 0 0 0] 1.48e-05;
+        rho rho [1 -3 0 0 0 0 0] 1; }
+oil   { transportModel Newtonian; nu nu [0 2 -1 0 0 0 0] 1e-05;
+        rho rho [1 -3 0 0 0 0 0] 900; }
+water { transportModel Newtonian; nu nu [0 2 -1 0 0 0 0] 1e-06;
+        rho rho [1 -3 0 0 0 0 0] 1000; }
+
+D23     D23 [0 2 -1 0 0 0 0] 3e-05;
+sigma12 sigma12 [1 0 -2 0 0 0 0] 0.05;
+sigma13 sigma13 [1 0 -2 0 0 0 0] 0.04;
+""")
+    _write_g(case_dir)
+    bc = {"walls": _ZG, "fb": _EMPTY}
+    write_field(case_dir, "0", "alpha.air", "volScalarField",
+                "[0 0 0 0 0 0 0]", _body_value(air), bc)
+    write_field(case_dir, "0", "alpha.oil", "volScalarField",
+                "[0 0 0 0 0 0 0]", _body_value(oil), bc)
+    write_field(case_dir, "0", "p_rgh", "volScalarField", "[1 -1 -2 0 0 0 0]",
+                "uniform 0", bc)
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                "uniform (0 0 0)", {"walls": _fv("(0 0 0)"), "fb": _EMPTY})
+    return mesh
+
+
+def cavitating_channel_case(case_dir: str, nx: int = 30,
+                            ny: int = 6) -> PolyMesh:
+    """interPhaseChangeFoam (SchnerrSauer): water entering a 0.1 x 0.02 m
+    channel at 5 m/s and leaving through an outlet held at 1000 Pa, below
+    pSat 2300 Pa, so vapour forms there (the case of
+    tests/test_phasechange.py::test_cavitating_channel)."""
+    mesh = box_mesh(nx, ny, 1, size=(0.1, 0.02, 0.005), patch_spec={
+        "xmin": ("inlet", "patch"), "xmax": ("outlet", "patch"),
+        "ymin": ("walls", "wall"), "ymax": ("walls", "wall"),
+        "zmin": ("fb", "empty"), "zmax": ("fb", "empty")})
+    write_polymesh(mesh, case_dir)
+    _write_dict(case_dir, "system", "controlDict", """
+application interPhaseChangeFoam; startFrom startTime; startTime 0;
+stopAt endTime; endTime 0.002; deltaT 5e-05;
+writeControl timeStep; writeInterval 1000; writeFormat ascii;
+""")
+    _write_dict(case_dir, "system", "fvSchemes", """
+ddtSchemes { default Euler; }
+gradSchemes { default Gauss linear; }
+divSchemes { default none; div(phi,alpha) Gauss vanLeer;
+             div(rhoPhi,U) Gauss upwind; }
+laplacianSchemes { default Gauss linear orthogonal; }
+interpolationSchemes { default linear; }
+snGradSchemes { default orthogonal; }
+""")
+    _write_dict(case_dir, "system", "fvSolution", """
+solvers
+{
+    alpha1 { solver PBiCGStab; preconditioner DILU; tolerance 1e-10;
+             relTol 0; }
+    p_rgh { solver PCG; preconditioner DIC; tolerance 1e-08;
+            relTol 0.01; }
+    p_rghFinal { solver PCG; preconditioner DIC; tolerance 1e-08;
+                 relTol 0; }
+    U { solver smoothSolver; smoother symGaussSeidel; tolerance 1e-07;
+        relTol 0; }
+}
+PIMPLE { nOuterCorrectors 1; nCorrectors 2;
+         nNonOrthogonalCorrectors 0; }
+""")
+    _write_dict(case_dir, "constant", "transportProperties", """
+phases (water vapour);
+phase1 { rho rho [1 -3 0 0 0 0 0] 1000; nu nu [0 2 -1 0 0 0 0] 9e-07; }
+phase2 { rho rho [1 -3 0 0 0 0 0] 0.02; nu nu [0 2 -1 0 0 0 0] 4e-05; }
+sigma           sigma [1 0 -2 0 0 0 0] 0.07;
+phaseChangeTwoPhaseMixture SchnerrSauer;
+pSat            pSat [1 -1 -2 0 0 0 0] 2300;
+SchnerrSauerCoeffs
+{
+    n               n [0 -3 0 0 0 0 0] 1.6e+13;
+    dNuc            dNuc [0 1 0 0 0 0 0] 2e-06;
+    Cc              Cc [0 0 0 0 0 0 0] 1;
+    Cv              Cv [0 0 0 0 0 0 0] 1;
+}
+""")
+    _write_dict(case_dir, "constant", "g",
+                "\ndimensions      [0 1 -2 0 0 0 0];\n"
+                "value           (0 0 0);\n",
+                cls="uniformDimensionedVectorField")
+    write_field(case_dir, "0", "alpha1", "volScalarField", "[0 0 0 0 0 0 0]",
+                "uniform 1", {"inlet": _fv(1), "outlet": _ZG, "walls": _ZG,
+                              "fb": _EMPTY})
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                "uniform (5 0 0)", {"inlet": _fv("(5 0 0)"), "outlet": _ZG,
+                                    "walls": _fv("(0 0 0)"), "fb": _EMPTY})
+    write_field(case_dir, "0", "p_rgh", "volScalarField", "[1 -1 -2 0 0 0 0]",
+                "uniform 1000", {"inlet": _ZG, "outlet": _fv(1000),
+                                 "walls": _ZG, "fb": _EMPTY})
+    return mesh

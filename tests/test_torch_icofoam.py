@@ -120,8 +120,12 @@ def test_port_runs_without_jax(tmp_path):
     buoyantBoussinesqSimpleFoam iteration of the small kEpsilon hot room
     (3-D gdia), one buoyantBoussinesqPimpleFoam step of the cavity, one
     buoyantSimpleFoam iteration of the P1 cavity, one buoyantPimpleFoam
-    step and one thermoFoam step, on the CPU pulls no jax module and no
-    module of the JAX package into the process."""
+    step and one thermoFoam step, and of the VOF family one interFoam step
+    of the small dam break (gdia, explicit MULES and MULESCorr), one
+    LTSInterFoam and one twoLiquidMixingFoam step, one interMixingFoam
+    step and the SchnerrSauer mixture (through the registry copy), on the
+    CPU pulls no jax module and no module of the JAX package into the
+    process."""
     d = str(tmp_path / "case")
     c = str(tmp_path / "cavity")
     s = str(tmp_path / "simple")
@@ -131,6 +135,7 @@ def test_port_runs_without_jax(tmp_path):
     hc = str(tmp_path / "hot_channel")
     rc = str(tmp_path / "central")
     rp = str(tmp_path / "transient_hot_channel")
+    db = str(tmp_path / "dam_break")
     hr, bc, p1, bp, tf = (str(tmp_path / n) for n in (
         "hot_room", "boussinesq_cavity", "p1_cavity", "pimple_cavity",
         "thermo_channel"))
@@ -239,6 +244,43 @@ thermo_channel_case({tf!r})
 case, T = thermofoam.run({tf!r}, device=cpu, dtype=f64, write=False,
                          max_steps=1)
 assert torch.isfinite(T.data).all() and len(case.step_log) == 1
+from rapidcfd_tpu_torch.models.phasechange import (SchnerrSauer,
+                                                   make_phase_change_mixture)
+from rapidcfd_tpu_torch.ops import mules
+from rapidcfd_tpu_torch.solvers import (interfoam, interphasechangefoam,
+                                        intermixingfoam)
+from rapidcfd_tpu_torch.utils import registry
+from rapidcfd_tpu_torch.utils.casegen import dam_break_case
+from rapidcfd_tpu_torch.utils.dictionary import parse_dictionary
+for mules_corr in (False, True):
+    dam_break_case({db!r}, n=6, mules_corr=mules_corr)
+    for lts in (False, True):
+        case, alpha, U, p_rgh, phi = interfoam.run(
+            {db!r}, device=cpu, dtype=f32, write=False, max_steps=1,
+            case=Case({db!r}, device=cpu, dtype=f32, gdia_box=True),
+            lts=lts)
+        assert case.mesh.gdia is not None and len(case.step_log) == 1
+        assert all(torch.isfinite(f.data).all()
+                   for f in [alpha, U, p_rgh, phi])
+with open({db!r} + "/constant/transportProperties", "a") as fh:
+    fh.write("Dab Dab [0 2 -1 0 0 0 0] 2e-3;\\n")
+case, alpha, U, p_rgh, phi = interfoam.run({db!r}, device=cpu, dtype=f32,
+                                           write=False, max_steps=1,
+                                           mixing=True)
+assert torch.isfinite(alpha.data).all() and case.mesh.gdia is None
+props = parse_dictionary("pSat pSat [1 -1 -2 0 0 0 0] 2300; "
+                     "phaseChangeTwoPhaseMixture SchnerrSauer; "
+                     "SchnerrSauerCoeffs {{ n n [0 -3 0 0 0 0 0] 1.6e+13; "
+                     "dNuc dNuc [0 1 0 0 0 0 0] 2e-06; Cc Cc [0 0 0 0 0 0 0] 1;"
+                     " Cv Cv [0 0 0 0 0 0 0] 1; }}")
+pc = make_phase_change_mixture(props, 1000.0, 0.02)
+assert isinstance(pc, SchnerrSauer)
+assert registry.registered_names("phaseChangeMixture") == ["SchnerrSauer"]
+vc, vv = pc.v_dot_alphal(torch.tensor([0.5, 1.0]),
+                         torch.tensor([1000.0, 5000.0]))
+assert torch.isfinite(vc).all() and torch.isfinite(vv).all()
+assert mules.limiter and intermixingfoam.make_step \
+    and interphasechangefoam.make_step
 print("NEW_FOREIGN_MODULES", sorted(foreign() - before))
 print("JAX_LEFT_OUT", not before and "jax" not in sys.modules)
 print("JAX_PRELOADED", bool(before))

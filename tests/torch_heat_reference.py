@@ -77,7 +77,8 @@ class RecordingJax:
     program, the same from the first call: before it, the arguments at
     `prestore` get their old level (the step stores it itself) and the
     flux `phi` takes the name the step's returned flux carries
-    (phiHbyA; a name is static in a JAX pytree)."""
+    (phiHbyA; a name is static in a JAX pytree). A jitted helper that
+    returns no tuple (a solver's initial flux) records nothing."""
 
     def __init__(self, record, its_of, prestore=()):
         self.record, self.its_of, self.prestore = record, its_of, prestore
@@ -91,13 +92,14 @@ class RecordingJax:
         def recorded(*a):
             a = list(a)
             for i in self.prestore:
-                if a[i].old is None:
+                if i < len(a) and getattr(a[i], "old", 0) is None:
                     a[i] = a[i].store_old()
             for i, x in enumerate(a):
                 if isinstance(x, JSurface) and x.name == "phi":
                     a[i] = JSurface(x.data, x.dims, "phiHbyA")
             out = jitted(*a)
-            self.record.append(self.its_of(out[-1]))
+            if isinstance(out, tuple):      # a step, not a helper jit
+                self.record.append(self.its_of(out[-1]))
             return out
         return recorded
 
