@@ -185,7 +185,7 @@ Phases (any failure raises and the script exits non-zero):
    fp32 and fp64 on the planes of the small dam breaks (16x16, 12x12 and
    6x6, whose offsets +-6 take the generic kernel); the fp32 case, written
    by `dam_break_case` and routed as `-gdiaBox` routes it, is kept for
-   phase 29;
+   phase 29, its PolyMesh and lattice for phase 32;
 28. the VOF family in fp64, 5 steps each on cuda and on cpu: interFoam
    with explicit MULES and with MULESCorr (dt 0.004), LTSInterFoam and
    twoLiquidMixingFoam on the 16x16 dam break (gdia; 5 K = 5, C = 3
@@ -205,8 +205,47 @@ Phases (any failure raises and the script exits non-zero):
    iterations per corrector and the stall guard's cuts, Courant max,
    set-up by stage, peak memory, the profiled step's launches, busy
    share and top kernels;
-30. a JSON line of kernel results (the kernel's four forms, its two K = 7
-   forms on the T-junction's planes and on the hot room's, and its K = 5,
+30. (run right after phase 27) both K = 5 forms on the full-size
+   settling column's own Gauss planes (320 x 3200, n = 1,024,000, offsets
+   0, +-1, +-320) against the plain version, fp32 to 1e-5 and fp64 to
+   1e-13, timed cold and warm beside cuSPARSE as in phase 3; the column's
+   PolyMesh (`settling_column_case`, written without its mesh) and lattice
+   are kept for phase 33;
+31. the rest of the multiphase family in fp64, 5 steps each on cuda and
+   on cpu, on gdia: multiphaseInterFoam on the 16x16 three-phase dam
+   break, driftFluxFoam on the 4x40 settling column,
+   potentialFreeSurfaceFoam on the 20x10 sloshing tank and cavitatingFoam
+   on the 40x4 expansion channel: every field within MULTI_RTOL relative,
+   iteration counts equal, and the shift-MAC launches per step on cuda
+   (6 C = 3; 1 C = 3 and 9 C = 1; 3; 4), checked;
+32. the main path of multiphaseInterFoam: the three-phase dam break at
+   1024x1024 (water and oil columns in air; 1,048,576 cells on phase 27's
+   PolyMesh and lattice) in fp32 from rest at dt 1e-4: one warm-up step,
+   5 timed windows of 2 steps, one profiled step and one clocked step
+   (each solve timed alone); every field finite, each alpha within 1e-6
+   of [0, 1], the alphas' sum within 1e-6 of 1 and each phase's volume
+   within 1e-5 of its start after every step, 6 K = 5, C = 3 launches at
+   every step; ms/step, cell-updates/s, p_rgh iterations, the stall
+   guard's cut solves with their initial and final residuals, Courant
+   max, set-up by stage, peak memory, the profiled step's launches, busy
+   share and top kernels;
+33. the main path of driftFluxFoam: the settling column at 320x3200
+   (1,024,000 cells, gdia) in fp32 from rest at dt 6.25e-4, driven as
+   phase 32; every field finite, alpha within 1e-6 of [0, 1] and the
+   sludge volume within 1e-5 of its start after every step, 1 K = 5,
+   C = 3 and 9 K = 5, C = 1 launches at every step; the same readings;
+34. `python3 -m rapidcfd_tpu_torch potentialFreeSurfaceFoam|cavitatingFoam
+   -case D -gdiaBox -noWrite` on the card (fp32) on the sloshing tank at
+   256x128 and the expansion channel at 256x32, 10 steps each, then the
+   same cases in-process in fp32 and fp64: ms per step, the fp32-fp64
+   gap (recorded, not bounded), the largest zeta, the vapour fraction's
+   range and rho at or above rhoMin;
+35. a JSON line of kernel results (the kernel's four forms, its two K = 7
+   forms on the T-junction's planes and on the hot room's, its K = 5,
+   C = 3 form on the forward step's planes and on the dam break's (its
+   C = 1 form there too where that path launches it), and both K = 5
+   forms on the settling column's planes: cold times of the kernel, the
+   baseline, the, and its K = 5,
    C = 3 form on the forward step's planes and on the dam break's (its
    C = 1 form there too where that path launches it): cold times of the
    kernel, the baseline, the
@@ -2865,20 +2904,29 @@ VOF_RTOL = 1e-10
 
 def _dam_case(tmp: str, name: str, n: int, dtype, **kw):
     """A dam break written by the port's writer and read with -gdiaBox's
-    routing: (case, set-up seconds by stage)."""
+    routing (the mesh read, its full-box lattice detected): (case, set-up
+    seconds by stage); the case keeps the lattice as `lattice` (phase 32
+    builds the three-phase dam break on the same PolyMesh and lattice)."""
+    from rapidcfd_tpu_torch.mesh.polymesh import read_polymesh
     from rapidcfd_tpu_torch.solvers.case import Case
     from rapidcfd_tpu_torch.utils.casegen import dam_break_case
     from rapidcfd_tpu_torch.utils.logging import captured
+    from rapidcfd_tpu_torch.utils.unstructured import detect_lattice
     with captured():
         t0 = time.perf_counter()
         dam_break_case(f"{tmp}/{name}", n=n, **kw)
         t_gen = time.perf_counter() - t0
         t0 = time.perf_counter()
+        pm = read_polymesh(f"{tmp}/{name}")
+        t_read = time.perf_counter() - t0
+        lat = detect_lattice(pm, full_box=True)
+        t_lat = time.perf_counter() - t0 - t_read
         case = Case(f"{tmp}/{name}", device=torch.device("cuda"),
-                    dtype=dtype, gdia_box=True)
+                    dtype=dtype, pmesh=pm, lattice=lat)
         t_case = time.perf_counter() - t0
-    return case, dict(write_case=t_gen, **case.setup_seconds,
-                      case_total=t_case)
+    case.lattice = lat
+    return case, dict(write_case=t_gen, read=t_read, detect_lattice=t_lat,
+                      **case.setup_seconds, case_total=t_case)
 
 
 def phase_dam_kernel(tmp: str, smi: str):
@@ -3060,15 +3108,33 @@ def phase_vof_agreement(tmp: str):
           f" s with start-up; last step: {lines[-1].strip()}")
 
 
-def _p_cuts(perfs, controls) -> int:
-    """Solves that stopped neither converged nor at maxIter: the fp32
-    stall guard's cuts."""
-    n = 0
+def _cut_solves(perfs, controls) -> list:
+    """(initial residual, final residual, iterations) of the solves that
+    stopped neither converged nor at maxIter: the fp32 stall guard's
+    cuts."""
+    cut = []
     for (res0, res, it), c in zip(perfs, controls):
         res0, res = float(res0), float(res)
         done = res <= c.tolerance or (c.rel_tol > 0 and res <= c.rel_tol * res0)
-        n += int(not done and it < c.max_iter)
-    return n
+        if not done and int(it) < c.max_iter:
+            cut.append((res0, res, int(it)))
+    return cut
+
+
+def _p_cuts(perfs, controls) -> int:
+    """How many solves the fp32 stall guard cut."""
+    return len(_cut_solves(perfs, controls))
+
+
+def _print_cuts(tag: str, log: list):
+    """Each step's cut p_rgh solves: (initial residual, final residual,
+    iterations)."""
+    for i, r in enumerate(log, 1):
+        if r["cut"]:
+            print(f"{tag} step {i}: cut p_rgh solves (initial, final "
+                  f"residual, iterations): "
+                  + ", ".join(f"({a:.3e}, {b:.3e}, {n})"
+                              for a, b, n in r["cut"]))
 
 
 def phase_dam_main(tmp: str, smi: str, dam) -> dict:
@@ -3113,10 +3179,11 @@ def phase_dam_main(tmp: str, smi: str, dam) -> dict:
             now = dict(gdia_mac.LAUNCHES_BY_KC)
             a_min, a_max = (float(v) for v in st["alpha"][:2])
             vol = float((state[0].data.double() * V).sum())
+            cut = _cut_solves(st["p_perf"], pc)
             st_log.append(dict(
                 launches={kc: now[kc] - before.get(kc, 0) for kc in now},
                 p_its=[int(pf[2]) for pf in st["p_perf"]],
-                cuts=_p_cuts(st["p_perf"], pc), co=float(st["co"][1]),
+                cuts=len(cut), cut=cut, co=float(st["co"][1]),
                 alpha=(a_min, a_max), dvol=abs(vol - vol0) / vol0))
 
     log, secs = [], []
@@ -3131,9 +3198,10 @@ def phase_dam_main(tmp: str, smi: str, dam) -> dict:
         secs.append((time.perf_counter() - t0) / DAM_WINDOW)
     state, st, n_kernels, busy, t_prof, mac, top = _profiled_iteration(
         lambda *s: step(*s, DAM_DT), state)
+    cut = _cut_solves(st["p_perf"], pc)
     log.append(dict(launches=None,
                     p_its=[int(pf[2]) for pf in st["p_perf"]],
-                    cuts=_p_cuts(st["p_perf"], pc), co=float(st["co"][1]),
+                    cuts=len(cut), cut=cut, co=float(st["co"][1]),
                     alpha=tuple(float(v) for v in st["alpha"][:2]),
                     dvol=abs(float((state[0].data.double() * V).sum())
                              - vol0) / vol0))
@@ -3172,6 +3240,7 @@ def phase_dam_main(tmp: str, smi: str, dam) -> dict:
     print(f"{tag} p_rgh PCG iterations per corrector by step: "
           f"{[r['p_its'] for r in log]}; stall-guard cuts by step: "
           f"{[r['cuts'] for r in log]}")
+    _print_cuts(tag, log)
     print(f"{tag} Courant max by step: {[round(r['co'], 6) for r in log]}; "
           f"alpha min/max after the last: {log[-1]['alpha']}; relative "
           f"change of the water volume by step: "
@@ -3230,6 +3299,548 @@ def phase_dam_main(tmp: str, smi: str, dam) -> dict:
     return launches
 
 
+# the rest of the incompressible multiphase family (phases 30-34):
+# multiphaseInterFoam on the three-phase dam break at 1024 x 1024
+# (multiphase_dam_break_case: damBreak4phase as dam_break_case simplifies
+# damBreak, on phase 27's PolyMesh and lattice) and driftFluxFoam on the
+# settling column at 320 x 3200 (settling_column_case: the JAX test's
+# column with its cells, 1:10 and a drift Courant number of 0.2 kept), both
+# fp32 on the 2-D gdia lattice from rest
+COLUMN = dict(nx=320, ny=3200)
+COLUMN_CELLS = 320 * 3200
+COLUMN_DT = 6.25e-4
+COLUMN_OFFSETS = (-320, -1, 0, 1, 320)
+COLUMN_V0 = 0.05                        # |V0|, the settling velocity, m/s
+MULTI_WINDOWS, MULTI_WINDOW = 5, 2      # 5 timed windows of 2 steps after 1
+# shift-MAC launches per step: multiphaseInterFoam takes each alpha's
+# gradient once per stage (3 for the compression and vanLeer, 3 for the
+# surface tension); driftFluxFoam vanLeer's gradient and div(tauDm)'s 3 x 3
+# contractions; potentialFreeSurfaceFoam grad(p_gh) in the UEqn and in
+# each of 2 correctors; cavitatingFoam grad(p) in the UEqn and in the
+# corrector of each of 2 outer correctors
+MULTI_LAUNCHES = {(5, 3): 6}
+COLUMN_LAUNCHES = {(5, 3): 1, (5, 1): 9}
+SLOSH_LAUNCHES = {(5, 3): 3}
+EXPANSION_LAUNCHES = {(5, 3): 4}
+# the checks after every step: each alpha within MULTI_ALPHA_ATOL of [0,
+# 1], the alphas' sum within it of 1, each phase's (the dispersed phase's)
+# volume within MULTI_VOL_RTOL of its start
+MULTI_ALPHA_ATOL = 1e-6
+MULTI_VOL_RTOL = 1e-5
+# fp64 cuda against cpu on the small cases (phase 31), as phase 28
+MULTI_RTOL = 1e-10
+# the dispatcher runs (phase 34): the writers at about 256 cells across,
+# dt scaled with the cell, 10 steps
+SLOSH_CLI = dict(nx=256, ny=128, delta_t=0.002 * 20 / 256)
+EXPANSION_CLI = dict(nx=256, ny=32, delta_t=2e-6 * 40 / 256)
+CLI_STEPS = 10
+
+
+def _box_case(d: str, pm, dtype, lattice=None):
+    """The case at d on the in-memory PolyMesh pm, routed onto gdia as
+    -gdiaBox routes a full box (the lattice detected unless given): (case,
+    lattice, set-up seconds by stage)."""
+    from rapidcfd_tpu_torch.solvers.case import Case
+    from rapidcfd_tpu_torch.utils.logging import captured
+    from rapidcfd_tpu_torch.utils.unstructured import detect_lattice
+    secs = {}
+    with captured():
+        if lattice is None:
+            t0 = time.perf_counter()
+            lattice = detect_lattice(pm, full_box=True)
+            secs["detect_lattice"] = time.perf_counter() - t0
+        case = Case(d, device=torch.device("cuda"), dtype=dtype, pmesh=pm,
+                    lattice=lattice)
+    return case, lattice, dict(secs, **case.setup_seconds)
+
+
+def phase_column_kernel(tmp: str, smi: str):
+    """(Run right after phase 27.) Both K = 5 forms on the full-size
+    settling column's own Gauss planes (320 x 3200, n = 1,024,000, offsets
+    0, +-1, +-320) against the plain version, fp32 to 1e-5 and fp64 to
+    1e-13, timed cold and warm beside cuSPARSE as in phase 3. Returns
+    (timings by (K, C), (the column's PolyMesh, its lattice, set-up
+    seconds)); the case itself is freed and phase 33 rebuilds it on the
+    lattice."""
+    from rapidcfd_tpu_torch.ops import gdia_mac as gm
+    from rapidcfd_tpu_torch.utils.casegen import settling_column_case
+    from rapidcfd_tpu_torch.utils.logging import captured
+    t0 = time.perf_counter()
+    with captured():
+        pm = settling_column_case(f"{tmp}/column", delta_t=COLUMN_DT,
+                                  end_time=1.0, write_mesh=False, **COLUMN)
+    setup_s = dict(write_case=time.perf_counter() - t0)
+    case, lat, secs = _box_case(f"{tmp}/column", pm, torch.float32)
+    torch.cuda.synchronize()
+    setup_s.update(secs, total=time.perf_counter() - t0)
+    planes = case.mesh.gauss
+    check(tuple(planes.offsets) == COLUMN_OFFSETS
+          and tuple(planes.coeffs.shape) == (5, 3, COLUMN_CELLS)
+          and case.mesh.n_cells == COLUMN_CELLS,
+          f"[30] unexpected settling-column planes {planes.offsets} "
+          f"{tuple(planes.coeffs.shape)}")
+    g = torch.Generator(device="cuda").manual_seed(320)
+    x = torch.randn(COLUMN_CELLS, generator=g, device="cuda")
+    res = {}
+    for C, coeffs, n_sets in ((3, planes.coeffs, 2),        # 156 MB
+                              (1, planes.coeffs_i[1], 3)):   # 86 MB
+        for dtype, tol in ((torch.float64, 1e-13), (torch.float32, 1e-5)):
+            xd, cd = x.to(dtype), coeffs.to(dtype)
+            ref = gm.shift_mac_cols_plain(xd, cd, planes.offsets)
+            out = gm.shift_mac_cols(xd, cd, planes.offsets)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            lim = tol * ref.abs().max().item()
+            print(f"[30] {str(dtype)[6:]} settling-column planes, K=5 C={C} "
+                  f"n={COLUMN_CELLS}: max|d| {err:.2e} (limit {lim:.2e})")
+            check(err <= lim, f"[30] kernel disagrees with the plain version "
+                  f"on the column's planes (C={C}, {dtype}): {err} > {lim}")
+        del xd, cd, ref, out
+        res[5, C] = dict(max_abs_err=err, **_time_form(
+            gm, 5, C, COLUMN_CELLS, planes.offsets, n_sets, smi,
+            coeffs=coeffs, label="[30]"))
+        torch.cuda.empty_cache()
+    del case, planes, x
+    torch.cuda.empty_cache()
+    return res, (pm, lat, setup_s)
+
+
+def _multi_run(solver: str, d: str, dev: str, steps: int, case,
+               dtype=torch.float64):
+    """One of the four solvers' run on the case: (case, {field: tensor},
+    per-step iteration counts)."""
+    from rapidcfd_tpu_torch.solvers import (cavitatingfoam, driftfluxfoam,
+                                            multiphaseinterfoam,
+                                            potentialfreesurfacefoam)
+    from rapidcfd_tpu_torch.utils.logging import captured
+    mod, names = {
+        "multiphaseInterFoam": (multiphaseinterfoam,
+                                ("alphas", "U", "p_rgh", "phi")),
+        "driftFluxFoam": (driftfluxfoam, ("alpha", "U", "p_rgh", "phi")),
+        "potentialFreeSurfaceFoam": (potentialfreesurfacefoam,
+                                     ("U", "p_gh", "phi", "zeta")),
+        "cavitatingFoam": (cavitatingfoam, ("p", "U", "rho", "phi"))}[solver]
+    with captured():
+        case, *out = mod.run(d, device=torch.device(dev), dtype=dtype,
+                             write=False, max_steps=steps, case=case)
+    fields = {}
+    for n, f in zip(names, out):
+        if n == "alphas":
+            fields.update({f"alpha{i}": a.data for i, a in enumerate(f)})
+        else:
+            fields[n] = f if n == "zeta" else f.data
+    return case, fields, [r["iterations"] for r in case.step_log]
+
+
+def _field_errs(maps, a: dict, b: dict, floors=None) -> dict:
+    """Largest differences of two runs' fields in file order (phi in file
+    orientation; zeta per boundary face), relative to the larger of the
+    second run's largest magnitude and the field's floor in `floors`."""
+    errs = {}
+    for name in b:
+        x, y = a[name].cpu().double().numpy(), b[name].cpu().double().numpy()
+        if name == "phi":
+            x, y = (maps.faces_to_file(x, flux=True),
+                    maps.faces_to_file(y, flux=True))
+        elif name != "zeta":
+            x, y = maps.cells_to_file(x), maps.cells_to_file(y)
+        scale = max(np.abs(y).max(), (floors or {}).get(name, 0.0))
+        errs[name] = float(np.abs(x - y).max() / scale)
+    return errs
+
+
+def phase_multiphase_agreement(tmp: str):
+    """The slice in fp64 on cuda and on cpu, 5 steps each, every case on
+    gdia: multiphaseInterFoam on the 16x16 three-phase dam break,
+    driftFluxFoam on the 4x40 settling column, potentialFreeSurfaceFoam
+    on the 20x10 sloshing tank and cavitatingFoam on the 40x4 expansion
+    channel (the JAX tests' cases; the stratified tank's U is the
+    rounding of its hydrostatic balance, so the dam break stands in for
+    it): every field within MULTI_RTOL relative, iteration counts equal,
+    and each solver's shift-MAC launches per step on cuda as counted. The
+    closed column's mixture velocity is the residue of a balance too
+    (~1e-6 of the settling velocity V0 = 0.05 m/s after 5 steps), so its
+    U and phi are held relative to V0 (and V0 times the largest face
+    area) where that is larger than their own largest magnitude."""
+    from rapidcfd_tpu_torch.ops import gdia_mac
+    from rapidcfd_tpu_torch.solvers.case import Case
+    from rapidcfd_tpu_torch.utils import casegen
+    from rapidcfd_tpu_torch.utils.logging import captured
+    cases = (
+        ("multiphaseInterFoam", "three-phase dam break 16x16",
+         lambda d: casegen.multiphase_dam_break_case(d, n=16, delta_t=1e-3),
+         MULTI_LAUNCHES),
+        ("driftFluxFoam", "settling column 4x40",
+         casegen.settling_column_case, COLUMN_LAUNCHES),
+        ("potentialFreeSurfaceFoam", "sloshing tank 20x10",
+         casegen.sloshing_tank_case, SLOSH_LAUNCHES),
+        ("cavitatingFoam", "expansion channel 40x4",
+         casegen.cavitating_expansion_case, EXPANSION_LAUNCHES))
+    for i, (solver, what, writer, per_step) in enumerate(cases):
+        d = f"{tmp}/multi{i}"
+        with captured():
+            writer(d)
+        floors = {}
+        tag = f"[31] fp64 {solver} {what},"
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            with captured():
+                case = Case(d, device=torch.device(dev), dtype=torch.float64,
+                            gdia_box=True)
+            gdia_mac.reset_launches()
+            t0 = time.perf_counter()
+            outs[dev] = _multi_run(solver, d, dev, 5, case)
+            launches = dict(gdia_mac.LAUNCHES_BY_KC)
+            print(f"{tag} 5 steps on {dev} (gdia): "
+                  f"{time.perf_counter() - t0:.2f} s; shift-MAC launches "
+                  f"{launches}")
+            if dev == "cuda":
+                check(launches == {kc: 5 * v for kc, v in per_step.items()},
+                      f"{tag} expected {per_step} launches per step: "
+                      f"{launches}")
+        (gc, gf, g_its), (cc, cf, c_its) = outs["cuda"], outs["cpu"]
+        if solver == "driftFluxFoam":
+            floors = dict(U=COLUMN_V0, phi=COLUMN_V0 * float(
+                cc.mesh.mag_sf.max()))
+        errs = _field_errs(cc.maps, gf, cf, floors)
+        raw = _field_errs(cc.maps, gf, cf) if floors else errs
+        print(f"{tag} cuda vs cpu, relative max|d| (limit {MULTI_RTOL:g}"
+              + (f"; {', '.join(floors)} relative to at least V0" if floors
+                 else "") + "): "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + (f" (relative to their own largest: "
+                 + ", ".join(f"{k} {raw[k]:.3e}" for k in floors) + ")"
+                 if floors else "")
+              + f"; iteration counts by step, cuda {g_its}")
+        check(all(v <= MULTI_RTOL for v in errs.values()),
+              f"{tag} fp64 cuda and cpu runs disagree: {errs}")
+        check(g_its == c_its, f"{tag} iteration counts differ: {g_its} "
+              f"against {c_its}")
+
+
+def _drive(tag: str, module, step, state, dt, reading, smi: str):
+    """Drive a main path as phase 29 drives interFoam: one warm-up step,
+    MULTI_WINDOWS timed windows of MULTI_WINDOW steps (each ending in a
+    device sync), one profiled step and one clocked step (each of the
+    module's linear solves timed alone between syncs). reading(state,
+    stats) gives a step's readings; the log adds its shift-MAC launches
+    by (K, C) (None for the profiled step). Returns (state, log)."""
+    from rapidcfd_tpu_torch.ops import gdia_mac
+    log = []
+
+    def advance(n):
+        nonlocal state
+        for _ in range(n):
+            before = dict(gdia_mac.LAUNCHES_BY_KC)
+            *state, st = step(*state, dt)
+            now = dict(gdia_mac.LAUNCHES_BY_KC)
+            log.append(dict(reading(state, st), launches={
+                kc: now[kc] - before.get(kc, 0) for kc in now}))
+
+    t0 = time.perf_counter()
+    advance(1)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    secs = []
+    for _ in range(MULTI_WINDOWS):
+        t0 = time.perf_counter()
+        advance(MULTI_WINDOW)
+        torch.cuda.synchronize()
+        secs.append((time.perf_counter() - t0) / MULTI_WINDOW)
+    state, st, n_kernels, busy, t_prof, mac, top = _profiled_iteration(
+        lambda *s: step(*s, dt), state)
+    log.append(dict(reading(state, st), launches=None))
+    solves = []
+    solve = module.solve
+
+    def clocked(mesh, m, *a, **k):
+        torch.cuda.synchronize()
+        t_ = time.perf_counter()
+        out = solve(mesh, m, *a, **k)
+        torch.cuda.synchronize()
+        solves.append((m.psi.name, time.perf_counter() - t_))
+        return out
+    module.solve = clocked
+    try:
+        t0 = time.perf_counter()
+        advance(1)
+        torch.cuda.synchronize()
+        t_clocked = time.perf_counter() - t0
+    finally:
+        module.solve = solve
+    med = statistics.median(secs)
+    cells = int(state[1].data.shape[0])
+    p_secs = sum(s for n, s in solves if n.startswith("p"))
+    print(f"{tag} clocked step: {t_clocked * 1e3:.1f} ms; its solves "
+          + ", ".join(f"{n} {s * 1e3:.1f}" for n, s in solves)
+          + f" ms; the p_rgh solves {p_secs * 1e3:.1f} ms "
+          f"({p_secs / t_clocked:.1%})")
+    print(f"{tag} warm-up step {warm * 1e3:.1f} ms; {MULTI_WINDOWS} timed "
+          f"windows of {MULTI_WINDOW} steps: "
+          + ", ".join(f"{s * 1e3:.3f}" for s in secs)
+          + f" ms/step; median {med * 1e3:.3f} ms/step, "
+          f"{cells / med:.1f} cell-updates/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (card: "
+          f"{smi})")
+    print(f"{tag} profiled step: {t_prof * 1e3:.1f} ms, {n_kernels} kernel "
+          f"launches, device busy {busy * 1e3:.2f} ms ({busy / t_prof:.1%}) "
+          f"(card: {smi})")
+    print(f"{tag} profiled step, top kernels by device time (name, "
+          f"launches, ms): {top}")
+    print(f"{tag} profiled step, shift-MAC kernels: {mac}")
+    return state, log, mac
+
+
+def _timed_launches(log) -> dict:
+    """The shift-MAC launches by (K, C) over the timed windows."""
+    launches = {}
+    for r in log[1:1 + MULTI_WINDOWS * MULTI_WINDOW]:
+        for kc, v in r["launches"].items():
+            launches[kc] = launches.get(kc, 0) + v
+    return launches
+
+
+def _check_launches(tag: str, log, expected: dict, mac: dict, forms):
+    per_step = [r["launches"] for r in log if r["launches"] is not None]
+    print(f"{tag} shift-MAC launches per step by (K, C): {per_step[-1]}")
+    check(all(d_ == expected for d_ in per_step),
+          f"{tag}: a step did not launch {expected}: {per_step}")
+    for form in forms:
+        check(any(form in name for name in mac),
+              f"{tag}: the profiled step did not run {form}: {mac}")
+
+
+def phase_multiphase_main(tmp: str, smi: str, dam_mesh) -> dict:
+    """The main path of multiphaseInterFoam: the three-phase dam break at
+    1024x1024 (1,048,576 cells, a full box on the 2-D gdia lattice, phase
+    27's PolyMesh and lattice; the writer's fields only) in fp32 from rest
+    at dt DAM_DT, driven as phase 29 (_drive). Every field finite, each
+    alpha within MULTI_ALPHA_ATOL of [0, 1], the alphas' sum within it of
+    1 and each phase's volume within MULTI_VOL_RTOL of its start after
+    every step; MULTI_LAUNCHES at every step. Returns the launches by (K,
+    C) over the timed steps."""
+    from rapidcfd_tpu_torch.solvers import multiphaseinterfoam as mp
+    from rapidcfd_tpu_torch.utils.casegen import multiphase_dam_break_case
+    from rapidcfd_tpu_torch.utils.logging import captured
+    tag = "[32] multiphaseInterFoam three-phase dam break 1024x1024"
+    pm, lat = dam_mesh
+    d = f"{tmp}/dam3"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with captured():
+        multiphase_dam_break_case(d, n=DAM_N, delta_t=DAM_DT, end_time=1.0,
+                                  write_mesh=False)
+    setup_s = dict(write_fields=time.perf_counter() - t0)
+    case, _, secs = _box_case(d, pm, torch.float32, lattice=lat)
+    setup_s.update(secs)
+    t0 = time.perf_counter()
+    with captured():
+        state, step, names = mp.setup(case)
+    torch.cuda.synchronize()
+    setup_s["fields_and_step"] = time.perf_counter() - t0
+    mesh = case.mesh
+    check(mesh.gdia is not None and mesh.n_cells == DAM_CELLS
+          and int(case.maps.cell_primary.sum()) == DAM_CELLS
+          and tuple(mesh.gauss.offsets) == DAM_OFFSETS,
+          f"{tag}: expected {DAM_CELLS} cells on the gdia lattice")
+    V = mesh.V.double()
+    vol0 = [float((a.data.double() * V).sum()) for a in state[0]]
+    pc = [case.solver_controls("p_rgh")] * 2 \
+        + [case.solver_controls("p_rgh", final=True)]
+    print(f"{tag} fp32: {DAM_CELLS} cells (gdia), dt {DAM_DT}; phases "
+          f"{names}, volumes {['%.9e' % v for v in vol0]} m^3; set-up by "
+          f"stage: " + ", ".join(f"{k} {v:.2f} s" for k, v in setup_s.items()))
+
+    def reading(state, st):
+        alphas = state[0]
+        total = sum(a.data for a in alphas)
+        return dict(
+            p_its=[int(pf[2]) for pf in st["p_perf"]],
+            cut=_cut_solves(st["p_perf"], pc), co=float(st["co"][1]),
+            alpha=[(float(a.data.min()), float(a.data.max()))
+                   for a in alphas],
+            sum_err=float((total - 1.0).abs().max()),
+            dvol=[abs(float((a.data.double() * V).sum()) - v0) / v0
+                  for a, v0 in zip(alphas, vol0)],
+            finite=all(bool(torch.isfinite(f.data).all())
+                       for f in (*alphas, *state[1:])))
+
+    state, log, mac = _drive(tag, mp, step, tuple(state), DAM_DT, reading,
+                             smi)
+    print(f"{tag} p_rgh PCG iterations per corrector by step: "
+          f"{[r['p_its'] for r in log]}; stall-guard cuts by step: "
+          f"{[len(r['cut']) for r in log]}")
+    _print_cuts(tag, log)
+    print(f"{tag} Courant max by step: {[round(r['co'], 6) for r in log]}; "
+          f"alpha min/max after the last: {log[-1]['alpha']}; largest "
+          f"|sum - 1| by step: {['%.2e' % r['sum_err'] for r in log]}; "
+          f"relative change of each phase's volume after the last: "
+          f"{['%.2e' % v for v in log[-1]['dvol']]} (largest over the "
+          f"steps {max(max(r['dvol']) for r in log):.2e})")
+    _check_launches(tag, log, MULTI_LAUNCHES, mac,
+                    ("mac_stencil<float, 5, 3>",))
+    for i, r in enumerate(log, 1):
+        check(r["finite"], f"{tag}: a field is not finite after step {i}")
+        for a_min, a_max in r["alpha"]:
+            check(-MULTI_ALPHA_ATOL <= a_min
+                  and a_max <= 1.0 + MULTI_ALPHA_ATOL,
+                  f"{tag}: an alpha left [0, 1] at step {i}: {r['alpha']}")
+        check(r["sum_err"] <= MULTI_ALPHA_ATOL,
+              f"{tag}: the alphas sum to 1 only within {r['sum_err']} at "
+              f"step {i}")
+        check(max(r["dvol"]) <= MULTI_VOL_RTOL,
+              f"{tag}: a phase's volume moved by {r['dvol']} at step {i}")
+    launches = _timed_launches(log)
+    del state, case, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_column_main(tmp: str, smi: str, column) -> dict:
+    """The main path of driftFluxFoam: the settling column at 320x3200
+    (1,024,000 cells, a full box on the 2-D gdia lattice, rebuilt on the
+    lattice of phase 30) in fp32 from rest at dt COLUMN_DT, driven as
+    phase 29 (_drive). Every field finite, alpha within [-1e-6, 1 + 1e-6]
+    and the dispersed volume within MULTI_VOL_RTOL of its start after
+    every step; COLUMN_LAUNCHES (both K = 5 forms) at every step. Returns
+    the launches by (K, C) over the timed steps."""
+    from rapidcfd_tpu_torch.solvers import driftfluxfoam as df
+    from rapidcfd_tpu_torch.utils.logging import captured
+    tag = "[33] driftFluxFoam settling column 320x3200"
+    pm, lat, setup_s = column
+    torch.cuda.reset_peak_memory_stats()
+    case, _, secs = _box_case(f"{tmp}/column", pm, torch.float32,
+                              lattice=lat)
+    setup_s = dict(setup_s, rebuild=secs)
+    t0 = time.perf_counter()
+    with captured():
+        state, step, _ = df.setup(case)
+    torch.cuda.synchronize()
+    setup_s["fields_and_step"] = time.perf_counter() - t0
+    mesh = case.mesh
+    check(mesh.gdia is not None and mesh.n_cells == COLUMN_CELLS
+          and int(case.maps.cell_primary.sum()) == COLUMN_CELLS,
+          f"{tag}: expected {COLUMN_CELLS} cells on the gdia lattice")
+    V = mesh.V.double()
+    vol0 = float((state[0].data.double() * V).sum())
+    pc = [case.solver_controls("p_rgh"),
+          case.solver_controls("p_rgh", final=True)]
+    print(f"{tag} fp32: {COLUMN_CELLS} cells (gdia, offsets "
+          f"{tuple(mesh.gauss.offsets)}), dt {COLUMN_DT}; sludge volume "
+          f"{vol0:.9e} m^3; set-up by stage: {setup_s}")
+
+    def reading(state, st):
+        alpha = state[0]
+        return dict(
+            a_its=int(st["a_perf"][0][2]),
+            u_its=[int(pf[2]) for pf in st["u_perf"]],
+            p_its=[int(pf[2]) for pf in st["p_perf"]],
+            cut=_cut_solves(st["p_perf"], pc), co=float(st["co"][1]),
+            alpha=(float(alpha.data.min()), float(alpha.data.max())),
+            u_max=float(state[1].data.abs().max()),
+            dvol=abs(float((alpha.data.double() * V).sum()) - vol0) / vol0,
+            finite=all(bool(torch.isfinite(f.data).all()) for f in state))
+
+    state, log, mac = _drive(tag, df, step, tuple(state), COLUMN_DT,
+                             reading, smi)
+    print(f"{tag} iterations by step, alpha / U / p_rgh: "
+          f"{[(r['a_its'], r['u_its'], r['p_its']) for r in log]}; "
+          f"stall-guard cuts by step: {[len(r['cut']) for r in log]}")
+    _print_cuts(tag, log)
+    print(f"{tag} Courant max by step: {[round(r['co'], 9) for r in log]}; "
+          f"max |U| {log[-1]['u_max']:.4e} m/s; alpha min/max after the "
+          f"last: {log[-1]['alpha']}; relative change of the sludge volume "
+          f"by step: {['%.2e' % r['dvol'] for r in log]}")
+    _check_launches(tag, log, COLUMN_LAUNCHES, mac,
+                    ("mac_stencil<float, 5, 3>", "mac_stencil<float, 5, 1>"))
+    for i, r in enumerate(log, 1):
+        check(r["finite"], f"{tag}: a field is not finite after step {i}")
+        a_min, a_max = r["alpha"]
+        check(-MULTI_ALPHA_ATOL <= a_min and a_max <= 1.0 + MULTI_ALPHA_ATOL,
+              f"{tag}: alpha left [0, 1] at step {i}: {r['alpha']}")
+        check(r["dvol"] <= MULTI_VOL_RTOL,
+              f"{tag}: the sludge volume moved by {r['dvol']} at step {i}")
+    launches = _timed_launches(log)
+    del state, case, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_multiphase_cli(tmp: str, smi: str):
+    """potentialFreeSurfaceFoam on the sloshing tank at 256x128 and
+    cavitatingFoam on the expansion channel at 256x32 (dt scaled with the
+    cell, CLI_STEPS steps): `python3 -m rapidcfd_tpu_torch <solver> -case
+    D -gdiaBox -noWrite` on the card in fp32 (its default), then the same
+    case in-process in fp32 and fp64 on the card: ms per step of the fp32
+    run, the fp32 fields' gap to the fp64 ones (recorded, not bounded:
+    cavitatingFoam carries p at 3e5 Pa), the largest zeta, the vapour
+    fraction's range and whether rho stays at or above rhoMin."""
+    from rapidcfd_tpu_torch.solvers.case import Case
+    from rapidcfd_tpu_torch.utils import casegen
+    from rapidcfd_tpu_torch.utils.logging import captured
+    for solver, writer, kw in (
+            ("potentialFreeSurfaceFoam", casegen.sloshing_tank_case,
+             SLOSH_CLI),
+            ("cavitatingFoam", casegen.cavitating_expansion_case,
+             EXPANSION_CLI)):
+        tag = f"[34] {solver} {kw['nx']}x{kw['ny']}"
+        d = f"{tmp}/cli_{solver}"
+        with captured():
+            writer(d, end_time=CLI_STEPS * kw["delta_t"], **kw)
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "rapidcfd_tpu_torch",
+                              solver, "-case", d, "-gdiaBox", "-noWrite"],
+                             capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        out = res.stdout
+        check(res.returncode == 0 and f"lattice {kw['nx']}x{kw['ny']}x1"
+              in out and out.count("\nTime = ") == CLI_STEPS
+              and out.rstrip().endswith("End"),
+              f"{tag}: python3 -m rapidcfd_tpu_torch {solver} -gdiaBox: rc "
+              f"{res.returncode}, {out[-600:]} {res.stderr[-1500:]}")
+        if solver == "potentialFreeSurfaceFoam":
+            zeta = [float(m) for m in re.findall(
+                r"max\|zeta\| = (\S+)", out)]
+            # the first step integrates the initial flux, zero through
+            # the surface
+            check(len(zeta) == CLI_STEPS and 0.0 < zeta[-1]
+                  and all(0.0 <= z < 0.05 for z in zeta),
+                  f"{tag}: zeta did not move or left [0, 0.05 m): {zeta}")
+            report = f"max |zeta| by step {zeta}"
+        else:
+            m = [tuple(float(x) for x in g) for g in re.findall(
+                r"max-min rho: (\S+) (\S+)  max alphav: (\S+)", out)]
+            rho_min = min(r[1] for r in m)
+            check(len(m) == CLI_STEPS and rho_min >= 0.001,
+                  f"{tag}: rho below rhoMin 0.001: {m}")
+            report = (f"rho {rho_min:.6g}-{max(r[0] for r in m):.6g} kg/m^3 "
+                      f"(rhoMin 0.001: held), max alphav by step "
+                      f"{[r[2] for r in m]}")
+        print(f"{tag}: python3 -m rapidcfd_tpu_torch {solver} -gdiaBox "
+              f"-noWrite on the card, fp32: {CLI_STEPS} steps in {wall:.1f} "
+              f"s with start-up; {report}")
+        runs = {}
+        for dtype in (torch.float32, torch.float64):
+            with captured():
+                case = Case(d, device=torch.device("cuda"), dtype=dtype,
+                            gdia_box=True)
+            runs[dtype] = _multi_run(solver, d, "cuda", CLI_STEPS, case,
+                                     dtype=dtype)
+        c32, f32, _ = runs[torch.float32]
+        c64, f64, _ = runs[torch.float64]
+        gap = _field_errs(c64.maps, f32, f64)
+        ms = statistics.median(c32.step_seconds[1:]) * 1e3
+        for name, x in f32.items():
+            check(bool(torch.isfinite(x).all()), f"{tag}: fp32 {name} not "
+                  "finite")
+        print(f"{tag} in-process on the card: fp32 {ms:.3f} ms/step "
+              f"(median of steps 2-{CLI_STEPS}), fp64 "
+              f"{statistics.median(c64.step_seconds[1:]) * 1e3:.3f}; fp32 "
+              f"against fp64 after {CLI_STEPS} steps, relative max|d|: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in gap.items())
+              + f"; last step {c32.step_log[-1]} (card: {smi})")
+
+
 def main():
     smi = phase_setup()
     phase_build()
@@ -3239,6 +3850,7 @@ def main():
         fs_kernel = phase_fstep_kernel(tmp, smi)
         room_kernel, room_case = phase_room_kernel(tmp, smi)
         dam_kernel, dam_case = phase_dam_kernel(tmp, smi)
+        column_kernel, column_mesh = phase_column_kernel(tmp, smi)
         phase_fp64_agreement(tmp)
         ico = phase_main_path(tmp, smi)
         phase_cavity_agreement(tmp)
@@ -3261,8 +3873,14 @@ def main():
         del room_case
         room_pimple = phase_room_pimple(tmp, smi)
         phase_vof_agreement(tmp)
+        dam_mesh = (dam_case[0].pmesh, dam_case[0].lattice)
         dam = phase_dam_main(tmp, smi, dam_case)
         del dam_case
+        phase_multiphase_agreement(tmp)
+        multiphase = phase_multiphase_main(tmp, smi, dam_mesh)
+        column = phase_column_main(tmp, smi, column_mesh)
+        del dam_mesh, column_mesh
+        phase_multiphase_cli(tmp, smi)
     paths = {"simpleFoam pitzDaily x5": simple, "icoFoam pitzDaily x5": ico,
              "icoFoam cavity 384": cavity,
              "simpleFoam channel 160x80x80": channel,
@@ -3274,7 +3892,10 @@ def main():
              "rhoPimpleFoam heated channel 1024x256": rho_pimple,
              "buoyantBoussinesqSimpleFoam hot room 160x96x64": room,
              "buoyantPimpleFoam hot room 80x48x32": room_pimple,
-             "interFoam dam break 1024x1024": dam}
+             "interFoam dam break 1024x1024": dam,
+             "multiphaseInterFoam three-phase dam break 1024x1024":
+                 multiphase,
+             "driftFluxFoam settling column 320x3200": column}
     kernels = []
     for (K, c), what, main_path, times in (
             ((5, 3), "Gauss gradient", "simpleFoam pitzDaily x5", k[5, 3]),
@@ -3299,7 +3920,11 @@ def main():
             ((5, 3), "Gauss gradient, dam-break planes",
              "interFoam dam break 1024x1024", dam_kernel[5, 3]),
             ((5, 1), "divergence contraction, dam-break planes",
-             "interFoam dam break 1024x1024", dam_kernel[5, 1])):
+             "interFoam dam break 1024x1024", dam_kernel[5, 1]),
+            ((5, 3), "Gauss gradient, settling-column planes",
+             "driftFluxFoam settling column 320x3200", column_kernel[5, 3]),
+            ((5, 1), "divergence contraction, settling-column planes",
+             "driftFluxFoam settling column 320x3200", column_kernel[5, 1])):
         if (K, c) == (5, 1) and main_path == "interFoam dam break 1024x1024" \
                 and not dam.get((5, 1)):
             continue      # the form is held and timed but not on this path

@@ -52,6 +52,12 @@ SOLVERS = {
     "interMixingFoam": ("rapidcfd_tpu_torch.solvers.intermixingfoam", {}),
     "interPhaseChangeFoam": ("rapidcfd_tpu_torch.solvers."
                              "interphasechangefoam", {}),
+    "multiphaseInterFoam": ("rapidcfd_tpu_torch.solvers."
+                            "multiphaseinterfoam", {}),
+    "driftFluxFoam": ("rapidcfd_tpu_torch.solvers.driftfluxfoam", {}),
+    "potentialFreeSurfaceFoam": ("rapidcfd_tpu_torch.solvers."
+                                 "potentialfreesurfacefoam", {}),
+    "cavitatingFoam": ("rapidcfd_tpu_torch.solvers.cavitatingfoam", {}),
 }
 
 

@@ -681,9 +681,14 @@ BC_TYPES["symmetry"] = Symmetry
 
 
 def make_bc(type_word: str, patch_idx: int, pd=None) -> BC:
-    """Construct a BC from its dictionary word (the types this slice
-    ports; any other word raises)."""
+    """Construct a BC from its dictionary word: the types above, then
+    those a solver module registers in utils/registry.py's fvPatchField
+    table (potentialFreeSurfaceFoam's waveSurfacePressure); any other
+    word raises."""
+    from ..utils.registry import lookup, registered_names
     cls = BC_TYPES.get(type_word)
+    if cls is None and type_word in registered_names("fvPatchField"):
+        cls = lookup("fvPatchField", type_word)
     if cls is None:
         raise NotImplementedError(
             f"boundary condition '{type_word}' is not ported yet (ported: "

@@ -29,11 +29,13 @@ def _ext(a, like):
 # ---------------------------------------------------------------------------
 
 def face_values(mesh: MeshArrays, vf: VolField, scheme="linear",
-                phi: SurfaceField | None = None) -> torch.Tensor:
+                phi: SurfaceField | None = None,
+                g: VolField | None = None) -> torch.Tensor:
     """Face values on ALL faces: internal by the scheme, boundary from the
-    field's materialized patch values."""
+    field's materialized patch values. g: fvc.grad(vf), which a limited
+    scheme takes when not given."""
     from .interpolation import interpolate_internal
-    internal = interpolate_internal(mesh, vf, scheme, phi)
+    internal = interpolate_internal(mesh, vf, scheme, phi, g)
     return torch.cat([internal, vf.bvalues])
 
 

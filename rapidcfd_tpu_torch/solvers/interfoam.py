@@ -54,12 +54,28 @@ def interface_normal_flux(mesh, alpha: VolField) -> torch.Tensor:
 
 
 def compression_flux(mesh, phi: SurfaceField, nhatf: torch.Tensor,
-                     c_alpha: float) -> torch.Tensor:
-    """phir = cAlpha |phi|/|Sf| nHatf, zero through the boundary faces."""
-    phir = c_alpha * phi.data.abs() \
-        / torch.clamp(mesh.mag_sf, min=1e-30) * nhatf
+                     c_alpha: float, capped: bool = False) -> torch.Tensor:
+    """phir = cAlpha |phi|/|Sf| nHatf, zero through the boundary faces.
+    capped: phic = min(cAlpha |phi|/|Sf|, max |phi|/|Sf|), as
+    multiphaseMixture caps it."""
+    phic = c_alpha * phi.data.abs() / torch.clamp(mesh.mag_sf, min=1e-30)
+    if capped:
+        phic = torch.minimum(phic, (phi.data.abs() / torch.clamp(
+            mesh.mag_sf, min=1e-30)).max())
+    phir = phic * nhatf
     n_int = mesh.n_internal
     return torch.cat([phir[:n_int], torch.zeros_like(phir[n_int:])])
+
+
+def interface_curvature(mesh, nhatf: torch.Tensor) -> torch.Tensor:
+    """kappa = -div(nHatf) on every face: interpolated linearly on the
+    internal faces, the owner's value on the boundary faces (reference:
+    interfaceProperties::calculateK)."""
+    n_int = mesh.n_internal
+    kappa = -fvc.surface_sum_faces(mesh, nhatf) / mesh.V
+    own_k, nei_k = fvc.face_own_nei(mesh, kappa)
+    k_int = mesh.weights * own_k + (1 - mesh.weights) * nei_k
+    return torch.cat([k_int, kappa[mesh.owner[n_int:]]])
 
 
 def make_step(case: Case, consts, ctrl: PimpleControl, mixing: bool = False,
@@ -129,11 +145,7 @@ def make_step(case: Case, consts, ctrl: PimpleControl, mixing: bool = False,
         """CSF: sigma kappa_f snGrad(alpha) on every face (reference:
         interfaceProperties), kappa = -div(nHatf) interpolated linearly
         (the owner's value on boundary faces)."""
-        kappa = -fvc.surface_sum_faces(
-            mesh, interface_normal_flux(mesh, alpha)) / mesh.V
-        own_k, nei_k = fvc.face_own_nei(mesh, kappa)
-        k_int = mesh.weights * own_k + (1 - mesh.weights) * nei_k
-        kf = torch.cat([k_int, kappa[mesh.owner[n_int:]]])
+        kf = interface_curvature(mesh, interface_normal_flux(mesh, alpha))
         return sigma * kf * fvc.sn_grad(mesh, alpha).data
 
     def alpha_eqn(alpha: VolField, phi: SurfaceField, dt):

@@ -3145,3 +3145,329 @@ SchnerrSauerCoeffs
                 "uniform 1000", {"inlet": _ZG, "outlet": _fv(1000),
                                  "walls": _ZG, "fb": _EMPTY})
     return mesh
+
+
+# -- the rest of the incompressible multiphase family -------------------------
+
+_MULTIPHASE_TRANSPORT = """
+phases
+(
+    water { rho rho [1 -3 0 0 0 0 0] 1000; nu nu [0 2 -1 0 0 0 0] 1e-06; }
+    oil { rho rho [1 -3 0 0 0 0 0] 500; nu nu [0 2 -1 0 0 0 0] 1e-06; }
+    air { rho rho [1 -3 0 0 0 0 0] 1; nu nu [0 2 -1 0 0 0 0] 1.48e-05; }
+);
+sigmas
+(
+    (water oil) 0.01
+    (water air) 0.07
+    (oil air) 0.03
+);
+"""
+
+_MULTIPHASE_SCHEMES = """
+ddtSchemes { default Euler; }
+gradSchemes { default Gauss linear; }
+divSchemes { default none; div(phi,alpha) Gauss vanLeer;
+             div(rhoPhi,U) Gauss linearUpwind grad(U); }
+laplacianSchemes { default Gauss linear orthogonal; }
+interpolationSchemes { default linear; }
+snGradSchemes { default orthogonal; }
+"""
+
+_MULTIPHASE_SOLUTION = """
+solvers
+{
+    alpha { cAlpha 1; }
+    p_rgh { solver PCG; preconditioner DIC; tolerance 1e-07;
+            relTol 0.05; }
+    p_rghFinal { solver PCG; preconditioner DIC; tolerance 1e-07;
+                 relTol 0; }
+    U { solver smoothSolver; smoother symGaussSeidel; tolerance 1e-06;
+        relTol 0; }
+}
+PIMPLE { nOuterCorrectors 1; nCorrectors 3;
+         nNonOrthogonalCorrectors 0; }
+"""
+
+
+def _cell_centres(mesh: PolyMesh) -> np.ndarray:
+    from ..mesh.geometry import cell_centres_and_vols, face_centres_and_areas
+    Cf, Sf = face_centres_and_areas(mesh)
+    return cell_centres_and_vols(mesh, Cf, Sf)[0]
+
+
+def _multiphase_case(case_dir: str, fractions: dict, walls: dict,
+                     empty: str, end_time: float, delta_t: float):
+    """multiphaseInterFoam's dictionaries, alpha<phase> fields (fractions
+    maps a phase to its cell values), U at rest and p_rgh 0; walls maps a
+    patch to its U entry, empty names the empty patch."""
+    from ..fields.io import _body_value
+    _write_dict(case_dir, "system", "controlDict", f"""
+application multiphaseInterFoam; startFrom startTime; startTime 0;
+stopAt endTime; endTime {end_time}; deltaT {delta_t};
+writeControl timeStep; writeInterval 1000; writeFormat ascii;
+""")
+    _write_dict(case_dir, "system", "fvSchemes", _MULTIPHASE_SCHEMES)
+    _write_dict(case_dir, "system", "fvSolution", _MULTIPHASE_SOLUTION)
+    _write_dict(case_dir, "constant", "transportProperties",
+                _MULTIPHASE_TRANSPORT)
+    _write_g(case_dir)
+    bcs = {name: _ZG for name in walls}
+    bcs[empty] = _EMPTY
+    for name, arr in fractions.items():
+        write_field(case_dir, "0", f"alpha{name}", "volScalarField",
+                    "[0 0 0 0 0 0 0]", _body_value(arr, prec=10), bcs)
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                "uniform (0 0 0)", dict(walls, **{empty: _EMPTY}))
+    write_field(case_dir, "0", "p_rgh", "volScalarField",
+                "[1 -1 -2 0 0 0 0]", "uniform 0", bcs)
+
+
+def stratified_tank_case(case_dir: str, nx: int = 20, ny: int = 12,
+                         end_time: float = 0.03,
+                         delta_t: float = 0.00025) -> PolyMesh:
+    """multiphaseInterFoam: water below, oil in the middle and air on top
+    of a closed 0.2 x 0.12 m box (1000/500/1 kg/m^3, sigma 0.01/0.07/0.03
+    N/m; the case of tests/test_phasechange.py::
+    test_multiphase_inter_three_phase_dam)."""
+    mesh = box_mesh(nx, ny, 1, size=(0.2, 0.12, 0.01), patch_spec={
+        "xmin": ("walls", "wall"), "xmax": ("walls", "wall"),
+        "ymin": ("walls", "wall"), "ymax": ("top", "wall"),
+        "zmin": ("fb", "empty"), "zmax": ("fb", "empty")})
+    write_polymesh(mesh, case_dir)
+    y = _cell_centres(mesh)[:, 1]
+    water = (y < 0.04).astype(float)
+    oil = ((y >= 0.04) & (y < 0.08)).astype(float)
+    _multiphase_case(case_dir,
+                     {"water": water, "oil": oil, "air": 1.0 - water - oil},
+                     {"walls": _fv("(0 0 0)"), "top": _fv("(0 0 0)")},
+                     "fb", end_time, delta_t)
+    return mesh
+
+
+def multiphase_dam_break_case(case_dir: str, n: int = 64,
+                              delta_t: float = 1e-4, end_time: float = 0.1,
+                              write_mesh: bool = True) -> PolyMesh:
+    """A three-phase dam break for multiphaseInterFoam, after OpenFOAM's
+    multiphase/multiphaseInterFoam/laminar/damBreak4phase tutorial as
+    dam_break_case simplifies damBreak: the closed 0.584 m box without the
+    obstacle, a water column of damBreak's 0.1461 x 0.292 m at the left
+    wall and an oil column of the same size beside it, air elsewhere
+    (stratified_tank_case's phases and sigmas; no mercury and no
+    contact-angle walls). n x n cells, the mesh of dam_break_case(n=n);
+    write_mesh=False leaves it unwritten (pass the returned PolyMesh, or
+    dam_break_case's, to Case(pmesh=))."""
+    L = 0.584
+    mesh = box_mesh(n, n, 1, size=(L, L, 0.0146), patch_spec={
+        "xmin": ("walls", "wall"), "xmax": ("walls", "wall"),
+        "ymin": ("walls", "wall"), "ymax": ("walls", "wall"),
+        "zmin": ("frontAndBack", "empty"),
+        "zmax": ("frontAndBack", "empty")})
+    if write_mesh:
+        write_polymesh(mesh, case_dir)
+    C = _cell_centres(mesh)
+    low = C[:, 1] < 0.5 * L
+    water = (low & (C[:, 0] < 0.25 * L)).astype(float)
+    oil = (low & (C[:, 0] >= 0.25 * L) & (C[:, 0] < 0.5 * L)).astype(float)
+    _multiphase_case(case_dir,
+                     {"water": water, "oil": oil, "air": 1.0 - water - oil},
+                     {"walls": _fv("(0 0 0)")}, "frontAndBack", end_time,
+                     delta_t)
+    return mesh
+
+
+def settling_column_case(case_dir: str, nx: int = 4, ny: int = 40,
+                         delta_t: float = 0.05, end_time: float = 2.0,
+                         write_mesh: bool = True) -> PolyMesh:
+    """driftFluxFoam: sludge (1996 kg/m^3, alpha 0.005) settling in water
+    (996 kg/m^3) in a closed 0.05 x 0.5 m column, the simple relative
+    velocity model with V0 (0 -0.05 0) and the plastic viscosity (the case
+    of tests/test_phasechange.py::test_drift_flux_settling at nx x ny)."""
+    mesh = box_mesh(nx, ny, 1, size=(0.05, 0.5, 0.01), patch_spec={
+        "xmin": ("walls", "wall"), "xmax": ("walls", "wall"),
+        "ymin": ("bottom", "wall"), "ymax": ("top", "wall"),
+        "zmin": ("fb", "empty"), "zmax": ("fb", "empty")})
+    if write_mesh:
+        write_polymesh(mesh, case_dir)
+    _write_dict(case_dir, "system", "controlDict", f"""
+application driftFluxFoam; startFrom startTime; startTime 0;
+stopAt endTime; endTime {end_time}; deltaT {delta_t};
+writeControl timeStep; writeInterval 1000; writeFormat ascii;
+""")
+    _write_dict(case_dir, "system", "fvSchemes", """
+ddtSchemes { default Euler; }
+gradSchemes { default Gauss linear; }
+divSchemes { default none; div(phi,alpha) Gauss vanLeer;
+             div(rhoPhi,U) Gauss upwind; }
+laplacianSchemes { default Gauss linear orthogonal; }
+interpolationSchemes { default linear; }
+snGradSchemes { default orthogonal; }
+""")
+    _write_dict(case_dir, "system", "fvSolution", """
+solvers
+{
+    "alpha.*" { solver PBiCGStab; preconditioner DILU;
+                tolerance 1e-10; relTol 0; }
+    p_rgh { solver PCG; preconditioner DIC; tolerance 1e-08;
+            relTol 0.01; }
+    p_rghFinal { solver PCG; preconditioner DIC; tolerance 1e-08;
+                 relTol 0; }
+    alpha1 { solver PBiCGStab; preconditioner DILU; tolerance 1e-10;
+             relTol 0; }
+    U { solver smoothSolver; smoother symGaussSeidel; tolerance 1e-07;
+        relTol 0; }
+}
+PIMPLE { nOuterCorrectors 1; nCorrectors 2;
+         nNonOrthogonalCorrectors 0; }
+""")
+    _write_dict(case_dir, "constant", "transportProperties", """
+phases (sludge water);
+sludge { rho rho [1 -3 0 0 0 0 0] 1996; }
+water { rho rho [1 -3 0 0 0 0 0] 996; nu nu [0 2 -1 0 0 0 0] 1e-06; }
+plasticCoeffs
+{
+    plasticViscosityCoeff plasticViscosityCoeff [1 -1 -1 0 0] 0.001;
+    plasticViscosityExponent plasticViscosityExponent [0 0 0 0 0] 2;
+    muMax muMax [1 -1 -1 0 0] 10;
+}
+relativeVelocityModel simple;
+simpleCoeffs
+{
+    V0 V0 [0 1 -1 0 0 0 0] (0 -0.05 0);
+    a a [0 0 0 0 0 0 0] 5;
+    a1 a1 [0 0 0 0 0 0 0] 0.1;
+    residualAlpha residualAlpha [0 0 0 0 0 0 0] 0;
+}
+""")
+    _write_g(case_dir)
+    bcs = {"walls": _ZG, "bottom": _ZG, "top": _ZG, "fb": _EMPTY}
+    write_field(case_dir, "0", "alpha1", "volScalarField", "[0 0 0 0 0 0 0]",
+                "uniform 0.005", bcs)
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                "uniform (0 0 0)", {
+                    "walls": _fv("(0 0 0)"), "bottom": _fv("(0 0 0)"),
+                    "top": _fv("(0 0 0)"), "fb": _EMPTY})
+    write_field(case_dir, "0", "p_rgh", "volScalarField", "[1 -1 -2 0 0 0 0]",
+                "uniform 0", bcs)
+    return mesh
+
+
+def sloshing_tank_case(case_dir: str, nx: int = 20, ny: int = 10,
+                       delta_t: float = 0.002,
+                       end_time: float = 0.1) -> PolyMesh:
+    """potentialFreeSurfaceFoam: a 0.2 x 0.1 m tank whose top is the
+    waveSurfacePressure patch, set sloshing by U = 0.2 sin(pi x / 0.2)
+    (the case of tests/test_phasechange.py::
+    test_potential_free_surface_sloshing at nx x ny)."""
+    mesh = box_mesh(nx, ny, 1, size=(0.2, 0.1, 0.01), patch_spec={
+        "xmin": ("left", "wall"), "xmax": ("right", "wall"),
+        "ymin": ("bottom", "wall"), "ymax": ("freeSurface", "patch"),
+        "zmin": ("fb", "empty"), "zmax": ("fb", "empty")})
+    write_polymesh(mesh, case_dir)
+    _write_dict(case_dir, "system", "controlDict", f"""
+application potentialFreeSurfaceFoam; startFrom startTime; startTime 0;
+stopAt endTime; endTime {end_time}; deltaT {delta_t};
+writeControl timeStep; writeInterval 1000; writeFormat ascii;
+""")
+    _write_dict(case_dir, "system", "fvSchemes", """
+ddtSchemes { default Euler; }
+gradSchemes { default Gauss linear; }
+divSchemes { default none; div(phi,U) Gauss upwind; }
+laplacianSchemes { default Gauss linear orthogonal; }
+interpolationSchemes { default linear; }
+snGradSchemes { default orthogonal; }
+""")
+    _write_dict(case_dir, "system", "fvSolution", """
+solvers
+{
+    p_gh { solver PCG; preconditioner DIC; tolerance 1e-08;
+           relTol 0.01; }
+    p_ghFinal { solver PCG; preconditioner DIC; tolerance 1e-08;
+                relTol 0; }
+    U { solver smoothSolver; smoother symGaussSeidel; tolerance 1e-07;
+        relTol 0; }
+}
+PIMPLE { nOuterCorrectors 1; nCorrectors 2;
+         nNonOrthogonalCorrectors 0; }
+""")
+    _write_dict(case_dir, "constant", "transportProperties",
+                "\nnu              nu [0 2 -1 0 0 0 0] 1e-05;\n")
+    _write_g(case_dir)
+    x = _cell_centres(mesh)[:, 0]
+    body = "nonuniform List<vector>\n%d\n(\n%s\n)" % (
+        len(x), "\n".join(f"({a:.8g} 0 0)"
+                          for a in 0.2 * np.sin(np.pi * x / 0.2)))
+    walls = {"left": _fv("(0 0 0)"), "right": _fv("(0 0 0)"),
+             "bottom": _fv("(0 0 0)")}
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                body, dict(walls, freeSurface=_ZG, fb=_EMPTY))
+    write_field(case_dir, "0", "p_gh", "volScalarField", "[0 2 -2 0 0 0 0]",
+                "uniform 0", {
+                    "left": _ZG, "right": _ZG, "bottom": _ZG,
+                    "freeSurface":
+                        "        type            waveSurfacePressure;\n"
+                        "        value           uniform 0;\n",
+                    "fb": _EMPTY})
+    return mesh
+
+
+def cavitating_expansion_case(case_dir: str, nx: int = 40, ny: int = 4,
+                              delta_t: float = 2e-6,
+                              end_time: float = 0.0004) -> PolyMesh:
+    """cavitatingFoam: liquid (830 kg/m^3) driven through a 0.04 x 0.004 m
+    channel from 3e5 Pa into an outlet held at 3000 Pa, below pSat 8000
+    Pa, where it flashes to vapour through the barotropic relation (the
+    case of tests/test_phasechange.py::test_cavitating_foam_expansion at
+    nx x ny)."""
+    mesh = box_mesh(nx, ny, 1, size=(0.04, 0.004, 0.001), patch_spec={
+        "xmin": ("inlet", "patch"), "xmax": ("outlet", "patch"),
+        "ymin": ("walls", "wall"), "ymax": ("walls", "wall"),
+        "zmin": ("fb", "empty"), "zmax": ("fb", "empty")})
+    write_polymesh(mesh, case_dir)
+    _write_dict(case_dir, "system", "controlDict", f"""
+application cavitatingFoam; startFrom startTime; startTime 0;
+stopAt endTime; endTime {end_time}; deltaT {delta_t};
+writeControl timeStep; writeInterval 1000; writeFormat ascii;
+""")
+    _write_dict(case_dir, "system", "fvSchemes", """
+ddtSchemes { default Euler; }
+gradSchemes { default Gauss linear; }
+divSchemes { default none; div(phi,rho) Gauss upwind;
+             div(rhoPhi,U) Gauss upwind; }
+laplacianSchemes { default Gauss linear orthogonal; }
+interpolationSchemes { default linear; }
+snGradSchemes { default orthogonal; }
+""")
+    _write_dict(case_dir, "system", "fvSolution", """
+solvers
+{
+    rho { solver PBiCGStab; preconditioner DILU; tolerance 1e-08;
+          relTol 0; }
+    p { solver PCG; preconditioner DIC; tolerance 1e-08; relTol 0.01; }
+    pFinal { solver PCG; preconditioner DIC; tolerance 1e-08; relTol 0; }
+    U { solver smoothSolver; smoother symGaussSeidel; tolerance 1e-07;
+        relTol 0; }
+}
+PIMPLE { nOuterCorrectors 2; nCorrectors 1;
+         nNonOrthogonalCorrectors 0; }
+""")
+    _write_dict(case_dir, "constant", "thermodynamicProperties", """
+psil            psil [0 -2 2 0 0] 4.54e-07;
+rholSat         rholSat [1 -3 0 0 0] 830;
+psiv            psiv [0 -2 2 0 0] 2.5e-06;
+pSat            pSat [1 -1 -2 0 0] 8000;
+rhoMin          rhoMin [1 -3 0 0 0] 0.001;
+""")
+    _write_dict(case_dir, "constant", "transportProperties", """
+phases (liquid vapour);
+phase1 { rho rho [1 -3 0 0 0 0 0] 830; nu nu [0 2 -1 0 0 0 0] 7.8e-06; }
+phase2 { rho rho [1 -3 0 0 0 0 0] 0.02; nu nu [0 2 -1 0 0 0 0] 4e-05; }
+sigma           sigma [1 0 -2 0 0 0 0] 0;
+""")
+    write_field(case_dir, "0", "p", "volScalarField", "[1 -1 -2 0 0 0 0]",
+                "uniform 100000", {"inlet": _fv(300000), "outlet": _fv(3000),
+                                   "walls": _ZG, "fb": _EMPTY})
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                "uniform (0 0 0)", {"inlet": _ZG, "outlet": _ZG,
+                                    "walls": _fv("(0 0 0)"), "fb": _EMPTY})
+    return mesh

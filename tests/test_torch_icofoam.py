@@ -123,9 +123,11 @@ def test_port_runs_without_jax(tmp_path):
     step and one thermoFoam step, and of the VOF family one interFoam step
     of the small dam break (gdia, explicit MULES and MULESCorr), one
     LTSInterFoam and one twoLiquidMixingFoam step, one interMixingFoam
-    step and the SchnerrSauer mixture (through the registry copy), on the
-    CPU pulls no jax module and no module of the JAX package into the
-    process."""
+    step and the SchnerrSauer mixture (through the registry copy), and
+    one step each of multiphaseInterFoam, driftFluxFoam,
+    potentialFreeSurfaceFoam (waveSurfacePressure through the registry)
+    and cavitatingFoam, on the CPU pulls no jax module and no module of
+    the JAX package into the process."""
     d = str(tmp_path / "case")
     c = str(tmp_path / "cavity")
     s = str(tmp_path / "simple")
@@ -136,6 +138,7 @@ def test_port_runs_without_jax(tmp_path):
     rc = str(tmp_path / "central")
     rp = str(tmp_path / "transient_hot_channel")
     db = str(tmp_path / "dam_break")
+    mp = str(tmp_path / "multiphase")
     hr, bc, p1, bp, tf = (str(tmp_path / n) for n in (
         "hot_room", "boussinesq_cavity", "p1_cavity", "pimple_cavity",
         "thermo_channel"))
@@ -281,6 +284,22 @@ vc, vv = pc.v_dot_alphal(torch.tensor([0.5, 1.0]),
 assert torch.isfinite(vc).all() and torch.isfinite(vv).all()
 assert mules.limiter and intermixingfoam.make_step \
     and interphasechangefoam.make_step
+from rapidcfd_tpu_torch.solvers import (cavitatingfoam, driftfluxfoam,
+                                        multiphaseinterfoam,
+                                        potentialfreesurfacefoam)
+from rapidcfd_tpu_torch.utils import casegen
+for mod, writer, kw in (
+        (multiphaseinterfoam, casegen.multiphase_dam_break_case,
+         dict(n=6, delta_t=1e-3)),
+        (driftfluxfoam, casegen.settling_column_case, dict(nx=4, ny=8)),
+        (potentialfreesurfacefoam, casegen.sloshing_tank_case,
+         dict(nx=8, ny=4)),
+        (cavitatingfoam, casegen.cavitating_expansion_case,
+         dict(nx=8, ny=2))):
+    writer({mp!r} + "/" + mod.__name__, **kw)
+    case = mod.run({mp!r} + "/" + mod.__name__, device=cpu, dtype=f32,
+                   write=False, max_steps=1)[0]
+    assert len(case.step_log) == 1
 print("NEW_FOREIGN_MODULES", sorted(foreign() - before))
 print("JAX_LEFT_OUT", not before and "jax" not in sys.modules)
 print("JAX_PRELOADED", bool(before))

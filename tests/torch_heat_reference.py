@@ -70,12 +70,20 @@ def rel(a, b) -> float:
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
 
 
+def _with_old(x):
+    """x with an old time level stored (each field of a list of them)."""
+    if isinstance(x, (list, tuple)):
+        return type(x)(_with_old(f) for f in x)
+    return x.store_old() if getattr(x, "old", 0) is None else x
+
+
 class RecordingJax:
     """The jax module for a JAX solver module whose step is a jitted
     closure: its jit records each step's iteration counts (its_of(stats))
     and keeps the step's input structure, and with it the compiled
     program, the same from the first call: before it, the arguments at
-    `prestore` get their old level (the step stores it itself) and the
+    `prestore` get their old level (the step stores it itself; each field
+    of a list argument too) and the
     flux `phi` takes the name the step's returned flux carries
     (phiHbyA; a name is static in a JAX pytree). A jitted helper that
     returns no tuple (a solver's initial flux) records nothing."""
@@ -92,8 +100,8 @@ class RecordingJax:
         def recorded(*a):
             a = list(a)
             for i in self.prestore:
-                if i < len(a) and getattr(a[i], "old", 0) is None:
-                    a[i] = a[i].store_old()
+                if i < len(a):
+                    a[i] = _with_old(a[i])
             for i, x in enumerate(a):
                 if isinstance(x, JSurface) and x.name == "phi":
                     a[i] = JSurface(x.data, x.dims, "phiHbyA")
