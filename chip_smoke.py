@@ -240,24 +240,52 @@ Phases (any failure raises and the script exits non-zero):
    same cases in-process in fp32 and fp64: ms per step, the fp32-fp64
    gap (recorded, not bounded), the largest zeta, the vapour fraction's
    range and rho at or above rhoMin;
-35. a JSON line of kernel results (the kernel's four forms, its two K = 7
-   forms on the T-junction's planes and on the hot room's, its K = 5,
-   C = 3 form on the forward step's planes and on the dam break's (its
-   C = 1 form there too where that path launches it), and both K = 5
-   forms on the settling column's planes: cold times of the kernel, the
-   baseline, the, and its K = 5,
-   C = 3 form on the forward step's planes and on the dam break's (its
-   C = 1 form there too where that path launches it): cold times of the
-   kernel, the baseline, the
-   plain version and cuSPARSE as `ms`, `baseline_ms`, `plain_ms` and
-   `library_ms`, held against `bound_ms`, and their warm times as
-   `*warm_ms`, with their launches on their main path — simpleFoam
-   pitzDaily x5 for K = 5, the channel for K = 7, the T-junction, the
-   forward step (sonicFoam), the hot room and the dam break for their
-   planes — and on each path, rhoCentralFoam's, rhoPimpleFoam's, the
-   heat-transfer and the VOF paths' included), the card's name and
-   power limit, and the result line {"ok": true, "device": {...}}
-   last.
+35. (run right after phase 30) both K = 7 forms on the full-size porous
+   duct's own Gauss planes (448 x 48 x 48, n = 1,032,192, offsets 0,
+   +-1, +-448, +-21,504) against the plain version, fp32 to 1e-5 and
+   fp64 to 1e-13, timed cold and warm beside cuSPARSE as in phase 3, and
+   both forms in fp32 and fp64 on the planes of the 48x12x12, 24x6x6 and
+   224x24x24 ducts; the fp32 duct, written by `porous_duct_case` without
+   its mesh and built on the writer's gdia embedding, is kept for phase
+   37;
+36. the fvOptions, basic and non-Newtonian slice in fp64 on cuda and on
+   cpu: porousSimpleFoam on the 48x12x12 duct (gdia, 3 iterations),
+   pisoFoam with actuationDiskSource on the 40x8 channel (ELL, 5 steps),
+   buoyantBoussinesqSimpleFoam with semiImplicitSource and
+   limitTemperature on the Boussinesq cavity (gdia, 3 iterations),
+   laplacianFoam and scalarTransportFoam on the thermal cavity and
+   nonNewtonianIcoFoam (CrossPowerLaw) on the 20x20 cavity (gdia, 5 steps
+   each): every field within OPTIONS_RTOL relative (scalarTransportFoam's
+   within LIMITER_SPREAD with the kernel, whose rounding its vanLeer
+   limiter turns into field differences where T is uniform, and within
+   OPTIONS_RTOL with the kernel's plain version in its place), iteration
+   counts within one, the shift-MAC launches per step on cuda as counted;
+37. the main path of the slice: porousSimpleFoam on the porous duct at
+   448x48x48 (1,032,192 cells, 3-D gdia) in fp32 from rest: one warm-up
+   iteration, one profiled and one clocked iteration (each solve timed
+   alone), then POROUS_TIMED timed iterations; fields finite, k and
+   epsilon positive, at least one C = 3 and one C = 1 launch at every
+   iteration; ms/iteration, cell-updates/s, set-up by stage, iterations
+   per solve, launches by (K, C), the profiled iteration's launches, busy
+   share and top kernels, peak memory, the pressure drop across the
+   porous zone beside Darcy's nu d U L (recorded, not bounded); then
+   `python3 -m rapidcfd_tpu_torch porousSimpleFoam -case D -gdiaBox
+   -noWrite` on the 224x24x24 duct for POROUS_CLI_ITERATIONS iterations;
+38. `python3 -m rapidcfd_tpu_torch nonNewtonianIcoFoam|scalarTransportFoam|
+   potentialFoam -case D -gdiaBox -noWrite` on the card (fp32) on the
+   cavity at 512x512, BASIC_STEPS steps each (potentialFoam: its solve),
+   then each case in-process in fp32: ms per step, fields finite;
+39. a JSON line of kernel results: for each form of the kernel on each
+   main path's planes (its four forms at phase 3's shapes; both K = 7
+   forms on the T-junction's, the hot room's and the porous duct's
+   planes; K = 5, C = 3 on the forward step's; both K = 5 forms on the
+   settling column's, and on the dam break's where that path launches
+   C = 1), the cold times of the kernel, the baseline, the plain version
+   and cuSPARSE as `ms`, `baseline_ms`, `plain_ms` and `library_ms`, held
+   against `bound_ms`, their warm times as `*warm_ms`, and the form's
+   launches on its main path and on every other path; then the card's
+   name and power limit, and the result line {"ok": true, "device":
+   {...}} last.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -3550,24 +3578,11 @@ def _drive(tag: str, module, step, state, dt, reading, smi: str):
     state, st, n_kernels, busy, t_prof, mac, top = _profiled_iteration(
         lambda *s: step(*s, dt), state)
     log.append(dict(reading(state, st), launches=None))
-    solves = []
-    solve = module.solve
-
-    def clocked(mesh, m, *a, **k):
-        torch.cuda.synchronize()
-        t_ = time.perf_counter()
-        out = solve(mesh, m, *a, **k)
-        torch.cuda.synchronize()
-        solves.append((m.psi.name, time.perf_counter() - t_))
-        return out
-    module.solve = clocked
-    try:
+    with _clocked_solves((module,)) as solves:
         t0 = time.perf_counter()
         advance(1)
         torch.cuda.synchronize()
         t_clocked = time.perf_counter() - t0
-    finally:
-        module.solve = solve
     med = statistics.median(secs)
     cells = int(state[1].data.shape[0])
     p_secs = sum(s for n, s in solves if n.startswith("p"))
@@ -3841,6 +3856,563 @@ def phase_multiphase_cli(tmp: str, smi: str):
               + f"; last step {c32.step_log[-1]} (card: {smi})")
 
 
+# fvOptions and the porous mains (phases 35-37): porousSimpleFoam on the
+# straightened porous duct (utils/casegen.porous_duct_case: 0.35 m long,
+# 0.05 x 0.05 m, the porosity cellZone in 0.15-0.25 m with DarcyForchheimer
+# d (5e7 -1000 -1000), kEpsilon, GAMG p) at 448 x 48 x 48, a full box on
+# the 3-D gdia lattice in fp32; then the basic solvers and
+# nonNewtonianIcoFoam through the dispatcher (phase 38)
+POROUS = dict(nx=448, ny=48, nz=48)
+POROUS_CELLS = 448 * 48 * 48
+POROUS_OFFSETS = (-21504, -448, -1, 0, 1, 448, 21504)
+POROUS_SMALL = dict(nx=48, ny=12, nz=12)        # the fp64 agreement phase
+POROUS_CLI = dict(nx=224, ny=24, nz=24)         # the dispatcher's run
+POROUS_CLI_ITERATIONS = 5
+POROUS_TIMED = 20                   # timed iterations after the first three
+# shift-MAC launches per SIMPLE iteration (a CPU count of the plain
+# version's calls): grad(p) in the momentum predictor and the correction
+# and grad(U) in kEpsilon's G and in div_dev_t_grad (3 + 3 components) at
+# C = 3, div_dev_t_grad's 9 contractions at C = 1
+POROUS_LAUNCHES = {(7, 3): 8, (7, 1): 9}
+# nonNewtonianIcoFoam: grad(p) in the predictor and each of 2 correctors
+# and the strain rate's grad(U); scalarTransportFoam: vanLeer's gradient
+NON_NEWTONIAN_LAUNCHES = {(5, 3): 6}
+SCALAR_TRANSPORT_LAUNCHES = {(5, 3): 1}
+# the laminar Boussinesq cavity on gdia: div_dev_t_grad's gradient and its
+# 9 contractions
+BOUSSINESQ_CAVITY_LAUNCHES = {(5, 3): 3, (5, 1): 9}
+# fp64 cuda against cpu on the slice's small cases (phase 36)
+OPTIONS_RTOL = 1e-8
+# scalarTransportFoam's vanLeer r is set by rounding where T is uniform
+# (the thermal cavity starts at 300 K), as sonicFoam's limiters are on the
+# forward step (phase 17): the kernel's fused multiply-adds move T by
+# 1.675e-5 of its largest value after 5 steps against the CPU (on an
+# H100 at 700 W). Its run with the kernel is held to this spread, and the
+# card's run with the kernel's plain version in its place to OPTIONS_RTOL
+LIMITER_SPREAD = 1e-3
+# the Boussinesq cavity's sources in phase 36: heating in one corner and
+# a clamp at 303 K, which the first iteration stays below (302.39 K) and
+# the second passes (303.78 K; CPU runs of the port), so no cell sits at
+# the clamp's edge when a run reads it
+BOUSSINESQ_CAVITY_OPTIONS = """
+heat1
+{
+    type            scalarSemiImplicitSource;
+    selectionMode   box;
+    box             ((0 0 -1) (0.3 0.3 1));
+    volumeMode      specific;
+    injectionRateSuSp { T (0.5 0); }
+}
+limit1
+{
+    type            limitTemperature;
+    selectionMode   all;
+    Tmin            290;
+    Tmax            303;
+}
+"""
+# the dispatcher runs of phase 38: the cavity at 512 x 512, dt for a lid
+# Courant number of 0.5; nonNewtonianIcoFoam with the bench's solvers
+# (CAVITY_BENCH: the tutorial's PCG/DIC p, cut by the fp32 stall guard at
+# 100 iterations, and smoothSolver U, at its 1000 sweeps, let the lid-driven
+# flow grow past the lid speed within 2 steps, fp32 and fp64 alike; CPU
+# runs of the port)
+BASIC_N = 512
+BASIC_DT = 0.5 * 0.1 / BASIC_N
+BASIC_STEPS = 5
+
+
+def _porous_case(tmp: str, name: str, dims: dict, dtype, **kw):
+    """The porous duct on the card, in memory on the writer's gdia
+    embedding: (case, set-up seconds by stage)."""
+    from rapidcfd_tpu_torch.solvers.case import Case
+    from rapidcfd_tpu_torch.utils.casegen import porous_duct_case
+    from rapidcfd_tpu_torch.utils.logging import captured
+    lat = {}
+    with captured():
+        t0 = time.perf_counter()
+        pm = porous_duct_case(f"{tmp}/{name}", write_mesh=False,
+                              lattice_out=lat, **dims, **kw)
+        t_gen = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        case = Case(f"{tmp}/{name}", device=torch.device("cuda"),
+                    dtype=dtype, pmesh=pm, lattice=lat)
+        t_case = time.perf_counter() - t0
+    return case, dict(generate=t_gen, **case.setup_seconds,
+                      case_total=t_case)
+
+
+def phase_porous_kernel(tmp: str, smi: str):
+    """(Run right after phase 30.) Both K = 7 forms on the full-size porous
+    duct's own Gauss planes (448 x 48 x 48, n = 1,032,192, offsets 0, +-1,
+    +-448, +-21,504) against the plain version, fp32 to 1e-5 and fp64 to
+    1e-13, timed cold and warm beside cuSPARSE as in phase 3; and both
+    forms in fp32 and fp64 on the planes of the ducts the agreement phase
+    and the dispatcher run (48x12x12, 24x6x6 and 224x24x24). Returns
+    (timings by (K, C), (the fp32 duct case, its set-up seconds)) for
+    phase 37."""
+    from rapidcfd_tpu_torch.ops import gdia_mac as gm
+    t0 = time.perf_counter()
+    case, setup_s = _porous_case(tmp, "porous", POROUS, torch.float32)
+    torch.cuda.synchronize()
+    setup_s["total"] = time.perf_counter() - t0
+    planes = case.mesh.gauss
+    check(tuple(planes.offsets) == POROUS_OFFSETS
+          and case.mesh.n_cells == POROUS_CELLS,
+          f"[35] unexpected duct planes {planes.offsets} on "
+          f"{case.mesh.n_cells}")
+    for dims in (POROUS_SMALL, dict(nx=24, ny=6, nz=6), POROUS_CLI):
+        small, _ = _porous_case(tmp, "porous_planes", dims, torch.float64)
+        sp = small.mesh.gauss
+        for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-13)):
+            g = torch.Generator(device="cuda").manual_seed(448)
+            x = torch.randn(small.mesh.n_cells, generator=g, device="cuda",
+                            dtype=dtype)
+            for coeffs in (sp.coeffs.to(dtype), sp.coeffs_i[1].to(dtype)):
+                ref = gm.shift_mac_cols_plain(x, coeffs, sp.offsets)
+                err = (gm.shift_mac_cols(x, coeffs, sp.offsets)
+                       - ref).abs().max().item()
+                check(err <= tol * ref.abs().max().item(),
+                      f"[35] kernel disagrees with the plain version on the "
+                      f"{dims} duct's planes: {err}")
+        print(f"[35] fp32 and fp64, both K = 7 forms on the planes of the "
+              f"{dims['nx']}x{dims['ny']}x{dims['nz']} duct (n = "
+              f"{small.mesh.n_cells}): within 1e-5 / 1e-13 of the plain "
+              f"version")
+        del small
+    g = torch.Generator(device="cuda").manual_seed(21504)
+    x = torch.randn(POROUS_CELLS, generator=g, device="cuda")
+    res = {}
+    for C, coeffs, n_sets in ((3, planes.coeffs, 2),        # 206 MB
+                              (1, planes.coeffs_i[1], 3)):   # 111 MB
+        for dtype, tol in ((torch.float64, 1e-13), (torch.float32, 1e-5)):
+            xd, cd = x.to(dtype), coeffs.to(dtype)
+            ref = gm.shift_mac_cols_plain(xd, cd, planes.offsets)
+            out = gm.shift_mac_cols(xd, cd, planes.offsets)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            lim = tol * ref.abs().max().item()
+            print(f"[35] {str(dtype)[6:]} porous-duct planes, K=7 C={C} "
+                  f"n={POROUS_CELLS}: max|d| {err:.2e} (limit {lim:.2e})")
+            check(err <= lim, f"[35] kernel disagrees with the plain version "
+                  f"on the duct's planes (C={C}, {dtype}): {err} > {lim}")
+        del xd, cd, ref, out
+        res[7, C] = dict(max_abs_err=err, **_time_form(
+            gm, 7, C, POROUS_CELLS, planes.offsets, n_sets, smi,
+            coeffs=coeffs, label="[35]"))
+        torch.cuda.empty_cache()
+    return res, (case, setup_s)
+
+
+def _options_run(solver: str, d: str, dev: str, steps: int, case):
+    """One of the slice's solvers in fp64 on the case: (case, {field:
+    tensor}, per-step iteration counts)."""
+    from rapidcfd_tpu_torch.solvers import (basic, buoyantfoam, icofoam,
+                                            pimplefoam, simplefoam)
+    from rapidcfd_tpu_torch.utils.logging import captured
+    run, kw, names = {
+        "porousSimpleFoam": (simplefoam.run, {},
+                             ("U", "p", "phi", "turb")),
+        "pisoFoam": (pimplefoam.run, dict(piso_mode=True),
+                     ("U", "p", "phi", "turb")),
+        "buoyantBoussinesqSimpleFoam": (buoyantfoam.run, {},
+                                        ("U", "p_rgh", "T", "phi", "turb")),
+        "laplacianFoam": (basic.run_laplacian_foam, {}, ("T",)),
+        "scalarTransportFoam": (basic.run_scalar_transport_foam, {},
+                                ("T",)),
+        "nonNewtonianIcoFoam": (icofoam.run, dict(non_newtonian=True),
+                                ("U", "p", "phi"))}[solver]
+    with captured():
+        case, *out = run(d, device=torch.device(dev), dtype=torch.float64,
+                         write=False, max_steps=steps, case=case, **kw)
+    fields = {}
+    for name, f in zip(names, out):
+        if name == "turb":
+            fields.update({k: v.data for k, v in f.items()})
+        else:
+            fields[name] = f.data
+    return case, fields, [r["iterations"] for r in case.step_log]
+
+
+def phase_options_agreement(tmp: str):
+    """The slice in fp64 on cuda and on cpu: porousSimpleFoam on the
+    48x12x12 porous duct (gdia, the cellZone; 3 iterations),
+    pisoFoam with actuationDiskSource on the JAX test's 40x8 channel
+    (ELL; 5 steps), buoyantBoussinesqSimpleFoam with semiImplicitSource
+    and limitTemperature on the small Boussinesq cavity (gdia; 3
+    iterations), laplacianFoam and scalarTransportFoam on the thermal
+    cavity (gdia; 5 steps) and nonNewtonianIcoFoam (CrossPowerLaw) on the
+    20x20 cavity (gdia; 5 steps): every field within OPTIONS_RTOL
+    relative, iteration counts within one, and the shift-MAC launches per
+    step on cuda as counted. scalarTransportFoam's vanLeer limiter turns
+    the kernel's rounding into field differences where T is uniform:
+    with the kernel its fields are held to LIMITER_SPREAD, and with the
+    kernel's plain version in its place to OPTIONS_RTOL."""
+    from rapidcfd_tpu_torch.ops import gdia_mac
+    from rapidcfd_tpu_torch.solvers.case import Case
+    from rapidcfd_tpu_torch.utils import casegen
+    from rapidcfd_tpu_torch.utils.logging import captured
+
+    def bcavity(d):
+        casegen.boussinesq_cavity_case(d)
+        casegen._write_dict(d, "system", "fvOptions",
+                            BOUSSINESQ_CAVITY_OPTIONS)
+
+    def non_newtonian(d):
+        casegen.cavity_case(d, end_time=0.05)
+        casegen.write_viscosity_model(d, "CrossPowerLaw")
+    cases = (
+        ("porousSimpleFoam", "duct 48x12x12",
+         lambda d: casegen.porous_duct_case(d, **POROUS_SMALL), True, 3,
+         POROUS_LAUNCHES),
+        ("pisoFoam", "actuation-disk channel 40x8",
+         casegen.disk_channel_case, False, 5, {}),
+        ("buoyantBoussinesqSimpleFoam", "cavity with sources", bcavity,
+         True, 3, BOUSSINESQ_CAVITY_LAUNCHES),
+        ("laplacianFoam", "thermal cavity", casegen.thermal_cavity_case,
+         True, 5, {}),
+        ("scalarTransportFoam", "thermal cavity",
+         casegen.thermal_cavity_case, True, 5, SCALAR_TRANSPORT_LAUNCHES),
+        ("nonNewtonianIcoFoam", "CrossPowerLaw cavity", non_newtonian,
+         True, 5, NON_NEWTONIAN_LAUNCHES))
+    for i, (solver, what, writer, box, steps, per_step) in enumerate(cases):
+        d = f"{tmp}/options{i}"
+        with captured():
+            writer(d)
+        tag = f"[36] fp64 {solver} {what},"
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            with captured():
+                case = Case(d, device=torch.device(dev), dtype=torch.float64,
+                            gdia_box=box)
+            gdia_mac.reset_launches()
+            t0 = time.perf_counter()
+            outs[dev] = _options_run(solver, d, dev, steps, case)
+            launches = dict(gdia_mac.LAUNCHES_BY_KC)
+            print(f"{tag} {steps} steps on {dev} ({'gdia' if box else 'ELL'})"
+                  f": {time.perf_counter() - t0:.2f} s; shift-MAC launches "
+                  f"{launches}")
+            if dev == "cuda":
+                check(launches == {kc: steps * v
+                                   for kc, v in per_step.items()},
+                      f"{tag} expected {per_step} launches per step: "
+                      f"{launches}")
+        (gc, gf, g_its), (cc, cf, c_its) = outs["cuda"], outs["cpu"]
+        errs = _field_errs(cc.maps, gf, cf)
+        n_off = _count_diffs(tag, g_its, c_its)
+        lim = LIMITER_SPREAD if solver == "scalarTransportFoam" \
+            else OPTIONS_RTOL
+        print(f"{tag} cuda vs cpu, relative max|d| (limit {lim:g}): "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f"; {n_off} iteration counts differ (by one); cuda step 1: "
+              f"{g_its[0]}")
+        check(all(v <= lim for v in errs.values()),
+              f"{tag} fp64 cuda and cpu runs disagree: {errs}")
+        if solver != "scalarTransportFoam":
+            continue
+        with captured():
+            case = Case(d, device=torch.device("cuda"), dtype=torch.float64,
+                        gdia_box=box)
+        with _plain_shift_mac():
+            _, pf, p_its = _options_run(solver, d, "cuda", steps, case)
+        errs = _field_errs(cc.maps, pf, cf)
+        n_off = _count_diffs(tag, p_its, c_its)
+        print(f"{tag} with the kernel's plain version on cuda, cuda vs cpu, "
+              f"relative max|d| (limit {OPTIONS_RTOL:g}): "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f"; {n_off} iteration counts differ (by one)")
+        check(all(v <= OPTIONS_RTOL for v in errs.values()),
+              f"{tag} with the plain version the card's run leaves the "
+              f"CPU's: {errs}")
+
+
+def _clocked_solves(modules):
+    """A context that times each linear solve the modules call (between
+    device syncs): yields the list it fills with (field, seconds)."""
+    @contextlib.contextmanager
+    def ctx():
+        solves = []
+        saved = [(m, m.solve) for m in modules]
+
+        def clocked(solve):
+            def run(mesh, m, *a, **k):
+                torch.cuda.synchronize()
+                t_ = time.perf_counter()
+                out = solve(mesh, m, *a, **k)
+                torch.cuda.synchronize()
+                solves.append((m.psi.name, time.perf_counter() - t_))
+                return out
+            return run
+        for m, solve in saved:
+            m.solve = clocked(solve)
+        try:
+            yield solves
+        finally:
+            for m, solve in saved:
+                m.solve = solve
+    return ctx()
+
+
+def phase_porous_main(tmp: str, smi: str, porous) -> dict:
+    """The main path of the slice: porousSimpleFoam (simpleFoam with the
+    duct's explicitPorositySource) on the full-size porous duct (1,032,192
+    cells, 3-D gdia, both K = 7 forms) in fp32 from rest, the case phase
+    35 built: one warm-up iteration, one profiled and one clocked
+    iteration (each linear solve timed alone), then POROUS_TIMED timed
+    iterations (each ending in a device sync). Fields finite, k and
+    epsilon positive, at least one C = 3 and one C = 1 launch at every
+    iteration (POROUS_LAUNCHES counted); ms/iteration, cell-updates/s,
+    set-up by stage, iterations per solve, launches by (K, C), the
+    profiled iteration's launches, busy share and top kernels, peak
+    memory, and the pressure drop across the porous zone beside Darcy's
+    nu d U L (recorded, not bounded). Then `python3 -m rapidcfd_tpu_torch
+    porousSimpleFoam -case D -gdiaBox -noWrite` on the duct at 224x24x24
+    (POROUS_CLI_ITERATIONS iterations). Returns the launches by (K, C)
+    over the timed iterations."""
+    from rapidcfd_tpu_torch.models import turbulence
+    from rapidcfd_tpu_torch.models.fvoptions import ExplicitPorositySource
+    from rapidcfd_tpu_torch.models.transport import \
+        SinglePhaseTransportModel
+    from rapidcfd_tpu_torch.ops import fvc, gdia_mac
+    from rapidcfd_tpu_torch.solvers import simplefoam
+    from rapidcfd_tpu_torch.solvers.controls import SimpleControl
+    from rapidcfd_tpu_torch.utils.casegen import (DUCT_LENGTHS,
+                                                  porous_duct_case)
+    from rapidcfd_tpu_torch.utils.logging import captured
+    tag = "[37] porousSimpleFoam porous duct 448x48x48 kEpsilon"
+    case, setup_s = porous
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with captured():
+        mesh = case.mesh
+        U, p = case.read_field("U"), case.read_field("p")
+        phi = fvc.flux(mesh, U)
+        transport = SinglePhaseTransportModel(case.transport_properties())
+        turb = turbulence.make_ras_model(case, U)
+        step = simplefoam.make_step(case, transport, turb,
+                                    SimpleControl(case))
+        state = (U, p, phi, turb.init_state(U))
+    torch.cuda.synchronize()
+    setup_s["fields_and_step"] = time.perf_counter() - t0
+    check(mesh.gdia is not None and mesh.n_cells == POROUS_CELLS
+          and int(case.maps.cell_primary.sum()) == POROUS_CELLS,
+          f"{tag}: expected {POROUS_CELLS} cells on the gdia lattice")
+    with captured():
+        opt = simplefoam.step_kwargs_from_case(
+            case, SimpleControl(case), transport, turb)["fv_options"].options
+    check(len(opt) == 1 and isinstance(opt[0], ExplicitPorositySource),
+          f"{tag}: expected the duct's explicitPorositySource: {opt}")
+    zone = opt[0].mask > 0
+    print(f"{tag} fp32: {POROUS_CELLS} cells (gdia, offsets "
+          f"{tuple(mesh.gauss.offsets)}), {int(zone.sum())} in the porous "
+          f"zone (d mean {opt[0].d_mean:g} 1/m2); set-up by stage: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in setup_s.items()))
+    records = []
+
+    def advance(state):
+        before = dict(gdia_mac.LAUNCHES_BY_KC)
+        t_ = time.perf_counter()
+        *state, st = step(*state)
+        torch.cuda.synchronize()
+        now = dict(gdia_mac.LAUNCHES_BY_KC)
+        records.append(dict(
+            secs=time.perf_counter() - t_,
+            its=simplefoam.iteration_counts(st), cont=float(st["cont"][0]),
+            launches={kc: now[kc] - before.get(kc, 0) for kc in now}))
+        return tuple(state)
+
+    state = advance(state)
+    state, st, n_kernels, busy, t_prof, mac, top = _profiled_iteration(
+        step, state)
+    with _clocked_solves((simplefoam, turbulence)) as solves:
+        state = advance(state)
+    t_clocked = records[-1]["secs"]
+    for _ in range(POROUS_TIMED):
+        state = advance(state)
+    U, p, phi, ts = state
+    for f in (U, p, *ts.values()):
+        check(bool(torch.isfinite(f.data).all()), f"{tag}: {f.name} not "
+              "finite")
+    check(bool(torch.isfinite(phi.data).all()), f"{tag}: phi not finite")
+    check(bool((ts["k"].data > 0).all() and (ts["epsilon"].data > 0).all()),
+          f"{tag}: k or epsilon not positive")
+    per_it = [r["launches"] for r in records]
+    check(all(d_.get((7, 3), 0) >= 1 and d_.get((7, 1), 0) >= 1
+              for d_ in per_it),
+          f"{tag}: an iteration launched no C = 3 or no C = 1 form: {per_it}")
+    timed = [r["secs"] for r in records[2:]]
+    med = statistics.median(timed)
+    x = mesh.C[:, 0]
+    lo, hi = DUCT_LENGTHS[0], DUCT_LENGTHS[0] + DUCT_LENGTHS[1]
+    dx = sum(DUCT_LENGTHS) / POROUS["nx"]
+    p_up = float(p.data[(x > lo - dx) & (x < lo)].double().mean())
+    p_down = float(p.data[(x > hi) & (x < hi + dx)].double().mean())
+    u_zone = float(U.data[zone][:, 0].double().mean())
+    nu = float(transport.nu(mesh, U).value)
+    darcy = nu * opt[0].d_mean * 1.0 * DUCT_LENGTHS[1]
+    print(f"{tag} warm-up iteration {records[0]['secs'] * 1e3:.1f} ms; "
+          f"clocked {t_clocked * 1e3:.1f} ms; {POROUS_TIMED} timed: "
+          + ", ".join(f"{s * 1e3:.3f}" for s in timed)
+          + f" ms; median {med * 1e3:.3f} ms/iteration, "
+          f"{POROUS_CELLS / med:.1f} cell-updates/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (card: "
+          f"{smi})")
+    p_secs = sum(s for n_, s in solves if n_ == "p")
+    print(f"{tag} clocked iteration: its solves "
+          + ", ".join(f"{n_} {s * 1e3:.1f}" for n_, s in solves)
+          + f" ms; the p solves {p_secs * 1e3:.1f} ms "
+          f"({p_secs / t_clocked:.1%})")
+    print(f"{tag} iterations per solve by iteration: "
+          + "; ".join(str(r["its"]) for r in records))
+    print(f"{tag} local continuity error by iteration: "
+          + ", ".join(f"{r['cont']:.3e}" for r in records))
+    print(f"{tag} shift-MAC launches per iteration by (K, C): {per_it[-1]} "
+          f"(expected {POROUS_LAUNCHES}; every one of {len(per_it)} "
+          f"iterations: {all(d_ == POROUS_LAUNCHES for d_ in per_it)})")
+    print(f"{tag} profiled iteration: {t_prof * 1e3:.1f} ms, {n_kernels} "
+          f"kernel launches, device busy {busy * 1e3:.2f} ms "
+          f"({busy / t_prof:.1%}) (card: {smi})")
+    print(f"{tag} profiled iteration, top kernels by device time (name, "
+          f"launches, ms): {top}")
+    print(f"{tag} profiled iteration, shift-MAC kernels: {mac}")
+    check(any("mac_stencil<float, 7, 3>" in name for name in mac)
+          and any("mac_stencil<float, 7, 1>" in name for name in mac),
+          f"{tag}: the profiled iteration did not run both K = 7 "
+          f"mac_stencil forms: {mac}")
+    print(f"{tag} after {len(records) + 1} iterations: pressure drop "
+          f"across the porous zone {p_up - p_down:.4f} m2/s2 (p {p_up:.4f} "
+          f"upstream, {p_down:.4f} downstream), mean Ux in the zone "
+          f"{u_zone:.4f} m/s; Darcy's nu d U L with the mean d and U = 1 "
+          f"m/s: {darcy:.4f} m2/s2 (recorded, not bounded)")
+    launches = {}
+    for d_ in per_it[2:]:
+        for kc, v in d_.items():
+            launches[kc] = launches.get(kc, 0) + v
+    del state, U, p, phi, ts, st, case, step, zone, opt
+    torch.cuda.empty_cache()
+
+    ctag = f"[37] porousSimpleFoam {POROUS_CLI['nx']}x{POROUS_CLI['ny']}x" \
+           f"{POROUS_CLI['nz']}"
+    d = f"{tmp}/porous_cli"
+    t0 = time.perf_counter()
+    with captured():
+        porous_duct_case(d, end_time=POROUS_CLI_ITERATIONS, **POROUS_CLI)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "rapidcfd_tpu_torch",
+                          "porousSimpleFoam", "-case", d, "-gdiaBox",
+                          "-noWrite"], capture_output=True, text=True,
+                         timeout=300)
+    wall = time.perf_counter() - t0
+    out = res.stdout
+    dims = f"{POROUS_CLI['nx']}x{POROUS_CLI['ny']}x{POROUS_CLI['nz']}"
+    check(res.returncode == 0 and f"lattice {dims}" in out
+          and "Creating fvOption porosity1 of type explicitPorositySource"
+          in out and out.count("\nTime = ") == POROUS_CLI_ITERATIONS
+          and out.rstrip().endswith("End"),
+          f"{ctag}: python3 -m rapidcfd_tpu_torch porousSimpleFoam -gdiaBox:"
+          f" rc {res.returncode}, {out[-600:]} {res.stderr[-1500:]}")
+    p_its = [int(m) for m in re.findall(
+        r"Solving for p,.*No Iterations (\d+)", out)]
+    print(f"{ctag}: python3 -m rapidcfd_tpu_torch porousSimpleFoam -gdiaBox "
+          f"-noWrite on the card, fp32: {POROUS_CLI_ITERATIONS} iterations "
+          f"in {wall:.1f} s with start-up (the writer's ascii mesh "
+          f"{t_write:.1f} s); p iterations {p_its} (card: {smi})")
+    return launches
+
+
+def phase_basic_cli(tmp: str, smi: str):
+    """nonNewtonianIcoFoam (CrossPowerLaw, the bench's solvers),
+    scalarTransportFoam and potentialFoam on the cavity at 512 x 512 (a
+    full box): `python3 -m
+    rapidcfd_tpu_torch <solver> -case D -gdiaBox` on the card in fp32
+    (their default), BASIC_STEPS steps each (potentialFoam: its one
+    solve), then the same case in-process on the card in fp32 for the
+    time per step (the median of steps 2 on); every run ends and its
+    fields are finite. Returns the in-process runs' launches by (K, C)."""
+    import shutil
+
+    from rapidcfd_tpu_torch.mesh.polymesh import read_polymesh
+    from rapidcfd_tpu_torch.ops import gdia_mac
+    from rapidcfd_tpu_torch.solvers import basic, icofoam
+    from rapidcfd_tpu_torch.solvers.case import Case
+    from rapidcfd_tpu_torch.utils import casegen
+    from rapidcfd_tpu_torch.utils.logging import captured
+    from rapidcfd_tpu_torch.utils.unstructured import detect_lattice
+    n, end = BASIC_N, BASIC_STEPS * BASIC_DT
+    dirs = {s: f"{tmp}/basic_{s}" for s in (
+        "nonNewtonianIcoFoam", "scalarTransportFoam", "potentialFoam")}
+    t0 = time.perf_counter()
+    with captured():
+        mesh = casegen.cavity_case(dirs["nonNewtonianIcoFoam"], n=n,
+                                   end_time=end, delta_t=BASIC_DT,
+                                   write_interval=10 ** 6, **CAVITY_BENCH)
+        casegen.write_viscosity_model(dirs["nonNewtonianIcoFoam"],
+                                      "CrossPowerLaw")
+        u = np.random.default_rng(512).uniform(-0.5, 0.5, (n * n, 2))
+        for s, u_in in (("scalarTransportFoam", "uniform (0.5 0 0)"),
+                        ("potentialFoam", "nonuniform List<vector>\n"
+                         f"{n * n}\n(\n" + "\n".join(
+                             f"({a:.6f} {b:.6f} 0)" for a, b in u) + "\n)\n")):
+            casegen.thermal_cavity_case(dirs[s], n=n, end_time=end,
+                                        delta_t=BASIC_DT, tol=1e-6,
+                                        u_internal=u_in, write_mesh=False)
+            shutil.copytree(f"{dirs['nonNewtonianIcoFoam']}/constant/"
+                            "polyMesh", f"{dirs[s]}/constant/polyMesh")
+    print(f"[38] cavity {n}x{n} written in {time.perf_counter() - t0:.1f} s "
+          f"(the ascii mesh once, copied); dt {BASIC_DT:g}")
+    lattice = detect_lattice(mesh, full_box=True)
+    fns = {"nonNewtonianIcoFoam": (icofoam.run, dict(non_newtonian=True)),
+           "scalarTransportFoam": (basic.run_scalar_transport_foam, {}),
+           "potentialFoam": (basic.run_potential_foam, {})}
+    launches = {}
+    for solver, d in dirs.items():
+        tag = f"[38] {solver} cavity {n}x{n}"
+        steps = 1 if solver == "potentialFoam" else BASIC_STEPS
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "rapidcfd_tpu_torch",
+                              solver, "-case", d, "-gdiaBox", "-noWrite"],
+                             capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        out = res.stdout
+        done = ("continuity error" in out if solver == "potentialFoam"
+                else out.count("\nTime = ") == steps)
+        check(res.returncode == 0 and f"lattice {n}x{n}x1" in out and done
+              and out.rstrip().endswith("End"),
+              f"{tag}: python3 -m rapidcfd_tpu_torch {solver} -gdiaBox: rc "
+              f"{res.returncode}, {out[-600:]} {res.stderr[-1500:]}")
+        its = [(m.group(1), int(m.group(2)))
+               for m in _ITER_RE.finditer(out)][:8]
+        print(f"{tag}: python3 -m rapidcfd_tpu_torch {solver} -gdiaBox "
+              f"-noWrite on the card, fp32: {steps} step(s) in {wall:.1f} s "
+              f"with start-up; first solves {its}")
+        run, kw = fns[solver]
+        with captured():
+            case = Case(d, device=torch.device("cuda"), dtype=torch.float32,
+                        pmesh=mesh, lattice=lattice)
+            gdia_mac.reset_launches()
+            if solver != "potentialFoam":
+                kw = dict(kw, max_steps=steps)
+            out_ = run(d, device=torch.device("cuda"), dtype=torch.float32,
+                       write=False, case=case, **kw)
+        launches[solver] = dict(gdia_mac.LAUNCHES_BY_KC)
+        for f in out_[1:]:
+            check(bool(torch.isfinite(f.data).all()),
+                  f"{tag}: {getattr(f, 'name', '')} not finite")
+        secs = case.step_seconds
+        ms = (statistics.median(secs[1:]) if len(secs) > 1 else secs[0]) \
+            * 1e3
+        print(f"{tag} in-process on the card, fp32: {ms:.3f} ms per "
+              f"{'solve' if solver == 'potentialFoam' else 'step'} "
+              f"({'median of steps 2-%d' % steps if steps > 1 else 'one'}"
+              f"), {n * n / ms * 1e3:.1f} cell-updates/s; shift-MAC "
+              f"launches {launches[solver]}; last step "
+              f"{case.step_log[-1]} (card: {smi})")
+        del case, out_
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     smi = phase_setup()
     phase_build()
@@ -3851,6 +4423,7 @@ def main():
         room_kernel, room_case = phase_room_kernel(tmp, smi)
         dam_kernel, dam_case = phase_dam_kernel(tmp, smi)
         column_kernel, column_mesh = phase_column_kernel(tmp, smi)
+        porous_kernel, porous_case = phase_porous_kernel(tmp, smi)
         phase_fp64_agreement(tmp)
         ico = phase_main_path(tmp, smi)
         phase_cavity_agreement(tmp)
@@ -3881,6 +4454,10 @@ def main():
         column = phase_column_main(tmp, smi, column_mesh)
         del dam_mesh, column_mesh
         phase_multiphase_cli(tmp, smi)
+        phase_options_agreement(tmp)
+        porous = phase_porous_main(tmp, smi, porous_case)
+        del porous_case
+        basic = phase_basic_cli(tmp, smi)
     paths = {"simpleFoam pitzDaily x5": simple, "icoFoam pitzDaily x5": ico,
              "icoFoam cavity 384": cavity,
              "simpleFoam channel 160x80x80": channel,
@@ -3895,7 +4472,12 @@ def main():
              "interFoam dam break 1024x1024": dam,
              "multiphaseInterFoam three-phase dam break 1024x1024":
                  multiphase,
-             "driftFluxFoam settling column 320x3200": column}
+             "driftFluxFoam settling column 320x3200": column,
+             "porousSimpleFoam porous duct 448x48x48": porous,
+             "nonNewtonianIcoFoam cavity 512x512":
+                 basic["nonNewtonianIcoFoam"],
+             "scalarTransportFoam cavity 512x512":
+                 basic["scalarTransportFoam"]}
     kernels = []
     for (K, c), what, main_path, times in (
             ((5, 3), "Gauss gradient", "simpleFoam pitzDaily x5", k[5, 3]),
@@ -3924,7 +4506,12 @@ def main():
             ((5, 3), "Gauss gradient, settling-column planes",
              "driftFluxFoam settling column 320x3200", column_kernel[5, 3]),
             ((5, 1), "divergence contraction, settling-column planes",
-             "driftFluxFoam settling column 320x3200", column_kernel[5, 1])):
+             "driftFluxFoam settling column 320x3200", column_kernel[5, 1]),
+            ((7, 3), "Gauss gradient, 3-D, porous-duct planes",
+             "porousSimpleFoam porous duct 448x48x48", porous_kernel[7, 3]),
+            ((7, 1), "divergence contraction, 3-D, porous-duct planes",
+             "porousSimpleFoam porous duct 448x48x48",
+             porous_kernel[7, 1])):
         if (K, c) == (5, 1) and main_path == "interFoam dam break 1024x1024" \
                 and not dam.get((5, 1)):
             continue      # the form is held and timed but not on this path

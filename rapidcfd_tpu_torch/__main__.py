@@ -14,15 +14,23 @@ from __future__ import annotations
 
 import argparse
 import importlib
-import inspect
 import os
 import sys
 
 #: ported solvers: name -> (module with run(case_dir, *, device, dtype,
-#: write, ...), extra keyword arguments of run)
+#: write, ...), extra keyword arguments of run; "_fn" names the module's
+#: function when it is not `run`). The porous mains are their base
+#: solvers: the porosity is an explicitPorositySource in system/fvOptions
+#: (the JAX dispatcher maps them so); interFoam and rhoSimpleFoam refuse
+#: an fvOptions entry, as the JAX package applies none there.
 SOLVERS = {
     "icoFoam": ("rapidcfd_tpu_torch.solvers.icofoam", {}),
+    "nonNewtonianIcoFoam": ("rapidcfd_tpu_torch.solvers.icofoam",
+                            {"non_newtonian": True}),
     "simpleFoam": ("rapidcfd_tpu_torch.solvers.simplefoam", {}),
+    "porousSimpleFoam": ("rapidcfd_tpu_torch.solvers.simplefoam", {}),
+    "porousInterFoam": ("rapidcfd_tpu_torch.solvers.interfoam", {}),
+    "rhoPorousSimpleFoam": ("rapidcfd_tpu_torch.solvers.rhosimplefoam", {}),
     "pimpleFoam": ("rapidcfd_tpu_torch.solvers.pimplefoam", {}),
     "pisoFoam": ("rapidcfd_tpu_torch.solvers.pimplefoam",
                  {"piso_mode": True}),
@@ -58,6 +66,12 @@ SOLVERS = {
     "potentialFreeSurfaceFoam": ("rapidcfd_tpu_torch.solvers."
                                  "potentialfreesurfacefoam", {}),
     "cavitatingFoam": ("rapidcfd_tpu_torch.solvers.cavitatingfoam", {}),
+    "laplacianFoam": ("rapidcfd_tpu_torch.solvers.basic",
+                      {"_fn": "run_laplacian_foam"}),
+    "scalarTransportFoam": ("rapidcfd_tpu_torch.solvers.basic",
+                            {"_fn": "run_scalar_transport_foam"}),
+    "potentialFoam": ("rapidcfd_tpu_torch.solvers.basic",
+                      {"_fn": "run_potential_foam"}),
 }
 
 
@@ -88,10 +102,9 @@ def main(argv=None):
     device = resolve_device(args.device)
     dtype = solver_dtype(name, args.precision)
     module, kwargs = SOLVERS[name]
-    run = importlib.import_module(module).run
+    kwargs = dict(kwargs)
+    run = getattr(importlib.import_module(module), kwargs.pop("_fn", "run"))
     if args.gdiaBox:
-        if "case" not in inspect.signature(run).parameters:
-            sys.exit(f"-gdiaBox is not supported by {name}")
         from .solvers.case import Case
         kwargs = dict(kwargs, case=Case(args.case, device=device,
                                         dtype=dtype, gdia_box=True))

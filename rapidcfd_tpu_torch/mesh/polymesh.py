@@ -1,5 +1,6 @@
 """polyMesh reader/writer: constant/polyMesh/{points,faces,owner,neighbour,
-boundary} — a numpy copy of rapidcfd_tpu/mesh/polymesh.py (ascii, with
+boundary}, and the faceZones reader — a numpy copy of
+rapidcfd_tpu/mesh/polymesh.py (ascii, with
 gzip-compressed files read transparently). Binary polyMesh files are not
 ported yet and raise."""
 
@@ -217,3 +218,35 @@ def write_polymesh(mesh: PolyMesh, case_dir: str):
                   f"        startFace       {p.start_face};\n    }}")
     pb.append(")\n")
     wr("boundary", "polyBoundaryMesh", "\n".join(pb))
+
+
+def read_face_zones(case_dir: str, region: str = "") -> dict:
+    """constant/polyMesh/faceZones -> {name: (faceLabels, None)} in FILE
+    numbering (reference: meshes/polyMesh/zones/faceZone; the flip map is
+    not read). No file gives {}."""
+    path = os.path.join(case_dir, "constant", region, "polyMesh",
+                        "faceZones")
+    if not os.path.isfile(path):
+        return {}
+    _, body = _strip_header(_read_text(path))
+    body = _strip_comments(body)
+    # compact lists like "3(1 2 3)" spaced out for the tokenizer
+    body = body.replace("(", " ( ").replace(")", " ) ")
+    m = re.search(r"(\d+)\s*\(", body)
+    d = parse_dictionary(body[m.end():body.rfind(")")])
+    zones = {}
+    for name, sub in d.items():
+        if not isinstance(sub, Dictionary):
+            continue
+        fl = sub.lookup("faceLabels")
+        # entry forms: [..., N, [labels]] or plain [labels]
+        labels = None
+        if isinstance(fl, (list, tuple)):
+            for item in (list(fl)[::-1] if isinstance(fl, tuple) else [fl]):
+                if isinstance(item, list):
+                    labels = item
+                    break
+        if labels is None and isinstance(fl, list):
+            labels = fl
+        zones[str(name)] = (np.asarray(labels, dtype=np.int64), None)
+    return zones

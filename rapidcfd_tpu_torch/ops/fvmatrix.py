@@ -306,13 +306,16 @@ class FvMatrix:
         """Fix psi at the masked cells (reference: fvMatrix::setValues):
         the fixed rows become diag*psi = diag*value, and their columns move
         into the neighbours' sources, by gathers only.
-        fix_mask: (nCells,) 1.0 where fixed; values: (nCells,) targets."""
+        fix_mask: (nCells,) 1.0 where fixed; values: (nCells,) targets, or
+        (nCells, 3) for a vector equation (the JAX package's set_values
+        takes scalars only)."""
         from .fvc import face_own_nei
         fix_o, fix_n = face_own_nei(mesh, fix_mask)
-        col = self.offdiag_mv(mesh)(fix_mask * values)
+        col = self.offdiag_mv(mesh)(_ext(fix_mask, values) * values)
         src = self.source - _ext(col, self.source)
         fm = _ext(fix_mask, src)
-        src = src * (1.0 - fm) + fm * _ext(self.diag * values, src)
+        src = src * (1.0 - fm) \
+            + fm * _ext(_ext(self.diag, values) * values, src)
         keep = (1.0 - fix_o) * (1.0 - fix_n)
         return self.replace(upper=self.upper * keep, lower=self.lower * keep,
                             source=src, symmetric=False)

@@ -174,7 +174,8 @@ def make_step(case: Case, transport, turb, simple: SimpleControl, consts):
         TEqn = (fvm.div(mesh, phi, T, sc.div_t)
                 - fvm.laplacian(mesh, _alpha_eff(nu, turb.nut(turb_state),
                                                  pr, prt), T, sc.lap_corr))
-        TEqn = fv_options(mesh, "T", TEqn).relax(mesh, t_relax)
+        TEqn = fv_options(mesh, "T", TEqn, {"nu": nu, "T": T, "phi": phi,
+                                            "U": U}).relax(mesh, t_relax)
         TEqn = fv_options.constrain(mesh, "T", TEqn)
         T, t_perf = solve(mesh, TEqn, sc.t)
         rhok = _rhok(T, beta, t_ref)
@@ -182,7 +183,8 @@ def make_step(case: Case, transport, turb, simple: SimpleControl, consts):
         # UEqn.H
         UEqn = fvm.div(mesh, phi, U, sc.div_u) \
             + div_dev_reff(mesh, nu_eff, U, sc.lap_corr)
-        UEqn = fv_options(mesh, "U", UEqn).relax(mesh, u_relax)
+        UEqn = fv_options(mesh, "U", UEqn, {"nu": nu, "T": T}).relax(
+            mesh, u_relax)
         U, u_perf = solve(mesh, UEqn.equals(face_force(mesh, ghf, rhok,
                                                        p_rgh)), sc.u)
 
@@ -246,8 +248,9 @@ def make_pimple_step(case: Case, transport, turb, ctrl: PimpleControl,
             TEqn = (fvm.ddt(mesh, T, dt, sc.ddt)
                     + fvm.div(mesh, phi, T, sc.div_t)
                     - fvm.laplacian(mesh, alpha_eff, T, sc.lap_corr))
-            TEqn = fv_options.constrain(mesh, "T",
-                                        fv_options(mesh, "T", TEqn))
+            TEqn = fv_options.constrain(mesh, "T", fv_options(
+                mesh, "T", TEqn, {"nu": nu, "T": T, "dt": dt, "phi": phi,
+                                  "U": U}))
             T, t_perf = solve(mesh, TEqn, sc.t)
             rhok = _rhok(T, beta, t_ref)
 
@@ -255,7 +258,7 @@ def make_pimple_step(case: Case, transport, turb, ctrl: PimpleControl,
             UEqn = (fvm.ddt(mesh, U, dt, sc.ddt)
                     + fvm.div(mesh, phi, U, sc.div_u)
                     + div_dev_reff(mesh, nu_eff, U, sc.lap_corr))
-            UEqn = fv_options(mesh, "U", UEqn)
+            UEqn = fv_options(mesh, "U", UEqn, {"nu": nu, "T": T, "dt": dt})
             U, u_perf = solve(mesh, UEqn.equals(face_force(
                 mesh, ghf, rhok, p_rgh)), sc.u)
 

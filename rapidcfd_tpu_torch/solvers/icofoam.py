@@ -1,6 +1,8 @@
 """icoFoam — transient incompressible laminar solver, PISO (port of
 rapidcfd_tpu/solvers/icofoam.py; reference: applications/solvers/
-incompressible/icoFoam/icoFoam.C:36-117).
+incompressible/icoFoam/icoFoam.C:36-117), and nonNewtonianIcoFoam, the
+same with a viscosity model of the strain rate (reference:
+applications/solvers/incompressible/nonNewtonianIcoFoam).
 
 One timestep is the momentum predictor, nCorrectors pressure-velocity
 corrections and their Krylov solves, run eagerly on the case's device;
@@ -83,7 +85,9 @@ def piso_step(mesh, U: VolField, p: VolField, phi: SurfaceField, dt, nu,
 
 def make_step(case: Case, nu, n_correctors: int, n_non_orth: int,
               p_ref_cell: int, p_ref_value: float):
-    """step(U, p, phi, dt) -> (U, p, phi, stats) on the case's mesh.
+    """step(U, p, phi, dt) -> (U, p, phi, stats) on the case's mesh. nu
+    is a Dimensioned constant, or a callable U -> VolField evaluated at
+    the start of each step (a non-Newtonian viscosity model).
     p_ref_cell is fvSolution's pRefCell, a cell label of the mesh as
     written (file order); it is mapped to its device row here. When a
     solve uses GAMG, its hierarchy is built here (the time goes into
@@ -102,10 +106,12 @@ def make_step(case: Case, nu, n_correctors: int, n_non_orth: int,
         case.mesh, (kw["u_controls"], kw["p_controls"],
                     kw["p_final_controls"]), timings=case.setup_seconds)
 
+    nu_fn = nu if callable(nu) else (lambda U: nu)
+
     def step(U, p, phi, dt):
         from ..ops.interpolation import set_current_dt
         set_current_dt(dt)
-        return piso_step(mesh, U, p, phi, dt, nu, **kw)
+        return piso_step(mesh, U, p, phi, dt, nu_fn(U), **kw)
 
     return step
 
@@ -142,17 +148,38 @@ def _stack_stats(window):
     return stack(window)
 
 
+def iteration_counts(stats) -> list[tuple[str, int]]:
+    """A PISO step's linear-solver iterations in the order they are
+    logged: Ux, Uy, Uz, then every p solve."""
+    its = [(f"U{c}", int(pf[2])) for c, pf in zip("xyz", stats["u_perf"])]
+    return its + [("p", int(pf[2])) for pf in stats["p_perf"]]
+
+
 def run(case_dir: str, *, device: torch.device, dtype: torch.dtype,
-        write: bool = True, max_steps: int | None = None):
-    """Run icoFoam on a case directory. Returns (case, U, p, phi);
-    case.step_seconds holds the wall time of each step (host clock; each
-    step ends in a device sync when its residuals are logged)."""
-    case = Case(case_dir, device=device, dtype=dtype)
+        write: bool = True, max_steps: int | None = None,
+        non_newtonian: bool = False, case: Case | None = None):
+    """Run icoFoam (nonNewtonianIcoFoam with non_newtonian: nu from the
+    transportModel of constant/transportProperties, recomputed from U at
+    every step) on a case directory. `case` passes a Case built already.
+    Returns (case, U, p, phi); case.step_seconds holds the wall time of
+    each step (host clock; each step ends in a device sync when its
+    residuals are logged) and case.step_log each step's Courant number
+    (mean, max), continuity errors (local, global) and
+    iteration_counts."""
+    if case is None:
+        case = Case(case_dir, device=device, dtype=dtype)
     mesh = case.mesh
     if case.control_dict.lookup("functions"):
         raise NotImplementedError("functionObjects are not ported yet")
-    nu = Dimensioned.from_entry(
-        case.transport_properties().lookup("nu", required=True), "nu")
+    tp = case.transport_properties()
+    if non_newtonian:
+        from ..models.transport import SinglePhaseTransportModel
+        model = SinglePhaseTransportModel(tp)
+
+        def nu(U):
+            return model.nu(mesh, U)
+    else:
+        nu = Dimensioned.from_entry(tp.lookup("nu", required=True), "nu")
 
     piso = case.algo_dict("PISO")
     n_correctors = int(piso.scalar("nCorrectors", 1))
@@ -178,6 +205,7 @@ def run(case_dir: str, *, device: torch.device, dtype: torch.dtype,
     p_solver = case.solver_controls("p").solver
     timer = ExecutionTimer()
     cumulative_err = 0.0
+    case.step_log = []
 
     info("\nStarting time loop\n")
     n = 0
@@ -195,6 +223,10 @@ def run(case_dir: str, *, device: torch.device, dtype: torch.dtype,
         cumulative_err += float(glob_err)
         log_continuity(cumulative_err, local_err, glob_err)
         case.step_seconds.append(_time.perf_counter() - t0)
+        case.step_log.append(dict(
+            co=tuple(float(c) for c in stats["co"]),
+            cont=(float(local_err), float(glob_err)),
+            iterations=iteration_counts(stats)))
         timer.log()
 
         if write and case.time.write_time():

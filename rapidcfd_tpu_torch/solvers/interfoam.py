@@ -21,6 +21,7 @@ import torch
 
 from ..fields.field import Dimensioned, SurfaceField, VolField
 from ..linalg.solvers import gsum, solve
+from ..models.fvoptions import refuse_options
 from ..ops import fvc, fvm
 from ..ops.mules import explicit_solve, implicit_solve
 from ..utils.dimensions import DimensionSet, dim_density
@@ -319,6 +320,7 @@ def run(case_dir: str, *, device: torch.device, dtype: torch.dtype,
         case = Case(case_dir, device=device, dtype=dtype)
     if case.control_dict.lookup("functions"):
         raise NotImplementedError("functionObjects are not ported yet")
+    refuse_options(case, "interFoam")
     (alpha, U, p_rgh, phi), step, rdelta_t, alpha_name = setup(
         case, mixing, lts)
     mesh = case.mesh

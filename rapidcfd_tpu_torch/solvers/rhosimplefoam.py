@@ -26,6 +26,7 @@ import torch
 
 from ..fields.field import Dimensioned, SurfaceField, VolField, shift_level
 from ..linalg.solvers import gsum, solve
+from ..models.fvoptions import refuse_options
 from ..models.thermo import PsiThermo, read_thermo
 from ..models.turbulence import CompressibleTurbulence
 from ..ops import fvc, fvm
@@ -253,6 +254,7 @@ def run(case_dir: str, *, device: torch.device, dtype: torch.dtype,
         case = Case(case_dir, device=device, dtype=dtype)
     if case.control_dict.lookup("functions"):
         raise NotImplementedError("functionObjects are not ported yet")
+    refuse_options(case, "rhoSimpleFoam")
     _, (U, p, T, rho, phi, turb_state), step, p_offset = setup(case,
                                                                consistent)
     simple = SimpleControl(case)

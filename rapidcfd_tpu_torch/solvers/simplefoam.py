@@ -140,12 +140,18 @@ def make_step(case: Case, transport, turb, simple: SimpleControl):
 
 
 def run(case_dir: str, *, device: torch.device, dtype: torch.dtype,
-        write: bool = True, max_steps: int | None = None):
-    """Run simpleFoam on a case directory until residualControl is met,
-    endTime or max_steps. Returns (case, U, p, phi, turb_state);
-    case.step_seconds holds the wall time of each iteration (host clock;
-    each ends in a device sync when its residuals are logged)."""
-    case = Case(case_dir, device=device, dtype=dtype)
+        write: bool = True, max_steps: int | None = None,
+        case: Case | None = None):
+    """Run simpleFoam (and porousSimpleFoam: the porosity comes from
+    system/fvOptions) on a case directory until residualControl is met,
+    endTime or max_steps. `case` passes a Case built already (an
+    in-memory mesh, a full box on gdia). Returns (case, U, p, phi,
+    turb_state); case.step_seconds holds the wall time of each iteration
+    (host clock; each ends in a device sync when its residuals are
+    logged) and case.step_log its continuity errors (local, global) and
+    iteration_counts."""
+    if case is None:
+        case = Case(case_dir, device=device, dtype=dtype)
     if case.control_dict.lookup("functions"):
         raise NotImplementedError("functionObjects are not ported yet")
     mesh = case.mesh
@@ -165,6 +171,7 @@ def run(case_dir: str, *, device: torch.device, dtype: torch.dtype,
     cumulative_err = 0.0
     u_solver = case.solver_controls("U").solver
     p_solver = case.solver_controls("p").solver
+    case.step_log = []
 
     info("\nStarting time loop\n")
     n = 0
@@ -191,6 +198,9 @@ def run(case_dir: str, *, device: torch.device, dtype: torch.dtype,
         cumulative_err += float(glob_err)
         log_continuity(cumulative_err, local_err, glob_err)
         case.step_seconds.append(_time.perf_counter() - t0)
+        case.step_log.append(dict(
+            cont=(float(local_err), float(glob_err)),
+            iterations=iteration_counts(stats)))
         timer.log()
 
         if write and case.time.write_time():

@@ -3471,3 +3471,437 @@ sigma           sigma [1 0 -2 0 0 0 0] 0;
                 "uniform (0 0 0)", {"inlet": _ZG, "outlet": _ZG,
                                     "walls": _fv("(0 0 0)"), "fb": _EMPTY})
     return mesh
+
+
+# ---------------------------------------------------------------------------
+# porousSimpleFoam's duct
+# ---------------------------------------------------------------------------
+
+DUCT_LENGTHS = (0.15, 0.10, 0.10)   # inlet, porous and outlet sections, m
+DUCT_SECTION = 0.05                 # square cross-section side, m
+
+
+def porous_duct_case(case_dir: str, nx: int = 448, ny: int = 48,
+                     nz: int = 48, *, write_mesh: bool = True,
+                     lattice_out: dict | None = None,
+                     zone: str = "cellZone", end_time: float = 100
+                     ) -> PolyMesh:
+    """A straight square duct with a porous block, modelled on OpenFOAM's
+    porousSimpleFoam/angledDuctImplicit tutorial and straightened into a
+    box lattice (the angled duct is not one). No copy of the tutorial is
+    in the repository: every number here is this writer's choice. x runs
+    along the duct: a 0.15 m inlet section, a 0.10 m porous section and a
+    0.10 m outlet section, 0.35 m in all, with a 0.05 x 0.05 m section; a
+    uniform nx x ny x nz lattice (the default 448 x 48 x 48 is 1,032,192
+    cells); patches inlet (xmin), outlet (xmax) and walls.
+
+    The porous section is the cellZone `porosity` (the cells whose centre
+    lies in 0.15 <= x <= 0.25), written to constant/polyMesh/cellZones
+    even with write_mesh=False, and an explicitPorositySource in
+    system/fvOptions selects it by that zone (zone="cellZone") or by the
+    same box (zone="box"), with DarcyForchheimer d (5e7 -1000 -1000) and
+    f (0 0 0); the selection is written in the source's coefficients
+    dictionary too, where the JAX package reads it. nu 1.5e-5; U fixed at
+    (1 0 0) m/s on the inlet, noSlip walls, zeroGradient outlet; p
+    fixed at 0 on the outlet, zeroGradient elsewhere; kEpsilon with
+    nutkWallFunction, epsilonWallFunction and kqRWallFunction walls, k
+    3.75e-3 m2/s2 (5% intensity) and epsilon 1.08e-2 m2/s3 (mixing
+    length 3.5 mm) at the inlet and inside. `bounded Gauss upwind` for U,
+    k and epsilon, Gauss linear gradients, orthogonal laplacians (the
+    lattice is orthogonal); p by GAMG (the structured V-cycle on gdia),
+    U, k and epsilon by smoothSolver; SIMPLE with relaxation p 0.3, U
+    0.7, k and epsilon 0.7.
+
+    write_mesh=False skips the ascii polyMesh (a million cells); the
+    returned PolyMesh then goes to Case(pmesh=, lattice=). lattice_out
+    receives the gdia embedding: the lattice is the box itself, cells in
+    lattice order, no dead slot."""
+    if zone not in ("cellZone", "box"):
+        raise ValueError(f"porous_duct_case: zone '{zone}' (cellZone|box)")
+    length = sum(DUCT_LENGTHS)
+    lo, hi = DUCT_LENGTHS[0], DUCT_LENGTHS[0] + DUCT_LENGTHS[1]
+    mesh = box_mesh(nx, ny, nz, size=(length, DUCT_SECTION, DUCT_SECTION),
+                    patch_spec={
+                        "xmin": ("inlet", "patch"),
+                        "xmax": ("outlet", "patch"),
+                        "ymin": ("walls", "wall"), "ymax": ("walls", "wall"),
+                        "zmin": ("walls", "wall"), "zmax": ("walls", "wall")})
+    if write_mesh:
+        write_polymesh(mesh, case_dir)
+    nc = nx * ny * nz
+    if lattice_out is not None:
+        n_int = mesh.n_internal_faces
+        lattice_out.update(
+            shape=(nz, ny, nx), slot_cell=np.arange(nc, dtype=np.int64),
+            ghost_lead=np.arange(nc, dtype=np.int64),
+            orig_own_int=mesh.owner[:n_int].copy(),
+            orig_nei_int=mesh.neighbour.copy(),
+            orig_own_bnd=mesh.owner[n_int:].copy(),
+            flip_int=np.zeros(n_int, dtype=bool),
+            dead=np.zeros(nc, dtype=bool))
+    # cells in lattice order (x fastest): the zone is a run of x indices
+    xc = (np.arange(nx) + 0.5) * (length / nx)
+    ix = np.nonzero((xc >= lo) & (xc <= hi))[0]
+    cells = (ix[None, :] + nx * np.arange(ny * nz)[:, None]).ravel()
+    _write_dict(case_dir, "constant/polyMesh", "cellZones",
+                f"\n1\n(\nporosity\n{{\n    type cellZone;\ncellLabels "
+                f"List<label>\n{cells.size}\n(\n"
+                + "\n".join(map(str, np.sort(cells))) + "\n)\n;\n}\n)\n",
+                cls="regIOobject")
+    def select(indent):
+        pad = "\n" + " " * indent
+        if zone == "cellZone":
+            return f"selectionMode   cellZone;{pad}cellZone        porosity;"
+        return (f"selectionMode   box;{pad}box             (({lo:g} 0 0) "
+                f"({hi:g} {DUCT_SECTION:g} {DUCT_SECTION:g}));")
+    _write_dict(case_dir, "system", "fvOptions", f"""
+porosity1
+{{
+    type            explicitPorositySource;
+    active          yes;
+    {select(4)}
+
+    explicitPorositySourceCoeffs
+    {{
+        type            DarcyForchheimer;
+        {select(8)}
+
+        DarcyForchheimerCoeffs
+        {{
+            d   d [0 -2 0 0 0 0 0] (5e7 -1000 -1000);
+            f   f [0 -1 0 0 0 0 0] (0 0 0);
+            coordinateSystem {{ e1 (1 0 0); e2 (0 1 0); }}
+        }}
+    }}
+}}
+""")
+    _write_dict(case_dir, "system", "controlDict", f"""
+application     porousSimpleFoam;
+startFrom       startTime;
+startTime       0;
+stopAt          endTime;
+endTime         {end_time:g};
+deltaT          1;
+writeControl    timeStep;
+writeInterval   100;
+writeFormat     ascii;
+writePrecision  8;
+""")
+    _write_dict(case_dir, "system", "fvSchemes", """
+ddtSchemes      { default steadyState; }
+gradSchemes     { default Gauss linear; }
+divSchemes
+{
+    default         none;
+    div(phi,U)      bounded Gauss upwind;
+    div(phi,k)      bounded Gauss upwind;
+    div(phi,epsilon) bounded Gauss upwind;
+    div((nuEff*dev(T(grad(U))))) Gauss linear;
+}
+laplacianSchemes { default Gauss linear orthogonal; }
+interpolationSchemes { default linear; }
+snGradSchemes   { default orthogonal; }
+""")
+    _write_dict(case_dir, "system", "fvSolution", """
+solvers
+{
+    p
+    {
+        solver          GAMG;
+        smoother        GaussSeidel;
+        tolerance       1e-08;
+        relTol          0.05;
+    }
+    "(U|k|epsilon)"
+    {
+        solver          smoothSolver;
+        smoother        symGaussSeidel;
+        tolerance       1e-08;
+        relTol          0.1;
+    }
+}
+SIMPLE
+{
+    nNonOrthogonalCorrectors 0;
+    residualControl { p 1e-2; U 1e-3; "(k|epsilon)" 1e-3; }
+}
+relaxationFactors
+{
+    fields    { p 0.3; }
+    equations { U 0.7; k 0.7; epsilon 0.7; }
+}
+""")
+    _write_dict(case_dir, "constant", "transportProperties", """
+transportModel  Newtonian;
+nu              nu [0 2 -1 0 0 0 0] 1.5e-05;
+""")
+    _write_dict(case_dir, "constant", "RASProperties",
+                "\nRASModel kEpsilon;\nturbulence on;\nprintCoeffs on;\n")
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                "uniform (0 0 0)", {
+                    "inlet": _fv("(1 0 0)"), "outlet": _ZG,
+                    "walls": "        type            noSlip;\n"})
+    write_field(case_dir, "0", "p", "volScalarField", "[0 2 -2 0 0 0 0]",
+                "uniform 0", {"inlet": _ZG, "outlet": _fv(0),
+                              "walls": _ZG})
+    for name, dims, value, word in (
+            ("k", "[0 2 -2 0 0 0 0]", "0.00375", "kqRWallFunction"),
+            ("epsilon", "[0 2 -3 0 0 0 0]", "0.0108",
+             "epsilonWallFunction"),
+            ("nut", "[0 2 -1 0 0 0 0]", "0", "nutkWallFunction")):
+        wall = (f"        type            {word};\n"
+                f"        value           uniform {value};\n")
+        inlet = _fv(value) if name != "nut" else \
+            "        type            calculated;\n" \
+            "        value           uniform 0;\n"
+        outlet = _ZG if name != "nut" else inlet
+        write_field(case_dir, "0", name, "volScalarField", dims,
+                    f"uniform {value}", {"inlet": inlet, "outlet": outlet,
+                                         "walls": wall})
+    return mesh
+
+
+# ---------------------------------------------------------------------------
+# the small cases of the JAX package's fvOptions, basic-solver and
+# non-Newtonian tests (tests/test_fvoptions.py, test_fvoptions_extra.py,
+# test_basic_solvers.py and test_electromagnetics.py write them inline)
+# ---------------------------------------------------------------------------
+
+#: viscosity-model coefficients for transportProperties (the writers'
+#: choice: each model varies over the strain rates of the cavities here)
+VISCOSITY_COEFFS = {
+    "powerLaw": "powerLawCoeffs { k k [0 2 -1 0 0 0 0] 0.01; n n [0 0 0 0 "
+                "0 0 0] 0.6; nuMin nuMin [0 2 -1 0 0 0 0] 1e-4; nuMax nuMax "
+                "[0 2 -1 0 0 0 0] 5e-3; }",
+    "BirdCarreau": "BirdCarreauCoeffs { nu0 nu0 [0 2 -1 0 0 0 0] 1e-2; nuInf "
+                   "nuInf [0 2 -1 0 0 0 0] 1e-4; k k [0 0 1 0 0 0 0] 0.05; "
+                   "n n [0 0 0 0 0 0 0] 0.5; }",
+    "CrossPowerLaw": "CrossPowerLawCoeffs { nu0 nu0 [0 2 -1 0 0 0 0] 1e-2; "
+                     "nuInf nuInf [0 2 -1 0 0 0 0] 1e-3; m m [0 0 1 0 0 0 0] "
+                     "0.1; n n [0 0 0 0 0 0 0] 0.8; }",
+    "HerschelBulkley": "HerschelBulkleyCoeffs { nu0 nu0 [0 2 -1 0 0 0 0] "
+                       "1e-2; tau0 tau0 [0 2 -2 0 0 0 0] 0.05; k k [0 2 -1 0 "
+                       "0 0 0] 2e-3; n n [0 0 0 0 0 0 0] 0.7; }",
+}
+
+
+def write_viscosity_model(case_dir: str, model: str, nu: float = 0.01):
+    """constant/transportProperties selecting `model` with its
+    VISCOSITY_COEFFS (nonNewtonianIcoFoam's input)."""
+    _write_dict(case_dir, "constant", "transportProperties",
+                f"\ntransportModel  {model};\nnu              nu [0 2 -1 0 0 "
+                f"0 0] {nu:g};\n{VISCOSITY_COEFFS.get(model, '')}\n")
+
+
+def thermal_cavity_case(case_dir: str, n: int = 20, *,
+                        end_time: float = 0.05, delta_t: float = 0.005,
+                        tol: float = 1e-8,
+                        u_internal: str = "uniform (0.5 0 0)",
+                        write_mesh: bool = True) -> PolyMesh:
+    """tests/test_basic_solvers.py's thermal cavity for laplacianFoam,
+    scalarTransportFoam and potentialFoam: the n x n cavity with DT 0.01,
+    T fixed at 350 K on the lid and 300 K on the other walls, U (the
+    frozen velocity of scalarTransportFoam) u_internal inside and (0.5 0
+    0) on the walls, vanLeer for div(phi,T), and Phi [m2/s] (zeroGradient
+    walls), which potentialFoam solves for. T and Phi by PCG/DIC to tol."""
+    mesh = cavity_case(case_dir, n=n, end_time=end_time, delta_t=delta_t,
+                       write_mesh=write_mesh)
+    _write_dict(case_dir, "constant", "transportProperties",
+                "\nDT              DT [ 0 2 -1 0 0 0 0 ] 0.01;\n"
+                "nu              nu [ 0 2 -1 0 0 0 0 ] 0.01;\n")
+    _write_dict(case_dir, "system", "fvSolution", f"""
+solvers
+{{
+    T {{ solver PCG; preconditioner DIC; tolerance {tol:g}; relTol 0; }}
+    Phi {{ solver PCG; preconditioner DIC; tolerance {tol:g}; relTol 0; }}
+    p {{ solver PCG; preconditioner DIC; tolerance 1e-06; relTol 0.05; }}
+    pFinal {{ solver PCG; preconditioner DIC; tolerance 1e-06; relTol 0; }}
+    U {{ solver smoothSolver; smoother symGaussSeidel; tolerance 1e-05;
+        relTol 0; }}
+}}
+SIMPLE {{ nNonOrthogonalCorrectors 0; }}
+PISO {{ nCorrectors 2; nNonOrthogonalCorrectors 0; pRefCell 0;
+       pRefValue 0; }}
+""")
+    _write_dict(case_dir, "system", "fvSchemes", """
+ddtSchemes      { default Euler; }
+gradSchemes     { default Gauss linear; }
+divSchemes      { default none; div(phi,U) Gauss linear;
+                  div(phi,T) Gauss vanLeer; }
+laplacianSchemes { default Gauss linear orthogonal; }
+interpolationSchemes { default linear; }
+snGradSchemes   { default orthogonal; }
+""")
+    walls = ("movingWall", "fixedWalls")
+    write_field(case_dir, "0", "T", "volScalarField", "[0 0 0 1 0 0 0]",
+                "uniform 300", {"movingWall": _fv(350),
+                                "fixedWalls": _fv(300),
+                                "frontAndBack": _EMPTY})
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                u_internal, dict({w: _fv("(0.5 0 0)") for w in walls},
+                                 frontAndBack=_EMPTY))
+    write_field(case_dir, "0", "Phi", "volScalarField", "[0 2 -1 0 0 0 0]",
+                "uniform 0", dict({w: _ZG for w in walls},
+                                  frontAndBack=_EMPTY))
+    return mesh
+
+
+_ACTUATION_DISK = """
+disk1
+{
+    type            actuationDiskSource;
+    selectionMode   box;
+    box             ((0.45 0 0) (0.55 0.2 0.01));
+    diskDir         (1 0 0);
+    Cp              0.386;
+    Ct              0.58;
+    diskArea        0.002;
+    upstreamPoint   (0.2 0.1 0.005);
+}
+"""
+
+
+def disk_channel_case(case_dir: str) -> PolyMesh:
+    """tests/test_fvoptions.py's pisoFoam channel (1 x 0.2 m, 40 x 8,
+    laminar, U 1 m/s in, slip sides) with the test's actuation disk
+    across the middle in system/fvOptions."""
+    mesh = box_mesh(40, 8, 1, size=(1.0, 0.2, 0.01), patch_spec={
+        "xmin": ("inlet", "patch"), "xmax": ("outlet", "patch"),
+        "ymin": ("sides", "patch"), "ymax": ("sides", "patch"),
+        "zmin": ("fb", "empty"), "zmax": ("fb", "empty")})
+    write_polymesh(mesh, case_dir)
+    _write_dict(case_dir, "system", "controlDict", """
+application pisoFoam; startFrom startTime; startTime 0;
+stopAt endTime; endTime 0.5; deltaT 0.01;
+writeControl timeStep; writeInterval 1000; writeFormat ascii;
+""")
+    _write_dict(case_dir, "system", "fvSchemes", """
+ddtSchemes { default Euler; }
+gradSchemes { default Gauss linear; }
+divSchemes { default none; div(phi,U) Gauss upwind; }
+laplacianSchemes { default Gauss linear orthogonal; }
+interpolationSchemes { default linear; }
+snGradSchemes { default orthogonal; }
+""")
+    _write_dict(case_dir, "system", "fvSolution", """
+solvers
+{
+    p { solver PCG; preconditioner DIC; tolerance 1e-08; relTol 0.01; }
+    pFinal { solver PCG; preconditioner DIC; tolerance 1e-08; relTol 0; }
+    U { solver smoothSolver; smoother symGaussSeidel;
+        tolerance 1e-08; relTol 0; }
+}
+PISO { nCorrectors 2; nNonOrthogonalCorrectors 0; }
+""")
+    _write_dict(case_dir, "constant", "transportProperties",
+                "\nnu              nu [0 2 -1 0 0 0 0] 1e-05;\n")
+    _write_dict(case_dir, "constant", "RASProperties",
+                "\nRASModel        laminar;\nturbulence      off;\n")
+    _write_dict(case_dir, "system", "fvOptions", _ACTUATION_DISK)
+    write_field(case_dir, "0", "p", "volScalarField", "[0 2 -2 0 0 0 0]",
+                "uniform 0", {"inlet": _ZG, "outlet": _fv(0), "sides": _ZG,
+                              "fb": _EMPTY})
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                "uniform (1 0 0)", {
+                    "inlet": _fv("(1 0 0)"), "outlet": _ZG,
+                    "sides": "        type            slip;\n",
+                    "fb": _EMPTY})
+    return mesh
+
+
+_BOUSSINESQ_SOURCES = """
+heat1
+{
+    type            scalarSemiImplicitSource;
+    selectionMode   box;
+    box             ((0 0 0) (0.3 0.2 0.01));
+    volumeMode      specific;
+    injectionRateSuSp { T (2 0); }
+}
+limit1
+{
+    type            limitTemperature;
+    selectionMode   all;
+    Tmin            299;
+    Tmax            300.3;
+}
+melt1
+{
+    type            solidificationMeltingSource;
+    selectionMode   box;
+    box             ((0.4 0 0) (0.8 0.1 0.01));
+    Tmelt           400;
+    L               100000;
+    beta            3e-03;
+    rhoRef          1000;
+    Cp              1000;
+}
+"""
+
+
+def boussinesq_channel_case(case_dir: str) -> PolyMesh:
+    """tests/test_fvoptions_extra.py's laminar Boussinesq channel (1 x 0.2
+    m, 30 x 8, U 0.1 m/s and T 300 K in, g (0 -1e-6 0)) with three
+    sources in system/fvOptions: a heating semiImplicitSource in the
+    first 0.3 m, limitTemperature to 299-300.3 K (the second iteration
+    takes some cells above it, the first none) and the test's
+    solidificationMeltingSource, whose box stays solid (T < Tmelt)."""
+    mesh = box_mesh(30, 8, 1, size=(1.0, 0.2, 0.01), patch_spec={
+        "xmin": ("inlet", "patch"), "xmax": ("outlet", "patch"),
+        "ymin": ("walls", "wall"), "ymax": ("walls", "wall"),
+        "zmin": ("fb", "empty"), "zmax": ("fb", "empty")})
+    write_polymesh(mesh, case_dir)
+    _write_dict(case_dir, "system", "controlDict", """
+application buoyantBoussinesqSimpleFoam;
+startFrom startTime; startTime 0; stopAt endTime; endTime 60;
+deltaT 1; writeControl timeStep; writeInterval 100; writeFormat ascii;
+""")
+    _write_dict(case_dir, "system", "fvSchemes", """
+ddtSchemes { default steadyState; }
+gradSchemes { default Gauss linear; }
+divSchemes { default none; div(phi,U) bounded Gauss upwind;
+             div(phi,T) bounded Gauss upwind; }
+laplacianSchemes { default Gauss linear orthogonal; }
+interpolationSchemes { default linear; }
+snGradSchemes { default orthogonal; }
+""")
+    _write_dict(case_dir, "system", "fvSolution", """
+solvers
+{
+    p_rgh { solver GAMG; smoother GaussSeidel; tolerance 1e-08;
+            relTol 0.05; }
+    "(U|T)" { solver smoothSolver; smoother symGaussSeidel;
+              tolerance 1e-07; relTol 0.1; }
+}
+SIMPLE { nNonOrthogonalCorrectors 0; pRefCell 0; pRefValue 0; }
+relaxationFactors
+{
+    fields { p_rgh 0.5; }
+    equations { U 0.5; T 0.5; }
+}
+""")
+    _write_dict(case_dir, "constant", "transportProperties", """
+transportModel Newtonian;
+nu              nu [0 2 -1 0 0 0 0] 1e-3;
+beta            beta [0 0 0 -1 0 0 0] 3e-03;
+TRef            TRef [0 0 0 1 0 0 0] 300;
+Pr              Pr [0 0 0 0 0 0 0] 0.7;
+Prt             Prt [0 0 0 0 0 0 0] 0.85;
+""")
+    _write_dict(case_dir, "constant", "g",
+                "\ndimensions [0 1 -2 0 0 0 0];\nvalue (0 -1e-06 0);\n",
+                cls="uniformDimensionedVectorField")
+    _write_dict(case_dir, "constant", "RASProperties",
+                "\nRASModel laminar;\nturbulence off;\n")
+    _write_dict(case_dir, "system", "fvOptions", _BOUSSINESQ_SOURCES)
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                "uniform (0.1 0 0)", {"inlet": _fv("(0.1 0 0)"),
+                                      "outlet": _ZG,
+                                      "walls": _fv("(0 0 0)"), "fb": _EMPTY})
+    write_field(case_dir, "0", "p_rgh", "volScalarField", "[0 2 -2 0 0 0 0]",
+                "uniform 0", {"inlet": _ZG, "outlet": _fv(0), "walls": _ZG,
+                              "fb": _EMPTY})
+    write_field(case_dir, "0", "T", "volScalarField", "[0 0 0 1 0 0 0]",
+                "uniform 300", {"inlet": _fv(300), "outlet": _ZG,
+                                "walls": _ZG, "fb": _EMPTY})
+    return mesh

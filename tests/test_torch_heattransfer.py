@@ -34,7 +34,7 @@ from rapidcfd_tpu_torch.ops import fvc as tfvc
 from rapidcfd_tpu_torch.ops import gdia_mac
 from rapidcfd_tpu_torch.solvers import buoyantfoam as tbf
 from rapidcfd_tpu_torch.utils.casegen import (boussinesq_cavity_case,
-                                              hot_room_case)
+                                              cavity_case, hot_room_case)
 from rapidcfd_tpu_torch.utils.unstructured import detect_lattice
 from torch_heat_reference import (CPU, F64, cell_errors, counts_close,
                                   flux_error, jax_quiet, jax_switches,
@@ -235,8 +235,9 @@ def test_fixed_flux_pressure_and_prgh_match_jax(room):
 
 def test_boussinesq_writes_and_dispatches(room, tmp_path):
     """The dispatcher runs the room (-gdiaBox) and the transient cavity
-    on the CPU and writes their fields; -gdiaBox is refused by a solver
-    that cannot take a Case; cuda is the default device."""
+    on the CPU and writes their fields; -gdiaBox reaches every solver
+    (icoFoam's run takes a Case too since the basic solvers' slice); cuda
+    is the default device."""
     import os
 
     from rapidcfd_tpu_torch import solver_dtype
@@ -258,8 +259,12 @@ def test_boussinesq_writes_and_dispatches(room, tmp_path):
     with captured():
         dispatch(["buoyantBoussinesqPimpleFoam", "-case", c, "-device",
                   "cpu", "-noWrite"])
-    with pytest.raises(SystemExit, match="gdiaBox"):
-        dispatch(["icoFoam", "-case", c, "-device", "cpu", "-gdiaBox"])
+    ico = str(tmp_path / "ico")
+    cavity_case(ico, n=6, end_time=0.01)
+    with captured() as log:
+        dispatch(["icoFoam", "-case", ico, "-device", "cpu", "-gdiaBox",
+                  "-noWrite"])
+    assert "gdia: lattice 6x6x1 detected" in log.getvalue()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             dispatch(["buoyantBoussinesqSimpleFoam", "-case", d])

@@ -444,13 +444,13 @@ NEW_SOLVERS = ("multiphaseInterFoam", "driftFluxFoam",
 
 
 def test_dispatcher_runs_the_multiphase_solvers(tmp_path):
-    """The four new entries of `python -m rapidcfd_tpu_torch` (25 in
-    all), fp32 by default, no DyM name among them; potentialFreeSurfaceFoam
+    """The four new entries of `python -m rapidcfd_tpu_torch` (32 in
+    all with the porous, basic and non-Newtonian mains), fp32 by default, no DyM name among them; potentialFreeSurfaceFoam
     and driftFluxFoam run through it with -gdiaBox -device cpu to their
     endTime."""
     from rapidcfd_tpu_torch import __main__ as cli
     from rapidcfd_tpu_torch import solver_dtype
-    assert len(cli.SOLVERS) == 25
+    assert len(cli.SOLVERS) == 32
     for name in NEW_SOLVERS:
         assert name in cli.SOLVERS
         assert solver_dtype(name) == torch.float32

@@ -261,3 +261,46 @@ def test_cuda_kernel_matches_plain_forward_step(C, dtype, tol):
     assert gdia_mac.LAUNCHES_BY_KC.get((5, C), 0) == before + 1
     assert out.shape == (C, n)
     assert (out.cpu() - ref).abs().max() <= tol * ref.abs().max()
+
+
+@pytest.fixture(scope="module")
+def duct_planes(tmp_path_factory):
+    """The Gauss planes of the full-size porous duct (448 x 48 x 48, n =
+    1,032,192, offsets 0, +-1, +-448, +-21,504), built on the card in
+    fp64 from the writer's in-memory mesh and gdia embedding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from rapidcfd_tpu_torch.solvers.case import Case
+    from rapidcfd_tpu_torch.utils.casegen import porous_duct_case
+    from rapidcfd_tpu_torch.utils.logging import captured
+    d = str(tmp_path_factory.mktemp("duct"))
+    lat = {}
+    with captured():
+        pm = porous_duct_case(d, write_mesh=False, lattice_out=lat)
+        case = Case(d, device=torch.device("cuda"), dtype=torch.float64,
+                    pmesh=pm, lattice=lat)
+    return case.mesh.gauss
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-13)])
+@pytest.mark.parametrize("C", [3, 1])
+def test_cuda_kernel_matches_plain_porous_duct(duct_planes, C, dtype, tol):
+    """On the card: both K = 7 forms on the porous duct's own planes (C =
+    3 for kEpsilon's and div_dev_t_grad's gradients and grad(p), C = 1
+    for div_dev_t_grad's contractions), counted once by (K, C)."""
+    planes = duct_planes
+    assert tuple(planes.offsets) == (-21504, -448, -1, 0, 1, 448, 21504)
+    coeffs = (planes.coeffs if C == 3 else planes.coeffs_i[1]).to(dtype)
+    n = coeffs.shape[-1]
+    assert n == 448 * 48 * 48 and coeffs.shape == (7, C, n)
+    g = torch.Generator(device="cuda").manual_seed(20 + C)
+    x = torch.randn(n, generator=g, device="cuda", dtype=dtype)
+    ref = gdia_mac.shift_mac_cols_plain(x, coeffs, planes.offsets)
+    before = gdia_mac.LAUNCHES_BY_KC.get((7, C), 0)
+    out = gdia_mac.shift_mac_cols(x, coeffs, planes.offsets)
+    torch.cuda.synchronize()
+    assert gdia_mac.LAUNCHES_BY_KC.get((7, C), 0) == before + 1
+    assert out.shape == (C, n)
+    assert (out - ref).abs().max() <= tol * ref.abs().max()

@@ -282,8 +282,8 @@ def _edited(path, old, new):
 
 
 def test_unported_options_raise(tmp_path):
-    """Other RAS models, fvOptions entries and function objects raise
-    and name themselves."""
+    """Other RAS models, an fvOptions type neither package has and
+    function objects raise and name themselves."""
     d = str(tmp_path / "case")
     pitz_daily_case(d, scale=1)
     ras = os.path.join(d, "constant", "RASProperties")
@@ -292,8 +292,8 @@ def test_unported_options_raise(tmp_path):
         with pytest.raises(NotImplementedError, match="RNGkEpsilon"):
             make_ras_model(Case(d, device=CPU, dtype=F64), None)
     with open(os.path.join(d, "system", "fvOptions"), "w") as f:
-        f.write("disk { type actuationDiskSource; }\n")
-    with pytest.raises(NotImplementedError, match="actuationDiskSource"):
+        f.write("src1 { type noSuchSource; }\n")
+    with pytest.raises(NotImplementedError, match="noSuchSource"):
         tsimple.run(d, device=CPU, dtype=F64, write=False, max_steps=1)
     os.remove(os.path.join(d, "system", "fvOptions"))
     cdict = os.path.join(d, "system", "controlDict")
