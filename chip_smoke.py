@@ -60,7 +60,7 @@ Phases (any failure raises and the script exits non-zero):
    omega and nut agree to 1e-8 relative, iteration counts within one;
 11. the main path: bench_unstructured.py's default case, the 160x80x80
    merged-cell channel (922,638 cells on 1,024,000 lattice slots, gdia,
-   K = 7), fp32, one warm-up iteration, two timed windows of 5 and one
+   K = 7), fp32, one warm-up iteration, one timed window of 2 and one
    profiled iteration; fields finite, k and omega positive, local
    continuity error below 10 1/s and |U| below 30 m/s (3x the inlet);
    ms/iteration, cell-updates/s, iterations per solve,
@@ -109,7 +109,8 @@ Phases (any failure raises and the script exits non-zero):
 18. the main path of sonicFoam: the forward step at scale 16 (206,592
    cells on 245,760 lattice slots, gdia, K = 5) in fp32 from the writer's
    uniform Mach-3 state, timed as bench_compressible.py times it (one
-   call, 3 warm-up steps, 3 windows of 30), then one profiled step;
+   call, 3 warm-up steps, then 2 windows of 15 where the bench takes 3
+   of 30), then one profiled step;
    fields finite, p and T positive, K = 5, C = 3 launched at every step
    (its count per step printed), steps 1-3 within 5% of SONIC_REFERENCE
    (the continuity error within 5% plus its fp32 rounding floor);
@@ -184,8 +185,9 @@ Phases (any failure raises and the script exits non-zero):
    timed cold and warm beside cuSPARSE as in phase 3, and both forms in
    fp32 and fp64 on the planes of the small dam breaks (16x16, 12x12 and
    6x6, whose offsets +-6 take the generic kernel); the fp32 case, written
-   by `dam_break_case` and routed as `-gdiaBox` routes it, is kept for
-   phase 29, its PolyMesh and lattice for phase 32;
+   by `dam_break_case` without its ascii mesh and built on the writer's
+   full-box embedding (the one `-gdiaBox` detects), is kept for phase 29,
+   its PolyMesh and lattice for phase 32;
 28. the VOF family in fp64, 5 steps each on cuda and on cpu: interFoam
    with explicit MULES and with MULESCorr (dt 0.004), LTSInterFoam and
    twoLiquidMixingFoam on the 16x16 dam break (gdia; 5 K = 5, C = 3
@@ -275,12 +277,40 @@ Phases (any failure raises and the script exits non-zero):
    potentialFoam -case D -gdiaBox -noWrite` on the card (fp32) on the
    cavity at 512x512, BASIC_STEPS steps each (potentialFoam: its solve),
    then each case in-process in fp32: ms per step, fields finite;
-39. a JSON line of kernel results: for each form of the kernel on each
+39. both K = 5 forms on the LES pitzDaily's own Gauss planes (x16: 1792
+   x 640 slots, n = 1,146,880, offsets 0, +-1, +-1792) against the plain
+   version, fp32 to 1e-5 and fp64 to 1e-13, timed cold and warm beside
+   cuSPARSE as in phase 3; the fp32 case (`pitz_daily_les_case` without
+   its ascii mesh, on the writer's gdia embedding) is kept for phase 41;
+40. the turbulence family in fp64 on cuda and on cpu: every RAS model
+   the earlier phases do not drive (RNGkEpsilon, realizableKE, kOmega,
+   SpalartAllmaras, LaunderSharmaKE, qZeta, v2f, kkLOmega, LienCubicKE)
+   by simpleFoam on pitzDaily x1 (gdia, 3 iterations), every LES class
+   by pimpleFoam with backward on the 30x10x1 channel (ELL, 5 steps),
+   and pimpleFoam on the small T-junction with backward and with
+   CrankNicolson 0.9 (gdia, 5 steps): every field within TURB_RTOL,
+   iteration counts within one;
+41. the main path of the slice: pisoFoam LES (dynOneEqEddy, cubeRootVol,
+   the simple filter, backward, LUST) on the 1,085,440-cell pitzDaily
+   (x16, 2-D masked gdia) in fp32 from rest: one warm-up step, one
+   profiled and one clocked step (each solve timed alone), then
+   LES_TIMED timed steps; U, p, k and nut finite and bounded (max |U|
+   under LES_U_BOUND times the inlet speed and growing by at most
+   LES_U_GROWTH over the last ten steps, nut within [0,
+   LES_NUT_BOUND]), at least one C = 3 and one C = 1 launch at every
+   step; ms/step, cell-updates/s (live cells), iterations per solve,
+   launches by (K, C), the profiled step's launches, busy share and top
+   kernels, set-up by stage, peak memory, max |U| and max nut;
+42. simpleFoam on pitzDaily x5 (106,000 cells, fp32) with realizableKE
+   and with SpalartAllmaras through the dispatcher, in this process,
+   RAS_DISPATCH_ITERATIONS iterations each: ms/iteration, iterations
+   per solve, the shift-MAC launches per iteration as counted;
+43. a JSON line of kernel results: for each form of the kernel on each
    main path's planes (its four forms at phase 3's shapes; both K = 7
    forms on the T-junction's, the hot room's and the porous duct's
    planes; K = 5, C = 3 on the forward step's; both K = 5 forms on the
-   settling column's, and on the dam break's where that path launches
-   C = 1), the cold times of the kernel, the baseline, the plain version
+   settling column's and the LES pitzDaily's, and on the dam break's
+   where that path launches C = 1), the cold times of the kernel, the baseline, the plain version
    and cuSPARSE as `ms`, `baseline_ms`, `plain_ms` and `library_ms`, held
    against `bound_ms`, their warm times as `*warm_ms`, and the form's
    launches on its main path and on every other path; then the card's
@@ -1302,7 +1332,8 @@ def _run_channel_path(tag: str, tmp: str, dims: dict, cells: int,
     return launches, readings
 
 
-CHANNEL_WINDOWS = (2, 5)            # two timed windows of 5 iterations
+# one timed window of 2 iterations: the whole smoke nears its 1200 s limit
+CHANNEL_WINDOWS = (1, 2)
 DUCT_WINDOWS = (1, 3)               # one timed window of 3 iterations
 # (local continuity error in 1/s, max |U| in m/s) that no iteration may
 # reach. The channel's scales are u_in = 10 m/s and a 1 m duct; with p to
@@ -1668,8 +1699,9 @@ HOT = dict(nx=1024, ny=256)
 HOT_CELLS = 1024 * 256
 # rhoPimpleFoam's dt there (transient_hot_channel_case's 0.0002 * 50/nx)
 HOT_DT = 0.0002 * 50 / HOT["nx"]
-# bench_compressible.py's timing: one call, 3 warm-up steps, 3 windows of 30
-BENCH_WARMUP, BENCH_WINDOWS, BENCH_STEPS = 3, 3, 30
+# bench_compressible.py's timing (one call, 3 warm-up steps, 3 windows of
+# 30) cut to 2 windows of 15: the whole smoke nears its 1200 s limit
+BENCH_WARMUP, BENCH_WINDOWS, BENCH_STEPS = 3, 2, 15
 # the JAX package's readings of the first 3 steps of the full-size forward
 # step, fp64 on the CPU of the card's machine (tests/crosscheck_compressible.py
 # --scale 16 --steps 3 --port-device cuda, its default jitted step): (Courant
@@ -2931,30 +2963,28 @@ VOF_RTOL = 1e-10
 
 
 def _dam_case(tmp: str, name: str, n: int, dtype, **kw):
-    """A dam break written by the port's writer and read with -gdiaBox's
-    routing (the mesh read, its full-box lattice detected): (case, set-up
-    seconds by stage); the case keeps the lattice as `lattice` (phase 32
-    builds the three-phase dam break on the same PolyMesh and lattice)."""
-    from rapidcfd_tpu_torch.mesh.polymesh import read_polymesh
+    """A dam break written by the port's writer without its ascii mesh and
+    built in memory on its full-box lattice (the embedding -gdiaBox's
+    routing detects; the CLI runs of phase 28 read a written one): (case,
+    set-up seconds by stage); the case keeps the lattice as `lattice`
+    (phase 32 builds the three-phase dam break on the same PolyMesh and
+    lattice)."""
     from rapidcfd_tpu_torch.solvers.case import Case
     from rapidcfd_tpu_torch.utils.casegen import dam_break_case
     from rapidcfd_tpu_torch.utils.logging import captured
-    from rapidcfd_tpu_torch.utils.unstructured import detect_lattice
+    lat = {}
     with captured():
         t0 = time.perf_counter()
-        dam_break_case(f"{tmp}/{name}", n=n, **kw)
+        pm = dam_break_case(f"{tmp}/{name}", n=n, write_mesh=False,
+                            lattice_out=lat, **kw)
         t_gen = time.perf_counter() - t0
         t0 = time.perf_counter()
-        pm = read_polymesh(f"{tmp}/{name}")
-        t_read = time.perf_counter() - t0
-        lat = detect_lattice(pm, full_box=True)
-        t_lat = time.perf_counter() - t0 - t_read
         case = Case(f"{tmp}/{name}", device=torch.device("cuda"),
                     dtype=dtype, pmesh=pm, lattice=lat)
         t_case = time.perf_counter() - t0
     case.lattice = lat
-    return case, dict(write_case=t_gen, read=t_read, detect_lattice=t_lat,
-                      **case.setup_seconds, case_total=t_case)
+    return case, dict(write_case=t_gen, **case.setup_seconds,
+                      case_total=t_case)
 
 
 def phase_dam_kernel(tmp: str, smi: str):
@@ -3781,11 +3811,46 @@ def phase_column_main(tmp: str, smi: str, column) -> dict:
     return launches
 
 
+def _run_clis(tmp: str, cases):
+    """`python3 -m rapidcfd_tpu_torch <solver> -case D -gdiaBox -noWrite`
+    for every (solver, D) of cases, all started at once on the card and
+    each output kept in a file: {solver: (return code, stdout, stderr,
+    seconds from the common start to its end)}. Every process is ended
+    before it returns."""
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        for solver, d in cases:
+            out = open(f"{tmp}/cli_{solver}.out", "w+")
+            err = open(f"{tmp}/cli_{solver}.err", "w+")
+            procs[solver] = (subprocess.Popen(
+                [sys.executable, "-m", "rapidcfd_tpu_torch", solver,
+                 "-case", d, "-gdiaBox", "-noWrite"], stdout=out,
+                stderr=err, text=True), out, err)
+        res = {}
+        for solver, (proc, out, err) in procs.items():
+            rc = proc.wait(timeout=max(1.0, 300 - (time.perf_counter()
+                                                    - t0)))
+            wall = time.perf_counter() - t0
+            out.seek(0)
+            err.seek(0)
+            res[solver] = (rc, out.read(), err.read(), wall)
+        return res
+    finally:
+        for proc, out, err in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
+
+
 def phase_multiphase_cli(tmp: str, smi: str):
     """potentialFreeSurfaceFoam on the sloshing tank at 256x128 and
     cavitatingFoam on the expansion channel at 256x32 (dt scaled with the
     cell, CLI_STEPS steps): `python3 -m rapidcfd_tpu_torch <solver> -case
-    D -gdiaBox -noWrite` on the card in fp32 (its default), then the same
+    D -gdiaBox -noWrite` on the card in fp32 (its default), the two at
+    once (_run_clis), then the same
     case in-process in fp32 and fp64 on the card: ms per step of the fp32
     run, the fp32 fields' gap to the fp64 ones (recorded, not bounded:
     cavitatingFoam carries p at 3e5 Pa), the largest zeta, the vapour
@@ -3793,26 +3858,25 @@ def phase_multiphase_cli(tmp: str, smi: str):
     from rapidcfd_tpu_torch.solvers.case import Case
     from rapidcfd_tpu_torch.utils import casegen
     from rapidcfd_tpu_torch.utils.logging import captured
-    for solver, writer, kw in (
-            ("potentialFreeSurfaceFoam", casegen.sloshing_tank_case,
-             SLOSH_CLI),
-            ("cavitatingFoam", casegen.cavitating_expansion_case,
-             EXPANSION_CLI)):
+    cases = (("potentialFreeSurfaceFoam", casegen.sloshing_tank_case,
+              SLOSH_CLI),
+             ("cavitatingFoam", casegen.cavitating_expansion_case,
+              EXPANSION_CLI))
+    for solver, writer, kw in cases:
+        with captured():
+            writer(f"{tmp}/cli_{solver}", end_time=CLI_STEPS * kw["delta_t"],
+                   **kw)
+    clis = _run_clis(tmp, [(solver, f"{tmp}/cli_{solver}")
+                           for solver, _, _ in cases])
+    for solver, writer, kw in cases:
         tag = f"[34] {solver} {kw['nx']}x{kw['ny']}"
         d = f"{tmp}/cli_{solver}"
-        with captured():
-            writer(d, end_time=CLI_STEPS * kw["delta_t"], **kw)
-        t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, "-m", "rapidcfd_tpu_torch",
-                              solver, "-case", d, "-gdiaBox", "-noWrite"],
-                             capture_output=True, text=True, timeout=300)
-        wall = time.perf_counter() - t0
-        out = res.stdout
-        check(res.returncode == 0 and f"lattice {kw['nx']}x{kw['ny']}x1"
+        rc, out, err, wall = clis[solver]
+        check(rc == 0 and f"lattice {kw['nx']}x{kw['ny']}x1"
               in out and out.count("\nTime = ") == CLI_STEPS
               and out.rstrip().endswith("End"),
               f"{tag}: python3 -m rapidcfd_tpu_torch {solver} -gdiaBox: rc "
-              f"{res.returncode}, {out[-600:]} {res.stderr[-1500:]}")
+              f"{rc}, {out[-600:]} {err[-1500:]}")
         if solver == "potentialFreeSurfaceFoam":
             zeta = [float(m) for m in re.findall(
                 r"max\|zeta\| = (\S+)", out)]
@@ -3833,7 +3897,7 @@ def phase_multiphase_cli(tmp: str, smi: str):
                       f"{[r[2] for r in m]}")
         print(f"{tag}: python3 -m rapidcfd_tpu_torch {solver} -gdiaBox "
               f"-noWrite on the card, fp32: {CLI_STEPS} steps in {wall:.1f} "
-              f"s with start-up; {report}")
+              f"s with start-up (both solvers' runs together); {report}")
         runs = {}
         for dtype in (torch.float32, torch.float64):
             with captured():
@@ -4326,8 +4390,8 @@ def phase_basic_cli(tmp: str, smi: str):
     scalarTransportFoam and potentialFoam on the cavity at 512 x 512 (a
     full box): `python3 -m
     rapidcfd_tpu_torch <solver> -case D -gdiaBox` on the card in fp32
-    (their default), BASIC_STEPS steps each (potentialFoam: its one
-    solve), then the same case in-process on the card in fp32 for the
+    (their default), the three at once (_run_clis), BASIC_STEPS steps
+    each (potentialFoam: its one solve), then the same case in-process on the card in fp32 for the
     time per step (the median of steps 2 on); every run ends and its
     fields are finite. Returns the in-process runs' launches by (K, C)."""
     import shutil
@@ -4366,26 +4430,23 @@ def phase_basic_cli(tmp: str, smi: str):
            "scalarTransportFoam": (basic.run_scalar_transport_foam, {}),
            "potentialFoam": (basic.run_potential_foam, {})}
     launches = {}
+    clis = _run_clis(tmp, list(dirs.items()))
     for solver, d in dirs.items():
         tag = f"[38] {solver} cavity {n}x{n}"
         steps = 1 if solver == "potentialFoam" else BASIC_STEPS
-        t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, "-m", "rapidcfd_tpu_torch",
-                              solver, "-case", d, "-gdiaBox", "-noWrite"],
-                             capture_output=True, text=True, timeout=300)
-        wall = time.perf_counter() - t0
-        out = res.stdout
+        rc, out, err, wall = clis[solver]
         done = ("continuity error" in out if solver == "potentialFoam"
                 else out.count("\nTime = ") == steps)
-        check(res.returncode == 0 and f"lattice {n}x{n}x1" in out and done
+        check(rc == 0 and f"lattice {n}x{n}x1" in out and done
               and out.rstrip().endswith("End"),
               f"{tag}: python3 -m rapidcfd_tpu_torch {solver} -gdiaBox: rc "
-              f"{res.returncode}, {out[-600:]} {res.stderr[-1500:]}")
+              f"{rc}, {out[-600:]} {err[-1500:]}")
         its = [(m.group(1), int(m.group(2)))
                for m in _ITER_RE.finditer(out)][:8]
         print(f"{tag}: python3 -m rapidcfd_tpu_torch {solver} -gdiaBox "
               f"-noWrite on the card, fp32: {steps} step(s) in {wall:.1f} s "
-              f"with start-up; first solves {its}")
+              f"with start-up (the three solvers' runs together); first "
+              f"solves {its}")
         run, kw = fns[solver]
         with captured():
             case = Case(d, device=torch.device("cuda"), dtype=torch.float32,
@@ -4413,51 +4474,483 @@ def phase_basic_cli(tmp: str, smi: str):
     return launches
 
 
+# the turbulence family (phases 39-42): pisoFoam LES (dynOneEqEddy, backward,
+# LUST; utils/casegen.pitz_daily_les_case) on the pitzDaily step at x16,
+# 1,085,440 cells in a 1792 x 640 masked gdia lattice, fp32 from rest; the
+# RAS models through the dispatcher on pitzDaily x5; every new model and
+# the second-order ddt schemes in fp64 on cuda and cpu
+LES_SCALE = 16
+LES_CELLS = 1085440
+LES_N = 1792 * 640
+LES_OFFSETS = (-1792, -1, 0, 1, 1792)
+LES_TIMED = 20                      # timed steps after the first three
+# the flow starts from rest under a 10 m/s inlet: the impulsive start's
+# potential flow is singular at the step's corner, where max |U| is 4x the
+# inlet speed after the first step at x16 and 3x after 22 (on an H100 at
+# 700 W); the bounds catch a divergence, and the last ten steps may not
+# grow max |U| by more than LES_U_GROWTH
+LES_U_BOUND = 10.0                  # max |U| over the inlet speed
+LES_U_GROWTH = 1.5
+# dynOneEqEddy's ck is a ratio of test-filtered products (the JAX
+# package's form), large where they vanish in the starting transient: max
+# nut swings between 4e-5 and 1.4 m2/s from step to step at x4 (CPU runs
+# of the port, whose correct() is the JAX package's to 1e-10); the bound
+# catches a divergence, nu being 1e-5
+LES_NUT_BOUND = 10.0                # m2/s
+# shift-MAC launches per LES step (a CPU count of the plain version's
+# calls): grad(p) in the predictor and both correctors, div_dev_t_grad's
+# grad(U), grad(U) in dynOneEqEddy's G and in its Germano coefficients and
+# limitedLinear's grad(k) at C = 3 (3 + 3 + 3 + 3 + 1); div_dev_t_grad's 9
+# contractions at C = 1
+LES_LAUNCHES = {(5, 3): 13, (5, 1): 9}
+RAS_DISPATCH = ("realizableKE", "SpalartAllmaras")
+RAS_DISPATCH_SCALE = 5
+RAS_DISPATCH_ITERATIONS = 20
+# realizableKE: grad(p) twice, div_dev_t_grad's grad(U), grad(U) in G and
+# twice in its strain invariants; SpalartAllmaras: grad(p) twice,
+# div_dev_t_grad's, the vorticity's grad(U) and grad(nuTilda)
+RAS_DISPATCH_LAUNCHES = {"realizableKE": {(5, 3): 14, (5, 1): 9},
+                         "SpalartAllmaras": {(5, 3): 9, (5, 1): 9}}
+# the models held cuda against cpu in fp64 (phase 40): every RAS and LES
+# class the earlier phases do not drive, one name each (kEqn,
+# homogeneousDynOneEqEddy and the LES SpalartAllmaras are aliases)
+TURB_RAS = ("RNGkEpsilon", "realizableKE", "kOmega", "SpalartAllmaras",
+            "LaunderSharmaKE", "qZeta", "v2f", "kkLOmega", "LienCubicKE")
+TURB_LES = ("Smagorinsky", "oneEqEddy", "dynOneEqEddy",
+            "SpalartAllmarasDES", "SpalartAllmarasDDES",
+            "SpalartAllmarasIDDES", "kOmegaSSTSAS", "dynLagrangian",
+            "scaleSimilarity", "mixedSmagorinsky", "Smagorinsky2",
+            "homogeneousDynSmagorinsky", "spectEddyVisc")
+TURB_RTOL = 1e-8
+
+
+def _les_case(tmp: str, name: str, scale: int, dtype, **kw):
+    """pitz_daily_les_case on the card, in memory on the writer's gdia
+    embedding: (case, set-up seconds by stage)."""
+    from rapidcfd_tpu_torch.solvers.case import Case
+    from rapidcfd_tpu_torch.utils.casegen import pitz_daily_les_case
+    from rapidcfd_tpu_torch.utils.logging import captured
+    lat = {}
+    with captured():
+        t0 = time.perf_counter()
+        pm = pitz_daily_les_case(f"{tmp}/{name}", scale, write_mesh=False,
+                                 lattice_out=lat, **kw)
+        t_gen = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        case = Case(f"{tmp}/{name}", device=torch.device("cuda"),
+                    dtype=dtype, pmesh=pm, lattice=lat)
+        t_case = time.perf_counter() - t0
+    return case, dict(generate=t_gen, **case.setup_seconds,
+                      case_total=t_case)
+
+
+def phase_les_kernel(tmp: str, smi: str):
+    """Both K = 5 forms on the LES pitzDaily's own Gauss planes (x16: n =
+    1,146,880, offsets 0, +-1, +-1792) against the plain version, fp32 to
+    1e-5 and fp64 to 1e-13, timed cold and warm beside cuSPARSE as in
+    phase 3. Returns (timings by (K, C), (the fp32 case, its set-up
+    seconds)) for phase 41."""
+    from rapidcfd_tpu_torch.ops import gdia_mac as gm
+    t0 = time.perf_counter()
+    case, setup_s = _les_case(tmp, "les", LES_SCALE, torch.float32)
+    torch.cuda.synchronize()
+    setup_s["total"] = time.perf_counter() - t0
+    planes = case.mesh.gauss
+    check(tuple(planes.offsets) == LES_OFFSETS
+          and case.mesh.n_cells == LES_N
+          and int(case.maps.cell_primary.sum()) == LES_CELLS,
+          f"[39] unexpected LES planes {planes.offsets} on "
+          f"{case.mesh.n_cells} slots")
+    g = torch.Generator(device="cuda").manual_seed(1792)
+    x = torch.randn(LES_N, generator=g, device="cuda")
+    res = {}
+    for C, coeffs, n_sets in ((3, planes.coeffs, 2),         # 174 MB
+                              (1, planes.coeffs_i[1], 3)):    # 96 MB
+        for dtype, tol in ((torch.float64, 1e-13), (torch.float32, 1e-5)):
+            xd, cd = x.to(dtype), coeffs.to(dtype)
+            ref = gm.shift_mac_cols_plain(xd, cd, planes.offsets)
+            out = gm.shift_mac_cols(xd, cd, planes.offsets)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            lim = tol * ref.abs().max().item()
+            print(f"[39] {str(dtype)[6:]} LES pitzDaily planes, K=5 C={C} "
+                  f"n={LES_N}: max|d| {err:.2e} (limit {lim:.2e})")
+            check(err <= lim, f"[39] kernel disagrees with the plain version "
+                  f"on the LES planes (C={C}, {dtype}): {err} > {lim}")
+        del xd, cd, ref, out
+        res[5, C] = dict(max_abs_err=err, **_time_form(
+            gm, 5, C, LES_N, planes.offsets, n_sets, smi, coeffs=coeffs,
+            label="[39]"))
+        torch.cuda.empty_cache()
+    return res, (case, setup_s)
+
+
+def _turb_run(solver: str, d: str, dev: str, steps: int):
+    """simpleFoam or pimpleFoam in fp64 on a case directory: (case,
+    {field: tensor}, per-step iteration counts)."""
+    from rapidcfd_tpu_torch.solvers import pimplefoam, simplefoam
+    from rapidcfd_tpu_torch.utils.logging import captured
+    run = simplefoam.run if solver == "simpleFoam" else pimplefoam.run
+    with captured():
+        case, U, p, phi, ts = run(d, device=torch.device(dev),
+                                  dtype=torch.float64, write=False,
+                                  max_steps=steps)
+    fields = dict(U=U.data, p=p.data, phi=phi.data,
+                  **{k: v.data for k, v in ts.items()})
+    return case, fields, [r["iterations"] for r in case.step_log]
+
+
+def phase_turbulence_agreement(tmp: str):
+    """Every model this slice adds, and the second-order ddt schemes, in
+    fp64 on cuda and on cpu: the RAS models by simpleFoam on pitzDaily x1
+    (gdia, 3 iterations), the LES models by pimpleFoam on the JAX tests'
+    30x10x1 channel (ELL, 5 steps, backward, from a seeded nonuniform
+    stream: in a uniform one the dynamic coefficients are ratios of
+    rounding residues), and pimpleFoam on the small
+    T-junction (kEpsilon, gdia, 5 steps) with backward and with
+    CrankNicolson 0.9: every field within TURB_RTOL of the CPU's
+    largest, iteration counts within one. Every scheme is upwind or
+    linear, so no limiter's r is set by rounding."""
+    from rapidcfd_tpu_torch.ops import gdia_mac
+    from rapidcfd_tpu_torch.utils import casegen
+    from rapidcfd_tpu_torch.utils.logging import captured
+    runs = []
+    for model in TURB_RAS:
+        runs.append((f"simpleFoam {model} pitzDaily x1", "simpleFoam", 3,
+                     lambda d, m=model: casegen.pitz_daily_ras_case(
+                         d, m, end_time=3)))
+    for model in TURB_LES:
+        runs.append((f"pimpleFoam {model} channel 30x10", "pimpleFoam", 5,
+                     lambda d, m=model: casegen.les_model_channel_case(
+                         d, m, ddt="backward", u_seed=5)))
+    for ddt in ("backward", "CrankNicolson 0.9"):
+        def tj(d, ddt=ddt):
+            casegen.tjunction_case(d, **TJ_SMALL)
+            path = f"{d}/system/fvSchemes"
+            with open(path) as fh:
+                txt = fh.read()
+            with open(path, "w") as fh:
+                fh.write(txt.replace("default Euler;", f"default {ddt};"))
+        runs.append((f"pimpleFoam {ddt.split()[0]} T-junction small",
+                     "pimpleFoam", 5, tj))
+    t_all = time.perf_counter()
+    worst = {}
+    for i, (what, solver, steps, writer) in enumerate(runs):
+        d = f"{tmp}/turb{i}"
+        with captured():
+            writer(d)
+        tag = f"[40] fp64 {what},"
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            gdia_mac.reset_launches()
+            t0 = time.perf_counter()
+            outs[dev] = _turb_run(solver, d, dev, steps)
+            if dev == "cuda":
+                t_cuda = time.perf_counter() - t0
+                launches = dict(gdia_mac.LAUNCHES_BY_KC)
+        (gc, gf, g_its), (cc, cf, c_its) = outs["cuda"], outs["cpu"]
+        # a field that is zero on the CPU (homogeneousDynSmagorinsky's
+        # nut where its volume-averaged coefficient clips) is held
+        # absolutely
+        errs = _field_errs(cc.maps, gf, cf, floors=dict.fromkeys(cf, 1e-300))
+        n_off = _count_diffs(tag, g_its, c_its)
+        worst[what] = max(errs.values())
+        print(f"{tag} {steps} steps ({'gdia' if gc.mesh.gdia is not None else 'ELL'}"
+              f", cuda {t_cuda:.2f} s, shift-MAC launches {launches}): cuda "
+              f"vs cpu relative max|d| (limit {TURB_RTOL:g}): "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f"; {n_off} iteration counts differ (by one)")
+        check(all(v <= TURB_RTOL for v in errs.values()),
+              f"{tag} fp64 cuda and cpu runs disagree: {errs}")
+    print(f"[40] {len(runs)} fp64 pairs in {time.perf_counter() - t_all:.1f}"
+          f" s; the largest difference {max(worst.values()):.3e} "
+          f"({max(worst, key=worst.get)})")
+
+
+def phase_les_main(tmp: str, smi: str, les) -> dict:
+    """The main path of the slice: pisoFoam LES (dynOneEqEddy with the
+    cubeRootVol delta and the simple filter, backward, LUST) on the
+    1,085,440-cell pitzDaily (x16, 2-D masked gdia, both K = 5 forms) in
+    fp32 from rest, the case phase 39 built: one warm-up step, one
+    profiled and one clocked step (each linear solve timed alone), then
+    LES_TIMED timed steps (each ending in a device sync). U, p, k and nut
+    finite, max |U| under LES_U_BOUND times the inlet speed, nut within
+    [0, LES_NUT_BOUND], k positive; at least one C = 3 and one C = 1
+    launch at every step (LES_LAUNCHES counted); ms/step, cell-updates/s
+    (live cells), set-up by stage, iterations per solve, launches by
+    (K, C), the profiled step's launches, busy share and top kernels,
+    peak memory, max |U| and max nut. Returns the launches by (K, C) over
+    the timed steps."""
+    from rapidcfd_tpu_torch.models import turbulence
+    from rapidcfd_tpu_torch.ops import gdia_mac
+    from rapidcfd_tpu_torch.solvers import pimplefoam
+    from rapidcfd_tpu_torch.utils.logging import captured
+    tag = f"[41] pisoFoam LES pitzDaily x{LES_SCALE} dynOneEqEddy backward"
+    case, setup_s = les
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with captured():
+        (U, p, phi, ts), step = pimplefoam.setup(case, piso_mode=True)
+    torch.cuda.synchronize()
+    setup_s["fields_and_step"] = time.perf_counter() - t0
+    mesh = case.mesh
+    dt = case.time.delta_t
+    u_in = 10.0
+    check(mesh.gdia is not None and int(case.maps.cell_primary.sum())
+          == LES_CELLS and sorted(ts) == ["k", "nut"],
+          f"{tag}: expected {LES_CELLS} live cells on the gdia lattice and "
+          f"the dynOneEqEddy state: {sorted(ts)}")
+    print(f"{tag} fp32: {LES_CELLS} cells in {LES_N} slots (gdia, offsets "
+          f"{tuple(mesh.gauss.offsets)}), dt {dt:.4g} s (inlet Courant "
+          f"{u_in * dt * 12 * LES_SCALE / 0.0206:.2f}); set-up by stage: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in setup_s.items()))
+    records = []
+
+    def advance(state):
+        before = dict(gdia_mac.LAUNCHES_BY_KC)
+        t_ = time.perf_counter()
+        *state, st = step(*state, dt)
+        torch.cuda.synchronize()
+        now = dict(gdia_mac.LAUNCHES_BY_KC)
+        secs = time.perf_counter() - t_
+        records.append(dict(
+            secs=secs, its=pimplefoam.iteration_counts(st),
+            co=float(st["co"][1]), cont=float(st["cont"][0]),
+            launches={kc: now[kc] - before.get(kc, 0) for kc in now},
+            u_max=float(state[0].data[live].norm(dim=-1).max()),
+            nut_max=float(state[3]["nut"].data[live].max())))
+        return tuple(state)
+
+    live = torch.as_tensor(case.maps.cell_primary, device=U.data.device)
+    state = advance((U, p, phi, ts))
+    state, st, n_kernels, busy, t_prof, mac, top = _profiled_iteration(
+        lambda *s: step(*s, dt), state)
+    with _clocked_solves((pimplefoam, turbulence)) as solves:
+        state = advance(state)
+    t_clocked = records[-1]["secs"]
+    gdia_mac.reset_launches()
+    for _ in range(LES_TIMED):
+        state = advance(state)
+    launches = dict(gdia_mac.LAUNCHES_BY_KC)
+    U, p, phi, ts = state
+    for f in (U, p, *ts.values()):
+        check(bool(torch.isfinite(f.data[live]).all()),
+              f"{tag}: {f.name} not finite")
+    u_max = float(U.data[live].norm(dim=-1).max())
+    nut_max = float(ts["nut"].data[live].max())
+    nut_min = float(ts["nut"].data[live].min())
+    print(f"{tag} max |U| by step: "
+          + ", ".join(f"{r['u_max']:.3f}" for r in records)
+          + "; max nut by step: "
+          + ", ".join(f"{r['nut_max']:.3e}" for r in records))
+    check(u_max <= LES_U_BOUND * u_in and 0.0 <= nut_min
+          and nut_max <= LES_NUT_BOUND
+          and records[-1]["u_max"] <= LES_U_GROWTH * records[-11]["u_max"]
+          and bool((ts["k"].data[live] > 0).all()),
+          f"{tag}: unbounded: max|U| {u_max}, nut in [{nut_min}, {nut_max}]")
+    per_step = [r["launches"] for r in records]
+    check(all(d_.get((5, 3), 0) >= 1 and d_.get((5, 1), 0) >= 1
+              for d_ in per_step),
+          f"{tag}: a step launched no C = 3 or no C = 1 form: {per_step}")
+    timed = [r["secs"] for r in records[2:]]
+    med = statistics.median(timed)
+    print(f"{tag} warm-up step {records[0]['secs'] * 1e3:.1f} ms; clocked "
+          f"{t_clocked * 1e3:.1f} ms; {LES_TIMED} timed: "
+          + ", ".join(f"{s * 1e3:.3f}" for s in timed)
+          + f" ms; median {med * 1e3:.3f} ms/step, {LES_CELLS / med:.1f} "
+          f"cell-updates/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (card: "
+          f"{smi})")
+    by_field = {}
+    for n_, s in solves:
+        by_field[n_] = by_field.get(n_, 0.0) + s
+    print(f"{tag} clocked step: its solves "
+          + ", ".join(f"{n_} {s * 1e3:.1f}" for n_, s in solves)
+          + " ms; by field " + ", ".join(
+              f"{n_} {s * 1e3:.1f} ms ({s / t_clocked:.1%})"
+              for n_, s in by_field.items()))
+    print(f"{tag} iterations per solve by step: "
+          + "; ".join(str(r["its"]) for r in records))
+    print(f"{tag} Courant number (max) by step: "
+          + ", ".join(f"{r['co']:.3f}" for r in records))
+    print(f"{tag} shift-MAC launches per step by (K, C): {per_step[-1]} "
+          f"(expected {LES_LAUNCHES}; every one of {len(per_step)} steps: "
+          f"{all(d_ == LES_LAUNCHES for d_ in per_step)}); over the "
+          f"{LES_TIMED} timed steps {launches}")
+    print(f"{tag} profiled step: {t_prof * 1e3:.1f} ms, {n_kernels} kernel "
+          f"launches, device busy {busy * 1e3:.2f} ms ({busy / t_prof:.1%}) "
+          f"(card: {smi})")
+    print(f"{tag} profiled step, top kernels by device time (name, "
+          f"launches, ms): {top}")
+    print(f"{tag} profiled step, shift-MAC kernels: {mac}")
+    check(any("mac_stencil<float, 5, 3>" in name for name in mac)
+          and any("mac_stencil<float, 5, 1>" in name for name in mac),
+          f"{tag}: the profiled step did not run both K = 5 mac_stencil "
+          f"forms: {mac}")
+    print(f"{tag} after {len(records) + 1} steps: max |U| {u_max:.4f} m/s, "
+          f"nut in [{nut_min:.3e}, {nut_max:.3e}] m2/s, max k "
+          f"{float(ts['k'].data[live].max()):.4e} m2/s2")
+    # the Germano coefficients' 11 test-filter passes (1 vector, 4
+    # tensors, 6 scalars), profiled alone on the last state: the launches
+    # a one-launch filter (ROADMAP Queue 2) would replace
+    from torch.profiler import ProfilerActivity, profile
+    with captured():
+        model = turbulence.make_ras_model(case, U)
+        nu = pimplefoam.SinglePhaseTransportModel(
+            case.transport_properties()).nu(mesh, U)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _spin_prologue()
+        model._coeffs(mesh, U, ts["k"], ts["nut"], nu)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "spin" not in e.key]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof1:
+        _spin_prologue()
+        turbulence.simple_filter(mesh, U.data)
+        torch.cuda.synchronize()
+    kern1 = [e for e in prof1.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "spin" not in e.key]
+    print(f"{tag} dynOneEqEddy's coefficients (11 test-filter passes): "
+          f"{sum(int(e.count) for e in kern)} launches, "
+          f"{sum(getattr(e, 'self_device_time_total', 0.0) for e in kern) / 1e3:.3f}"
+          f" ms device time; one filter pass of U: "
+          f"{sum(int(e.count) for e in kern1)} launches, "
+          f"{sum(getattr(e, 'self_device_time_total', 0.0) for e in kern1) / 1e3:.3f}"
+          f" ms (card: {smi})")
+    del state, U, p, phi, ts, st, case, step, live, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ras_dispatch(tmp: str, smi: str) -> dict:
+    """simpleFoam on pitzDaily x5 (106,000 cells, fp32, gdia) with
+    realizableKE and with SpalartAllmaras through the dispatcher
+    (`rapidcfd_tpu_torch.__main__.main(["simpleFoam", ...])` in this
+    process), RAS_DISPATCH_ITERATIONS iterations each: ms/iteration (the
+    median of the last 15 of the run's iteration wall times), iterations
+    per solve, shift-MAC launches by (K, C) per iteration (as counted),
+    fields finite. Returns {model: launches by (K, C)}."""
+    from rapidcfd_tpu_torch.__main__ import main as dispatch
+    from rapidcfd_tpu_torch.ops import gdia_mac
+    from rapidcfd_tpu_torch.solvers import simplefoam
+    from rapidcfd_tpu_torch.utils.casegen import pitz_daily_case
+    from rapidcfd_tpu_torch.utils.logging import captured
+    out = {}
+    for model in RAS_DISPATCH:
+        tag = f"[42] simpleFoam pitzDaily x{RAS_DISPATCH_SCALE} {model}"
+        d = f"{tmp}/ras_{model}"
+        with captured():
+            pitz_daily_case(d, scale=RAS_DISPATCH_SCALE, model=model,
+                            end_time=RAS_DISPATCH_ITERATIONS)
+        kept = {}
+        run = simplefoam.run
+
+        def keep(*a, **k):
+            kept["out"] = run(*a, **k)
+            return kept["out"]
+        simplefoam.run = keep
+        gdia_mac.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with captured() as buf:
+                dispatch(["simpleFoam", "-case", d, "-noWrite",
+                          "-precision", "fp32"])
+        finally:
+            simplefoam.run = run
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(gdia_mac.LAUNCHES_BY_KC)
+        case, U, p, phi, ts = kept["out"]
+        n = len(case.step_seconds)
+        check(n == RAS_DISPATCH_ITERATIONS and "End" in buf.getvalue(),
+              f"{tag}: {n} iterations, log tail {buf.getvalue()[-400:]}")
+        for f in (U, p, *ts.values()):
+            check(bool(torch.isfinite(f.data).all()),
+                  f"{tag}: {f.name} not finite")
+        per_it = {kc: v / n for kc, v in launches.items()}
+        check(per_it == RAS_DISPATCH_LAUNCHES[model],
+              f"{tag}: expected {RAS_DISPATCH_LAUNCHES[model]} launches per "
+              f"iteration: {per_it}")
+        med = statistics.median(case.step_seconds[5:])
+        print(f"{tag} fp32 through the dispatcher: {n} iterations in "
+              f"{wall:.2f} s with set-up; median {med * 1e3:.3f} ms/iteration"
+              f" (last {n - 5}: " + ", ".join(
+                  f"{s * 1e3:.1f}" for s in case.step_seconds[5:])
+              + f"), {int(case.maps.cell_primary.sum()) / med:.1f} "
+              f"cell-updates/s; shift-MAC launches per iteration {per_it} "
+              f"(card: {smi})")
+        print(f"{tag} iterations per solve, first and last: "
+              f"{case.step_log[0]['iterations']}; "
+              f"{case.step_log[-1]['iterations']}")
+        out[model] = launches
+        del case, U, p, phi, ts, kept
+    return out
+
+
+def _timed(phase, *args):
+    """Run one phase and print its wall time (host clock, set-up and
+    checks included)."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
 def main():
-    smi = phase_setup()
-    phase_build()
-    k = phase_kernel(smi)
+    t_start = time.perf_counter()
+    smi = _timed(phase_setup)
+    _timed(phase_build)
+    k = _timed(phase_kernel, smi)
     with tempfile.TemporaryDirectory() as tmp:
-        tj_kernel = phase_tjunction_kernel(tmp, smi)
-        fs_kernel = phase_fstep_kernel(tmp, smi)
-        room_kernel, room_case = phase_room_kernel(tmp, smi)
-        dam_kernel, dam_case = phase_dam_kernel(tmp, smi)
-        column_kernel, column_mesh = phase_column_kernel(tmp, smi)
-        porous_kernel, porous_case = phase_porous_kernel(tmp, smi)
-        phase_fp64_agreement(tmp)
-        ico = phase_main_path(tmp, smi)
-        phase_cavity_agreement(tmp)
-        cavity = phase_cavity_main(tmp, smi)
-        phase_simple_agreement(tmp)
-        simple = phase_simple_main(tmp, smi)
-        phase_channel_agreement(tmp)
-        channel = phase_channel_main(tmp, smi)
-        duct = phase_duct_main(tmp, smi)
-        phase_pimple_agreement(tmp)
-        tjunction = phase_tjunction_main(tmp, smi)
-        phase_compressible_agreement(tmp)
-        sonic = phase_sonic_main(tmp, smi)
-        rho = phase_rho_main(tmp, smi)
-        rc64 = phase_rho_transient_agreement(tmp)
-        central = phase_central_main(tmp, smi, rc64)
-        rho_pimple = phase_rho_pimple_main(tmp, smi)
-        phase_heat_agreement(tmp)
-        room = phase_room_main(tmp, smi, room_case)
+        tj_kernel = _timed(phase_tjunction_kernel, tmp, smi)
+        fs_kernel = _timed(phase_fstep_kernel, tmp, smi)
+        room_kernel, room_case = _timed(phase_room_kernel, tmp, smi)
+        dam_kernel, dam_case = _timed(phase_dam_kernel, tmp, smi)
+        column_kernel, column_mesh = _timed(phase_column_kernel, tmp, smi)
+        porous_kernel, porous_case = _timed(phase_porous_kernel, tmp, smi)
+        _timed(phase_fp64_agreement, tmp)
+        ico = _timed(phase_main_path, tmp, smi)
+        _timed(phase_cavity_agreement, tmp)
+        cavity = _timed(phase_cavity_main, tmp, smi)
+        _timed(phase_simple_agreement, tmp)
+        simple = _timed(phase_simple_main, tmp, smi)
+        _timed(phase_channel_agreement, tmp)
+        channel = _timed(phase_channel_main, tmp, smi)
+        duct = _timed(phase_duct_main, tmp, smi)
+        _timed(phase_pimple_agreement, tmp)
+        tjunction = _timed(phase_tjunction_main, tmp, smi)
+        _timed(phase_compressible_agreement, tmp)
+        sonic = _timed(phase_sonic_main, tmp, smi)
+        rho = _timed(phase_rho_main, tmp, smi)
+        rc64 = _timed(phase_rho_transient_agreement, tmp)
+        central = _timed(phase_central_main, tmp, smi, rc64)
+        rho_pimple = _timed(phase_rho_pimple_main, tmp, smi)
+        _timed(phase_heat_agreement, tmp)
+        room = _timed(phase_room_main, tmp, smi, room_case)
         del room_case
-        room_pimple = phase_room_pimple(tmp, smi)
-        phase_vof_agreement(tmp)
+        room_pimple = _timed(phase_room_pimple, tmp, smi)
+        _timed(phase_vof_agreement, tmp)
         dam_mesh = (dam_case[0].pmesh, dam_case[0].lattice)
-        dam = phase_dam_main(tmp, smi, dam_case)
+        dam = _timed(phase_dam_main, tmp, smi, dam_case)
         del dam_case
-        phase_multiphase_agreement(tmp)
-        multiphase = phase_multiphase_main(tmp, smi, dam_mesh)
-        column = phase_column_main(tmp, smi, column_mesh)
+        _timed(phase_multiphase_agreement, tmp)
+        multiphase = _timed(phase_multiphase_main, tmp, smi, dam_mesh)
+        column = _timed(phase_column_main, tmp, smi, column_mesh)
         del dam_mesh, column_mesh
-        phase_multiphase_cli(tmp, smi)
-        phase_options_agreement(tmp)
-        porous = phase_porous_main(tmp, smi, porous_case)
+        _timed(phase_multiphase_cli, tmp, smi)
+        _timed(phase_options_agreement, tmp)
+        porous = _timed(phase_porous_main, tmp, smi, porous_case)
         del porous_case
-        basic = phase_basic_cli(tmp, smi)
+        basic = _timed(phase_basic_cli, tmp, smi)
+        les_kernel, les_case = _timed(phase_les_kernel, tmp, smi)
+        _timed(phase_turbulence_agreement, tmp)
+        les = _timed(phase_les_main, tmp, smi, les_case)
+        del les_case
+        ras = _timed(phase_ras_dispatch, tmp, smi)
     paths = {"simpleFoam pitzDaily x5": simple, "icoFoam pitzDaily x5": ico,
              "icoFoam cavity 384": cavity,
              "simpleFoam channel 160x80x80": channel,
@@ -4477,7 +4970,11 @@ def main():
              "nonNewtonianIcoFoam cavity 512x512":
                  basic["nonNewtonianIcoFoam"],
              "scalarTransportFoam cavity 512x512":
-                 basic["scalarTransportFoam"]}
+                 basic["scalarTransportFoam"],
+             "pisoFoam LES pitzDaily x16": les,
+             "simpleFoam pitzDaily x5 realizableKE": ras["realizableKE"],
+             "simpleFoam pitzDaily x5 SpalartAllmaras":
+                 ras["SpalartAllmaras"]}
     kernels = []
     for (K, c), what, main_path, times in (
             ((5, 3), "Gauss gradient", "simpleFoam pitzDaily x5", k[5, 3]),
@@ -4511,7 +5008,11 @@ def main():
              "porousSimpleFoam porous duct 448x48x48", porous_kernel[7, 3]),
             ((7, 1), "divergence contraction, 3-D, porous-duct planes",
              "porousSimpleFoam porous duct 448x48x48",
-             porous_kernel[7, 1])):
+             porous_kernel[7, 1]),
+            ((5, 3), "Gauss gradient, LES pitzDaily planes",
+             "pisoFoam LES pitzDaily x16", les_kernel[5, 3]),
+            ((5, 1), "divergence contraction, LES pitzDaily planes",
+             "pisoFoam LES pitzDaily x16", les_kernel[5, 1])):
         if (K, c) == (5, 1) and main_path == "interFoam dam break 1024x1024" \
                 and not dam.get((5, 1)):
             continue      # the form is held and timed but not on this path
@@ -4523,6 +5024,8 @@ def main():
             "main_path": main_path,
             "launches_by_path": {name: got.get((K, c), 0)
                                  for name, got in paths.items()}})
+    print(f"[time] whole smoke before its last lines: "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

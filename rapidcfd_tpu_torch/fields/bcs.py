@@ -18,8 +18,10 @@ inletOutlet, totalPressure, uniformTotalPressure (p0 a constant, as in
 the JAX package), pressureInletOutletVelocity, flowRateInletVelocity and
 the turbulentIntensityKineticEnergyInlet, turbulentMixingLength-
 DissipationRateInlet and turbulentMixingLengthFrequencyInlet estimators;
-the wall functions of kEpsilon and kOmegaSST: nutkWallFunction,
-kqRWallFunction, epsilonWallFunction and omegaWallFunction (the JAX
+the wall functions of the RAS models: nutkWallFunction (nutWallFunction),
+nutUSpaldingWallFunction (nutUWallFunction, nutLowReWallFunction),
+kqRWallFunction, epsilonWallFunction, omegaWallFunction, and v2f's
+v2WallFunction and fWallFunction (the JAX
 package keeps those in models/turbulence.py, which re-exports them
 here); and the heat-transfer set: fixedGradient, fixedFluxPressure with
 its setSnGrad helpers, prghPressure and the Marshak condition of the P1
@@ -663,6 +665,29 @@ class OmegaWallFunction(ZeroGradient):
     word = "omegaWallFunction"
 
 
+@dataclass(frozen=True)
+class NutUSpaldingWallFunction(NutkWallFunction):
+    """The velocity-based nut wall functions nutUSpaldingWallFunction,
+    nutUWallFunction and nutLowReWallFunction: the k-based log law, as
+    the JAX package takes them (rapidcfd_tpu/models/turbulence.py:108-113;
+    the reference fits Spalding's law in U)."""
+    word = "nutUSpaldingWallFunction"
+
+
+@dataclass(frozen=True)
+class V2WallFunction(FixedValue):
+    """v2 at a wall: a fixed (small) value (rapidcfd_tpu/models/
+    turbulence.py:1047-1051; reference: v2f/v2WallFunction)."""
+    word = "v2WallFunction"
+
+
+@dataclass(frozen=True)
+class FWallFunction(FixedValue):
+    """f at a wall: a fixed value (rapidcfd_tpu/models/turbulence.py:
+    1054-1058; reference: v2f/fWallFunction)."""
+    word = "fWallFunction"
+
+
 BC_TYPES = {cls.word: cls for cls in (
     Calculated, FixedValue, ZeroGradient, Empty, Mixed, NoSlip, Symmetry,
     Slip, InletOutlet,
@@ -671,7 +696,11 @@ BC_TYPES = {cls.word: cls for cls in (
     TurbulentMixingLengthFrequencyInlet, TotalPressure, UniformTotalPressure,
     PressureInletOutletVelocity, FlowRateInletVelocity, NutkWallFunction,
     KqRWallFunction, EpsilonWallFunction, OmegaWallFunction, FixedGradient,
-    FixedFluxPressure, PrghPressure, MarshakRadiation)}
+    FixedFluxPressure, PrghPressure, MarshakRadiation,
+    NutUSpaldingWallFunction, V2WallFunction, FWallFunction)}
+BC_TYPES["nutWallFunction"] = NutkWallFunction
+BC_TYPES["nutUWallFunction"] = NutUSpaldingWallFunction
+BC_TYPES["nutLowReWallFunction"] = NutUSpaldingWallFunction
 #: the reference's other names of the Marshak condition
 BC_TYPES["MarshakRadiationFixedTemperature"] = MarshakRadiation
 BC_TYPES["greyDiffusiveRadiation"] = MarshakRadiation

@@ -3,7 +3,8 @@ rapidcfd_tpu/fields/field.py).
 
 - `VolField` = internal (nCells, ...) tensor + materialized boundary face
   values (nBoundaryFaces, ...) + a tuple of boundary-condition descriptors
-  + one old-time level. Frozen: operations return new fields.
+  + one or two old-time levels (and the CrankNicolson ddt0 state).
+  Frozen: operations return new fields.
 - `SurfaceField` = one (nFaces, ...) tensor covering internal AND
   boundary faces.
 - Dimensions are checked on every operation (DimensionSet metadata).
@@ -112,6 +113,20 @@ class VolField:
     name: str = ""
     bcdata: tuple = ()           # per-patch dicts of BC parameter tensors
     old: Optional["VolField"] = None
+    #: old levels this field keeps (store_old(levels=)): 0 before the
+    #: first store, 1 for Euler, 2 for backward and CrankNicolson
+    levels: int = 0
+    #: the time step this level is advanced over (store_old(dt=)); the
+    #: old level's is the previous step's, backward's deltaT0
+    step_dt: Any = None
+    #: store_old calls this field has been through, kept across
+    #: with_calculated_bcs: past the first (stores > 1) a two-level field
+    #: must carry old.old, which fvm.ddt checks
+    stores: int = 0
+    #: CrankNicolson state (reference: CrankNicolsonDdtScheme.H DDt0Field):
+    #: (ddt0 data, ddt0 bvalues, completed steps), advanced once per step
+    #: by fvm.cn_advance; None for a field not integrated with CN
+    ddt0: Optional[tuple] = None
 
     # -- structure helpers ---------------------------------------------------
     def replace(self, **kw) -> "VolField":
@@ -126,13 +141,23 @@ class VolField:
         return VolField(data, bvalues, bcs, dims, name or self.name,
                         tuple(d if k else {}
                               for k, d in zip(keep, self.bcdata)),
-                        None)
+                        None, stores=self.stores)
 
-    def store_old(self) -> "VolField":
-        """Shift current values into the old-time slot (one level, Euler)."""
+    def store_old(self, levels: int = 1, dt=None) -> "VolField":
+        """Shift current values into the old-time slot (port of
+        rapidcfd_tpu/fields/field.py:149-158). levels=1 keeps one old
+        level (Euler), levels=2 two (backward, CrankNicolson). dt is the
+        step about to be taken: the new old level keeps the step that
+        produced it (this field's step_dt), which backward reads as
+        deltaT0."""
+        prev = None
+        if levels >= 2 and self.old is not None:
+            prev = self.old.replace(old=None, ddt0=None)
         old = VolField(self.data, self.bvalues, self.bcs, self.dims,
-                       self.name, self.bcdata, None)
-        return self.replace(old=old)
+                       self.name, self.bcdata, prev, levels=self.levels,
+                       step_dt=self.step_dt)
+        return self.replace(old=old, levels=levels, step_dt=dt,
+                            stores=self.stores + 1)
 
     # -- arithmetic -----------------------------------------------------------
     def _binop(self, other, f, dims, name=""):

@@ -3,9 +3,10 @@
 Each function takes an object of the JAX package (a MeshArrays with its
 GAMG levels, on the ELL or the gdia layout, merged-cell ghost slots
 included; a VolField with its boundary-condition data and old-time
-level (a compressible state too: slip and symmetryPlane BCs, the psi
-and rho old levels), a SurfaceField, an FvMatrix, a turbulence model's
-state dict, old time levels included, or kOmegaSST's wall distance) and
+levels and CrankNicolson ddt0 state (a compressible state too: slip and
+symmetryPlane BCs, the psi and rho old levels), a SurfaceField, an
+FvMatrix, a turbulence model's state dict (every RAS and LES model's
+fields), old time levels included, or a model's wall distance) and
 rebuilds the port's counterpart on
 a given device and dtype. The structured multigrid levels are built per
 solve from the matrix, so there is nothing of them to carry. Arrays are
@@ -127,30 +128,40 @@ def _bc(src_bc):
 
 
 def vol_field(src, *, device, dtype) -> VolField:
-    """VolField (data, bvalues, BCs, bcdata and the old-time level)."""
+    """VolField (data, bvalues, BCs, bcdata, the old-time levels and a
+    CrankNicolson ddt0 state). The JAX package keeps no count of a
+    field's old levels: the port's `levels` is the number it carries."""
     def bd(d):
         return {k: tensor(v, device=device, dtype=dtype)
                 for k, v in (d.items() if isinstance(d, dict) else ())}
+    ddt0 = getattr(src, "ddt0", None)
+    if ddt0 is not None:
+        ddt0 = (tensor(ddt0[0], device=device, dtype=dtype),
+                tensor(ddt0[1], device=device, dtype=dtype),
+                int(np.asarray(ddt0[2])))
+    levels = 0 if src.old is None else 1 + (src.old.old is not None)
     return VolField(
         tensor(src.data, device=device, dtype=dtype),
         tensor(src.bvalues, device=device, dtype=dtype),
         tuple(_bc(b) for b in src.bcs), dims(src.dims), src.name,
         tuple(bd(d) for d in src.bcdata),
         None if src.old is None else vol_field(src.old, device=device,
-                                               dtype=dtype))
+                                               dtype=dtype),
+        levels=levels, stores=levels, ddt0=ddt0)
 
 
 def turb_state(src, *, device, dtype) -> dict:
-    """A RAS model's state dict (kEpsilon: k, epsilon and nut; kOmegaSST:
-    k, omega and nut; with their BCs and, after a transient correct(),
-    their old-time level) as the port's VolFields."""
+    """A turbulence model's state dict (k, epsilon, omega, nuTilda, v2,
+    f, kt, kl, flm, fmm and nut, as the model keeps them) as the port's
+    VolFields, with their BCs, old levels and ddt0 (vol_field)."""
     return {name: vol_field(f, device=device, dtype=dtype)
             for name, f in src.items()}
 
 
 def wall_distance(src_model, *, device, dtype) -> torch.Tensor:
-    """The wall distance per cell slot of a JAX kOmegaSST model (its `y`),
-    for the port's model of the same case."""
+    """The wall distance per cell slot of a JAX model that keeps one (its
+    `y`: kOmegaSST, SpalartAllmaras and its DES forms, kkLOmega), for the
+    port's model of the same case."""
     return tensor(src_model.y, device=device, dtype=dtype)
 
 

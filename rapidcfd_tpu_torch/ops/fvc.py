@@ -345,6 +345,25 @@ def sn_grad(mesh: MeshArrays, vf: VolField) -> SurfaceField:
                         vf.dims / dim_length, f"snGrad({vf.name})")
 
 
+def laplacian(mesh: MeshArrays, gamma, vf: VolField) -> VolField:
+    """fvc::laplacian(gamma, vf) = surfaceIntegrate(gamma_f magSf snGrad)
+    (port of rapidcfd_tpu/ops/fvc.py:500-517): the orthogonal snGrad;
+    gamma a VolField, a SurfaceField, a Dimensioned or a number."""
+    from ..utils.dimensions import dimless
+    sng = sn_grad(mesh, vf)
+    if isinstance(gamma, VolField):
+        g_f, g_dims = face_values(mesh, gamma), gamma.dims
+    elif isinstance(gamma, SurfaceField):
+        g_f, g_dims = gamma.data, gamma.dims
+    elif isinstance(gamma, Dimensioned):
+        g_f, g_dims = gamma.value, gamma.dims
+    else:
+        g_f, g_dims = gamma, dimless
+    flux_f = _ext(g_f * mesh.mag_sf, sng.data) * sng.data
+    return surface_integrate(mesh, SurfaceField(
+        flux_f, g_dims * _AREA * sng.dims, f"laplacian({vf.name})"))
+
+
 def flux(mesh: MeshArrays, U: VolField) -> SurfaceField:
     """Volumetric face flux phi = interpolate(U) & Sf (createPhi.H); on
     gdia meshes fused per plane (no (nF, 3) face-value

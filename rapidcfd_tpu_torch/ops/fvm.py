@@ -1,5 +1,6 @@
 """fvm — implicit finite-volume operators returning FvMatrix systems
-(port of rapidcfd_tpu/ops/fvm.py: Euler, local-Euler and steadyState ddt,
+(port of rapidcfd_tpu/ops/fvm.py: Euler, local-Euler, backward,
+CrankNicolson and steadyState ddt,
 with a density-like coefficient or without, Gauss and bounded Gauss div,
 the orthogonal and corrected laplacian, the Sp/Su/SuSp sources, with
 negSumDiag as an ELL gather or by gdia plane shifts)."""
@@ -40,20 +41,120 @@ def _neg_sum_diag(mesh: MeshArrays, lower, upper):
     return gd.neg_sum_diag(mesh.gdia, lower, upper)
 
 
-def ddt(mesh: MeshArrays, vf: VolField, dt, scheme: str = "Euler",
+def cn_coeff(scheme):
+    """ocCoeff of a CrankNicolson ddt scheme (a word, or the case's
+    ('CrankNicolson', ocCoeff)), None for any other scheme."""
+    name = scheme[0] if isinstance(scheme, tuple) and scheme else scheme
+    if name not in ("CrankNicolson", "CrankNicholson"):
+        return None
+    return float(scheme[1]) if isinstance(scheme, tuple) \
+        and len(scheme) > 1 else 1.0
+
+
+def old_levels(scheme) -> int:
+    """Old time levels a ddt scheme reads: 2 for backward and
+    CrankNicolson, 1 for the Euler family (and steadyState)."""
+    return 2 if scheme == "backward" or cn_coeff(scheme) is not None else 1
+
+
+def store_old(mesh: MeshArrays, vf: VolField, dt, scheme) -> VolField:
+    """Start a time step of vf under a ddt scheme: store its old levels
+    (two for backward and CrankNicolson) and, for CrankNicolson, advance
+    its ddt0 state once (cn_advance)."""
+    vf = vf.store_old(levels=old_levels(scheme), dt=dt)
+    oc = cn_coeff(scheme)
+    return vf if oc is None else cn_advance(mesh, vf, dt, oc_coeff=oc)
+
+
+def cn_advance(mesh: MeshArrays, vf: VolField, dt, dt0=None,
+               oc_coeff: float = 1.0, coeff: VolField | None = None
+               ) -> VolField:
+    """Advance the CrankNicolson ddt0 state once per time step, right
+    after store_old(levels=2) (port of rapidcfd_tpu/ops/fvm.py:73-115;
+    reference: CrankNicolsonDdtScheme.C:417, ddt0 = rDtCoef0*(psi0 -
+    psi00) - ocCoeff*ddt0_prev with the start-up blending coef0). dt0 is
+    the previous step's size: the old level's step_dt when not given (the
+    JAX package takes dt). With coeff (rho) the state tracks
+    d(rho*psi)/dt."""
+    if vf.old is None:
+        return vf
+    if dt0 is None:
+        dt0 = vf.old.step_dt if vf.old.step_dt is not None else dt
+    gamma = float(oc_coeff)
+    if vf.ddt0 is None:
+        prev_d, prev_b, steps = (torch.zeros_like(vf.data),
+                                 torch.zeros_like(vf.bvalues), 0)
+    else:
+        prev_d, prev_b, steps = vf.ddt0
+    if vf.old.old is None:
+        # inside the first step: zeros, the step counted
+        return vf.replace(ddt0=(prev_d, prev_b, steps + 1))
+    coef0 = 1.0 + gamma if steps > 1 else 1.0
+    if coeff is None:
+        d_old = vf.old.data - vf.old.old.data
+        b_old = vf.old.bvalues - vf.old.old.bvalues
+    else:
+        d_old = _ext(coeff.old.data, vf.old.data) * vf.old.data \
+            - _ext(coeff.old.old.data, vf.old.data) * vf.old.old.data
+        b_old = _ext(coeff.old.bvalues, vf.old.bvalues) * vf.old.bvalues \
+            - _ext(coeff.old.old.bvalues, vf.old.bvalues) \
+            * vf.old.old.bvalues
+    rdt0 = coef0 / dt0
+    return vf.replace(ddt0=(rdt0 * d_old - gamma * prev_d,
+                            rdt0 * b_old - gamma * prev_b, steps + 1))
+
+
+def _two_levels(vf: VolField, scheme: str):
+    """A backward or CrankNicolson ddt needs a field stored with two old
+    levels, and past its first store the second of them: a field stored
+    with one level, or one that lost old.old on the way, raises rather
+    than run Euler under the scheme's name."""
+    if vf.old is None:
+        raise ValueError(f"ddt({vf.name}): no old-time field stored")
+    if vf.levels < 2:
+        raise ValueError(
+            f"ddt({vf.name}): ddtScheme '{scheme}' needs the field stored "
+            f"with two old levels (store_old(levels=2)); it keeps "
+            f"{vf.levels}")
+    if vf.old.old is None and vf.stores > 1:
+        raise ValueError(
+            f"ddt({vf.name}): ddtScheme '{scheme}' at store {vf.stores} "
+            "finds no second old level: the field lost old.old after "
+            "its last store_old")
+
+
+def ddt(mesh: MeshArrays, vf: VolField, dt, scheme="Euler",
         coeff: VolField | None = None) -> FvMatrix:
-    """fvm::ddt(psi) or fvm::ddt(rho, psi), Euler (reference:
-    EulerDdtScheme::fvmDdt: diag rho V/dt, source rho.old psi.old V/dt)
-    or steadyState (the zero matrix). dt is a Python float or a 0-d
-    tensor; coeff is a density-like VolField that carries its own old
-    level. localEuler, CoEuler and SLTS (reference: localEulerDdtScheme)
-    share the Euler stencil with a per-cell dt: pass dt as an (nCells,)
-    tensor of 1/rDeltaT. backward and CrankNicolson
-    (rapidcfd_tpu/ops/fvm.py:73-207) are not ported and raise."""
-    if scheme not in ("Euler", "steadyState") + LTS_SCHEMES:
-        raise NotImplementedError(f"ddtScheme '{scheme}' is not ported yet "
-                                  "(Euler, localEuler, CoEuler, SLTS, "
-                                  "steadyState)")
+    """fvm::ddt(psi) or fvm::ddt(rho, psi) (port of rapidcfd_tpu/ops/
+    fvm.py:117-207). dt is a Python float or a 0-d tensor; coeff is a
+    density-like VolField that carries its own old levels.
+
+    - Euler (EulerDdtScheme::fvmDdt: diag rho V/dt, source rho.old
+      psi.old V/dt); localEuler, CoEuler and SLTS (localEulerDdtScheme)
+      share its stencil with a per-cell dt: pass dt as an (nCells,)
+      tensor of 1/rDeltaT. steadyState is the zero matrix.
+    - backward (backwardDdtScheme::fvmDdt): diag coefft rho V/dt, source
+      (coefft0 rho0 psi0 - coefft00 rho00 psi00) V/dt with coefft = 1 +
+      dt/(dt + dt0), coefft00 = dt^2/(dt0 (dt + dt0)), coefft0 = coefft +
+      coefft00 (3/2, 1/2 and 2 at constant dt, the JAX package's
+      equal-step form). dt0 is the old level's step_dt. Euler on the
+      first step (first store_old) of a field stored with two levels.
+    - CrankNicolson ocCoeff (CrankNicolsonDdtScheme.C:713-795): diag
+      coef rho V/dt, source (coef rho0 psi0/dt + ocCoeff ddt0) V with
+      coef = 1 + ocCoeff after the first step (1 on it); the ddt0 state
+      comes from cn_advance.
+
+    A field stored with one level, or past its first store without
+    old.old, raises under backward and CrankNicolson (_two_levels), as
+    does a CrankNicolson field without its ddt0 state."""
+    oc = cn_coeff(scheme)
+    if oc is not None:
+        scheme = "CrankNicolson"
+    if scheme not in ("Euler", "steadyState", "backward", "CrankNicolson") \
+            + LTS_SCHEMES:
+        raise NotImplementedError(
+            f"ddtScheme '{scheme}' is not ported yet (Euler, localEuler, "
+            "CoEuler, SLTS, backward, CrankNicolson, steadyState)")
     c_dims = coeff.dims if coeff is not None else DimensionSet()
     m = FvMatrix.zeros(mesh, vf, c_dims * vf.dims * _VOL / _TIME,
                        symmetric=True)
@@ -61,14 +162,53 @@ def ddt(mesh: MeshArrays, vf: VolField, dt, scheme: str = "Euler",
         return m
     if vf.old is None:
         raise ValueError(f"ddt({vf.name}): no old-time field stored")
+    if coeff is not None and coeff.old is None:
+        raise ValueError(f"ddt({coeff.name},{vf.name}): coefficient has no "
+                         "old-time level")
+    if scheme in ("backward", "CrankNicolson"):
+        _two_levels(vf, scheme)
+        if coeff is not None:
+            _two_levels(coeff, scheme)
+    first_step = vf.old.old is None or (
+        coeff is not None and coeff.old.old is None)
+    if scheme == "backward" and not first_step:
+        rdt = 1.0 / dt
+        dt0 = vf.old.step_dt if vf.old.step_dt is not None else dt
+        coefft = 1.0 + dt / (dt + dt0)
+        coefft00 = dt * dt / (dt0 * (dt + dt0))
+        coefft0 = coefft + coefft00
+        vrdt = mesh.V_asm * rdt
+        if coeff is None:
+            return m.replace(
+                diag=coefft * vrdt,
+                source=_ext(coefft0 * vrdt, vf.old.data) * vf.old.data
+                - _ext(coefft00 * vrdt, vf.old.old.data) * vf.old.old.data)
+        return m.replace(
+            diag=coefft * vrdt * coeff.data,
+            source=_ext(coefft0 * vrdt * coeff.old.data, vf.old.data)
+            * vf.old.data
+            - _ext(coefft00 * vrdt * coeff.old.old.data, vf.old.old.data)
+            * vf.old.old.data)
+    if scheme == "CrankNicolson":
+        if vf.ddt0 is None:
+            raise ValueError(
+                f"ddt({vf.name}): ddtScheme 'CrankNicolson' needs the "
+                "field's ddt0 state (fvm.cn_advance after store_old)")
+        ddt0_d, _, steps = vf.ddt0
+        rdt = (1.0 + oc if steps > 1 else 1.0) / dt
+        rho0 = 1.0 if coeff is None else _ext(rdt * coeff.old.data,
+                                                vf.old.data)
+        src = _ext(mesh.V_asm, vf.old.data) * (
+            (rdt if coeff is None else rho0) * vf.old.data + oc * ddt0_d)
+        diag = mesh.V_asm * rdt if coeff is None \
+            else mesh.V_asm * rdt * coeff.data
+        return m.replace(diag=diag, source=src)
+    # Euler, the local-Euler family, and backward's first step
     rdt = 1.0 / dt
     if coeff is None:
         diag = mesh.V_asm * rdt
         return m.replace(diag=diag,
                          source=_ext(diag, vf.old.data) * vf.old.data)
-    if coeff.old is None:
-        raise ValueError(f"ddt({coeff.name},{vf.name}): coefficient has no "
-                         "old-time level")
     diag = mesh.V_asm * rdt * coeff.data
     src = _ext(mesh.V_asm * rdt * coeff.old.data, vf.old.data) * vf.old.data
     return m.replace(diag=diag, source=src)

@@ -2,7 +2,7 @@
 interpolation.py:22-257 and set_current_dt). Every scheme reduces to owner
 weights w on internal faces (faceVal = w*own + (1-w)*nei). Ported: linear,
 upwind, linearUpwind (upwind weights, as the JAX package's fvm path takes
-it) and the limited (TVD) family: vanLeer, Minmod, vanAlbada, MUSCL,
+it), LUST (its weights only, as the JAX package) and the limited (TVD) family: vanLeer, Minmod, vanAlbada, MUSCL,
 SuperBee, OSPRE, UMIST and limitedLinear k, each also under its V and 01
 names. The NVD/extended family and the blended schemes are not ported.
 
@@ -51,8 +51,18 @@ def _linear_upwind(mesh, vf, phi, *args, g=None):
     return _upwind_weights(mesh, phi)
 
 
+def _lust(mesh, vf, phi, *args, g=None):
+    """LUST (port of rapidcfd_tpu/ops/interpolation.py:445-452; reference:
+    schemes/LUST): 0.75 linear + 0.25 upwind weights. The reference's
+    explicit linearUpwind correction is not applied, as in the JAX
+    package; the grad(U) word is read and unused."""
+    if phi is None:
+        raise ValueError("LUST requires a flux field")
+    return 0.75 * mesh.weights + 0.25 * _upwind_weights(mesh, phi)
+
+
 SCHEMES = {"linear": _linear, "upwind": _upwind,
-           "linearUpwind": _linear_upwind}
+           "linearUpwind": _linear_upwind, "LUST": _lust}
 
 
 # ---------------------------------------------------------------------------

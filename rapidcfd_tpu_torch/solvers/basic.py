@@ -3,8 +3,9 @@
 basic/laplacianFoam.C, scalarTransportFoam.C and potentialFoam.C).
 
 Each step runs eagerly on the case's device; the host loop logs residuals
-in OpenFOAM format and writes time directories. The CrankNicolson ddt
-scheme is not ported: fvm.ddt raises on it.
+in OpenFOAM format and writes time directories. Under backward and
+CrankNicolson T keeps two old levels (fvm.store_old, as
+rapidcfd_tpu/solvers/basic.py:33-39, 80-86 do for CrankNicolson).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ def _scalar_setup(case_dir, device, dtype, case):
         raise NotImplementedError("functionObjects are not ported yet")
     DT = Dimensioned.from_entry(
         case.transport_properties().lookup("DT", required=True), "DT")
-    return case, case.read_field("T").store_old(), DT
+    return case, case.read_field("T"), DT
 
 
 def _time_loop(case, step, T, solver: str, write: bool, max_steps):
@@ -68,7 +69,7 @@ def run_laplacian_foam(case_dir: str, *, device: torch.device,
     n_non_orth = SimpleControl(case).n_non_orth
 
     def step(T, dt):
-        T = T.store_old()
+        T = fvm.store_old(mesh, T, dt, ddt_scheme)
         eqn = fvm.ddt(mesh, T, dt, ddt_scheme) \
             - fvm.laplacian(mesh, DT, T, lap_corr)
         for _ in range(n_non_orth + 1):
@@ -95,7 +96,7 @@ def run_scalar_transport_foam(case_dir: str, *, device: torch.device,
     n_non_orth = SimpleControl(case).n_non_orth
 
     def step(T, dt):
-        T = T.store_old()
+        T = fvm.store_old(mesh, T, dt, ddt_scheme)
         for _ in range(n_non_orth + 1):
             eqn = (fvm.ddt(mesh, T, dt, ddt_scheme)
                    + fvm.div(mesh, phi, T, div_scheme)

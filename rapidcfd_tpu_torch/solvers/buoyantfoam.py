@@ -221,6 +221,7 @@ def make_pimple_step(case: Case, transport, turb, ctrl: PimpleControl,
     with the case's ddt scheme, nOuterCorrectors loops of TEqn, UEqn and
     nCorrectors pressure corrections (the last solve with p_rghFinal),
     the turbulence model corrected once per outer loop."""
+    case.refuse_second_order_ddt("buoyantBoussinesqPimpleFoam")
     from ..linalg.precompute import attach_solver_layouts
     fv_options = FvOptions(case)
     beta, t_ref, pr, prt, g = consts

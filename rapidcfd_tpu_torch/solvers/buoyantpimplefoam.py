@@ -47,6 +47,7 @@ def make_step(case: Case, thermo: PsiThermo, ctrl: PimpleControl, g,
     G, stats); G None without radiation. stats: the last u_perf, h_perf
     and g_perf, every p_rgh solve (p_perf), cont (local, global of
     ddt(rho) + div(phi)) and rho_minmax."""
+    case.refuse_second_order_ddt("buoyantPimpleFoam")
     from ..linalg.precompute import attach_solver_layouts
     m = thermo.model
     div_u = case.div_scheme("div(phi,U)")

@@ -19,6 +19,7 @@ from ..fields.io import read_vol_field, write_vol_field
 from ..linalg.solvers import SolverControls
 from ..mesh.mesharrays import build_gdia_mesh_arrays, build_mesh_arrays
 from ..mesh.polymesh import read_polymesh
+from ..ops.fvm import old_levels
 from ..utils.dictionary import Dictionary, parse_file
 from ..utils.logging import info
 from ..utils.timecontrol import Time
@@ -116,6 +117,18 @@ class Case:
             return ("CrankNicolson",
                     float(s[1]) if len(s) > 1 else 1.0)
         return s[0]
+
+    def refuse_second_order_ddt(self, solver: str):
+        """Raise when the case asks for backward or CrankNicolson: of the
+        transient solvers only pimpleFoam, pisoFoam, laplacianFoam and
+        scalarTransportFoam keep the two old levels those schemes read."""
+        scheme = self.ddt_scheme()
+        name = scheme[0] if isinstance(scheme, tuple) else scheme
+        if old_levels(scheme) == 2:
+            raise NotImplementedError(
+                f"{solver}: ddtScheme '{name}' is not ported for this solver "
+                "(Euler only; backward and CrankNicolson run in pimpleFoam, "
+                "pisoFoam, laplacianFoam and scalarTransportFoam)")
 
     def div_scheme(self, key: str):
         """Resolve e.g. div(phi,U) -> interpolation scheme spec."""

@@ -84,6 +84,7 @@ def initial_rho(case: Case, p: VolField, bt: Barotropic) -> VolField:
 def make_step(case: Case, bt: Barotropic, consts, ctrl: PimpleControl):
     """step(p, U, rho, phi, dt) -> (p, U, rho, phi, stats); stats:
     u_perf, p_perf (every p solve), co (mean, max), av_max and rho_minmax."""
+    case.refuse_second_order_ddt("cavitatingFoam")
     from ..linalg.precompute import attach_solver_layouts
     rho1, rho2, nu1, nu2, _, _ = consts
     mul, muv = rho1 * nu1, rho2 * nu2

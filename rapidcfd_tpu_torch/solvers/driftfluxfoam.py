@@ -110,6 +110,7 @@ def make_step(case: Case, model: DriftModel, ctrl: PimpleControl,
     """step(alpha, U, p_rgh, phi, dt) -> (alpha, U, p_rgh, phi, stats);
     stats: a_perf, u_perf, p_perf (every p_rgh solve), co (mean, max) and
     alpha (min, max, integral)."""
+    case.refuse_second_order_ddt("driftFluxFoam")
     from ..linalg.precompute import attach_solver_layouts
     alpha_controls = case.solver_controls(a_key)
     p_controls = case.solver_controls("p_rgh")

@@ -92,6 +92,8 @@ def make_step(case: Case, nu, n_correctors: int, n_non_orth: int,
     written (file order); it is mapped to its device row here. When a
     solve uses GAMG, its hierarchy is built here (the time goes into
     case.setup_seconds)."""
+    case.refuse_second_order_ddt(
+        "nonNewtonianIcoFoam" if callable(nu) else "icoFoam")
     from ..linalg.precompute import attach_solver_layouts
     kw = dict(
         div_scheme=case.div_scheme("div(phi,U)"),

@@ -92,6 +92,8 @@ def make_step(case: Case, consts, ctrl: PimpleControl, mixing: bool = False,
     stats: p_perf (every p_rgh solve), a_perf (the mixing diffusion
     solve), cont (local, global), co (mean, max) and alpha (min, max,
     integral)."""
+    case.refuse_second_order_ddt(
+        "twoLiquidMixingFoam" if mixing else "interFoam")
     if dym:
         raise NotImplementedError(
             "interDyMFoam (dym=True) needs the dynamic mesh, which is not "

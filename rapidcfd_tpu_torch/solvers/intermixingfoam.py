@@ -51,6 +51,7 @@ def read_constants(case: Case):
 def make_step(case: Case, consts, ctrl: PimpleControl):
     """step(a1, a2, U, p_rgh, phi, dt) -> (a1, a2, U, p_rgh, phi, stats);
     stats: p_perf, a2_perf, cont, co, a1 and a2 (min, max, integral)."""
+    case.refuse_second_order_ddt("interMixingFoam")
     from ..linalg.precompute import attach_solver_layouts
     names, ds, d23, s12, s13, g = consts
     (rho1, nu1), (rho2, nu2), (rho3, nu3) = ds

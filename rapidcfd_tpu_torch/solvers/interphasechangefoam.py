@@ -35,6 +35,7 @@ def make_step(case: Case, consts, pc, ctrl: PimpleControl):
     """step(alpha, U, p_rgh, phi, dt) -> (alpha, U, p_rgh, phi, stats);
     stats: a_perf, p_perf, co, alpha (min, max, integral) and vap (the
     vapour volume)."""
+    case.refuse_second_order_ddt("interPhaseChangeFoam")
     from ..linalg.precompute import attach_solver_layouts
     rho1, rho2, nu1, nu2, sigma, g = consts
     alpha_controls = case.solver_controls(alpha_key(case))

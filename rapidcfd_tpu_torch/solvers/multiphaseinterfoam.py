@@ -104,6 +104,7 @@ def make_step(case: Case, phases, sigmas, ctrl: PimpleControl):
     """step(alphas, U, p_rgh, phi, dt) -> (alphas, U, p_rgh, phi, stats);
     stats: p_perf (every p_rgh solve), co (mean, max), fracs (each
     phase's volume) and alpha (each phase's min and max)."""
+    case.refuse_second_order_ddt("multiphaseInterFoam")
     from ..linalg.precompute import attach_solver_layouts
     rhos = [p[1] for p in phases]
     nus = [p[2] for p in phases]

@@ -1,7 +1,13 @@
-"""pimpleFoam / pisoFoam — transient incompressible solvers with RAS
-turbulence (port of rapidcfd_tpu/solvers/pimplefoam.py; reference:
+"""pimpleFoam / pisoFoam — transient incompressible solvers with RAS or
+LES turbulence (port of rapidcfd_tpu/solvers/pimplefoam.py; reference:
 applications/solvers/incompressible/pimpleFoam/pimpleFoam.C and
 pisoFoam.C).
+
+The ddt scheme is Euler, backward or CrankNicolson: U keeps the old levels
+the scheme reads (fvm.store_old: two under backward and CrankNicolson,
+whose ddt0 advances with the previous step's dt), and so do the
+turbulence model's transported fields. The JAX package keeps one level
+under backward, which it then runs as Euler.
 
 A timestep is nOuterCorrectors PIMPLE loops: the momentum predictor
 (relaxed on all but the final loop, which also switches to the UFinal and
@@ -29,7 +35,7 @@ from ..utils.logging import (ExecutionTimer, info, log_continuity,
 from .case import Case
 from .controls import PimpleControl, PisoControl
 from .icofoam import continuity_errors, courant_number
-from .simplefoam import div_dev_reff, iteration_counts
+from .simplefoam import div_dev_reff, iteration_counts, turb_nl_stress
 
 
 def make_step(case: Case, transport, turb, ctrl, piso_mode: bool):
@@ -61,7 +67,7 @@ def make_step(case: Case, transport, turb, ctrl, piso_mode: bool):
 
     def step(U, p, phi, turb_state, dt):
         set_current_dt(dt)
-        U = U.store_old()
+        U = fvm.store_old(mesh, U, dt, ddt_scheme)
         nu = transport.nu(mesh, U)
         u_perf = None
         p_perf_all = []
@@ -70,7 +76,9 @@ def make_step(case: Case, transport, turb, ctrl, piso_mode: bool):
             nu_eff = turb.nu_eff(mesh, turb_state, nu)
             UEqn = (fvm.ddt(mesh, U, dt, ddt_scheme)
                     + fvm.div(mesh, phi, U, div_u)
-                    + div_dev_reff(mesh, nu_eff, U, lap_corr))
+                    + div_dev_reff(mesh, nu_eff, U, lap_corr,
+                                   turb_nl_stress(turb, mesh, turb_state,
+                                                  U)))
             UEqn = fv_options(mesh, "U", UEqn, {"nu": nu})
             if not final_outer:
                 UEqn = UEqn.relax(mesh, u_relax)

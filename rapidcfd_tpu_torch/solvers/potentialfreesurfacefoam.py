@@ -68,6 +68,7 @@ def make_step(case: Case, ctrl: PimpleControl):
     """step(U, p_gh, phi, zeta, dt) -> (U, p_gh, phi, zeta, stats);
     stats: u_perf, p_perf (every p_gh solve), cont (local, global), co
     (mean, max) and zeta_max."""
+    case.refuse_second_order_ddt("potentialFreeSurfaceFoam")
     from ..linalg.precompute import attach_solver_layouts
     nu = Dimensioned.from_entry(
         case.transport_properties().lookup("nu", required=True), "nu")

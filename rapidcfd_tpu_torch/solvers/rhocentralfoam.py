@@ -63,6 +63,7 @@ def make_step(case: Case, thermo: PsiThermo, dym: bool = False):
     number of the wave speeds (co_max), the largest Mach number
     (mach_max) and, when viscous, the momentum and energy solves' perf
     (u_perf, e_perf; None when inviscid)."""
+    case.refuse_second_order_ddt("rhoCentralFoam")
     if dym:
         raise NotImplementedError("rhoCentralDyMFoam (dym=True) is not "
                                   "ported yet: it waits for the dynamic-mesh "

@@ -57,6 +57,7 @@ def make_step(case: Case, thermo: PsiThermo, ctrl: PimpleControl,
     h_perf), every p solve in order (p_perf), the turbulence solves
     (turb), the continuity errors (cont: local, global) and the Courant
     number of phi/rho_f (co: mean, max)."""
+    case.refuse_second_order_ddt("rhoPimpleFoam")
     if dym:
         raise NotImplementedError("rhoPimpleDyMFoam (dym=True) is not ported "
                                   "yet: it waits for the dynamic-mesh slice")

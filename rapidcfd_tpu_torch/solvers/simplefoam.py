@@ -37,17 +37,31 @@ def relax_field(new: VolField, prev: VolField, alpha: float) -> VolField:
         bvalues=prev.bvalues + alpha * (new.bvalues - prev.bvalues))
 
 
-def div_dev_reff(mesh, nu_eff, U: VolField, lap_corr: str):
-    """turbulence->divDevReff(U) (reference: RASModel::divDevReff):
+def div_dev_reff(mesh, nu_eff, U: VolField, lap_corr: str,
+                 nl_stress: VolField | None = None):
+    """turbulence->divDevReff(U) (port of rapidcfd_tpu/solvers/
+    simplefoam.py:37-74; reference: RASModel::divDevReff):
     -laplacian(nuEff, U) - div(nuEff*dev(T(grad U))). On gdia meshes the
     explicit part is the fused div_dev_t_grad (shift-MAC kernel, C = 3
-    and C = 1); on ELL meshes the generic grad -> tensor -> div chain."""
+    and C = 1); on ELL meshes the generic grad -> tensor -> div chain.
+    nl_stress is a model's explicit nonlinear Reynolds stress (LienCubicKE,
+    the scale-similarity family): its divergence (fvc.div_tensor, the
+    C = 1 kernel on gdia) leaves the source."""
     m = -fvm.laplacian(mesh, nu_eff, U, lap_corr)
     if mesh.gdia is not None:
         expl = fvc.div_dev_t_grad(mesh, U, nu_eff)
     else:
         expl = fvc.div_tensor(mesh, fvc.dev_transpose_grad(mesh, U) * nu_eff)
+    if nl_stress is not None:
+        expl = expl - fvc.div_tensor(mesh, nl_stress)
     return m.equals(expl)
+
+
+def turb_nl_stress(turb, mesh, turb_state, U):
+    """A model's nonlinear_stress(mesh, state, U), None for the
+    eddy-viscosity models (rapidcfd_tpu/solvers/simplefoam.py:77-80)."""
+    fn = getattr(turb, "nonlinear_stress", None)
+    return fn(mesh, turb_state, U) if fn is not None else None
 
 
 def simple_step(mesh, U: VolField, p: VolField, phi: SurfaceField,
@@ -60,7 +74,8 @@ def simple_step(mesh, U: VolField, p: VolField, phi: SurfaceField,
 
     # momentum predictor (UEqn.H)
     UEqn = fvm.div(mesh, phi, U, div_u) \
-        + div_dev_reff(mesh, nu_eff, U, lap_corr)
+        + div_dev_reff(mesh, nu_eff, U, lap_corr,
+                       turb_nl_stress(turb, mesh, turb_state, U))
     UEqn = fv_options(mesh, "U", UEqn, {"nu": nu})
     UEqn = UEqn.relax(mesh, u_relax)
     UEqn = fv_options.constrain(mesh, "U", UEqn)

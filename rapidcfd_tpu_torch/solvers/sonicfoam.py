@@ -48,6 +48,7 @@ def make_step(case: Case, thermo: PsiThermo, ctrl: PisoControl,
     (p_perf), the continuity errors (cont: local, global), the Courant
     number of phi/rho_f (co: mean, max) and the largest Mach number
     (mach_max)."""
+    case.refuse_second_order_ddt("sonicFoam")
     if dym:
         raise NotImplementedError("sonicDyMFoam (dym=True) is not ported "
                                   "yet")

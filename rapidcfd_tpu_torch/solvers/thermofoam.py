@@ -27,6 +27,7 @@ _DYN_VISC = DimensionSet.of(1, -1, -1)
 def make_step(case: Case, thermo: PsiThermo, rho, phi: SurfaceField):
     """step(T, dt) -> (T, perf) on the frozen rho (with itself as its old
     level) and mass flux phi."""
+    case.refuse_second_order_ddt("thermoFoam")
     from ..linalg.precompute import attach_solver_layouts
     m = thermo.model
     h_controls = case.solver_controls("h")

@@ -1,12 +1,16 @@
 """Case generator — a numpy copy of rapidcfd_tpu/utils/casegen.py's
-box_mesh, masked_grid_mesh, cavity_case, pitz_daily_case, forward_step_case,
-hot_channel_case and write_field,
+box_mesh, masked_grid_mesh (by array operations, with its gdia embedding),
+cavity_case, pitz_daily_case, forward_step_case, hot_channel_case and
+write_field,
 plus pitz_daily_ico_case (the pitzDaily mesh under the cavity's icoFoam
 dictionaries), tjunction_case (pimpleFoam's T-junction, which the JAX
 package has no writer for), the heat-transfer cases the JAX package's
 tests write inline (boussinesq_cavity_case, heated_cavity_case,
-thermo_channel_case) and hot_room_case. These write case files only; the
-JAX solver runs the same directories unchanged."""
+thermo_channel_case) and hot_room_case, and the turbulence family's
+pitz_daily_les_case (pisoFoam's LES tutorial), pitz_daily_ras_case (any RAS
+model) and les_channel_case / les_model_channel_case (the JAX tests' LES
+channel). These write case files only; the JAX solver runs the same
+directories unchanged."""
 
 from __future__ import annotations
 
@@ -51,146 +55,145 @@ def box_mesh(nx: int, ny: int, nz: int,
                          coords=(xs, ys, zs))
 
 
-def masked_grid_mesh(xs, ys, zs, mask, patch_rule) -> PolyMesh:
+def masked_grid_mesh(xs, ys, zs, mask, patch_rule,
+                     lattice_out: dict | None = None) -> PolyMesh:
     """Structured 2D-extruded mesh with blanked cells (backward-facing
-    steps, obstacles, T-junctions). mask[i,j] selects active cells;
-    patch_rule(i, j, side) -> patch name for each boundary face, where
-    side in {xmin,xmax,ymin,ymax,zmin,zmax}. Patch types are given via
-    patch_rule.types: dict name->type, their order by patch_rule.order.
+    steps, obstacles, T-junctions), built by array operations (a million
+    cells in seconds). mask[i,j] selects active cells; patch_rule(i, j,
+    side) takes the index arrays of one side's boundary faces, side in
+    {xmin,xmax,ymin,ymax,zmin,zmax}, and returns an array of their patch
+    names. Patch types are given via patch_rule.types: dict name->type,
+    their order by patch_rule.order. Cells are numbered x fastest, then
+    y, then z; internal faces are sorted by (owner, neighbour); each
+    patch's faces by owner, then side in the order xmax, xmin, ymax,
+    ymin, zmax, zmin (the JAX package's cell loop gives the same mesh).
+    lattice_out receives the gdia embedding detect_lattice would return:
+    the lattice is the grid and the blanked cells are its dead slots.
     """
     xs, ys, zs = map(np.asarray, (xs, ys, zs))
     nx, ny, nz = len(xs) - 1, len(ys) - 1, len(zs) - 1
     mask = np.asarray(mask, dtype=bool)
     if mask.shape != (nx, ny):
         raise ValueError(f"mask shape {mask.shape} != {(nx, ny)}")
+    live = np.broadcast_to(mask.T[None], (nz, ny, nx)).ravel()
+    slot = np.nonzero(live)[0]                   # cells in slot order
+    n_cells = slot.size
+    cid = np.full(nz * ny * nx, -1, dtype=np.int64)
+    cid[slot] = np.arange(n_cells)
+    k, rem = np.divmod(slot, nx * ny)
+    j, i = np.divmod(rem, nx)
 
-    def nid_full(i, j, k):
-        return i + j * (nx + 1) + k * (nx + 1) * (ny + 1)
+    def nid(i_, j_, k_):
+        return i_ + j_ * (nx + 1) + k_ * (nx + 1) * (ny + 1)
 
-    cid = np.full((nx, ny, nz), -1, dtype=np.int64)
-    n = 0
-    for k in range(nz):
-        for j in range(ny):
-            for i in range(nx):
-                if mask[i, j]:
-                    cid[i, j, k] = n
-                    n += 1
+    def nodes(side):
+        n = {"xmax": [(1, 0, 0), (1, 1, 0), (1, 1, 1), (1, 0, 1)],
+             "xmin": [(0, 0, 0), (0, 0, 1), (0, 1, 1), (0, 1, 0)],
+             "ymax": [(0, 1, 0), (0, 1, 1), (1, 1, 1), (1, 1, 0)],
+             "ymin": [(0, 0, 0), (1, 0, 0), (1, 0, 1), (0, 0, 1)],
+             "zmax": [(0, 0, 1), (1, 0, 1), (1, 1, 1), (0, 1, 1)],
+             "zmin": [(0, 0, 0), (0, 1, 0), (1, 1, 0), (1, 0, 0)]}[side]
+        return np.stack([nid(i + a, j + b, k + c) for a, b, c in n], 1)
 
-    X, Y, Z = np.meshgrid(xs, ys, zs, indexing="ij")
-    pts_full = np.stack([X.ravel(order="F"), Y.ravel(order="F"),
-                         Z.ravel(order="F")], axis=1)
-
-    int_faces, side_faces = [], {}
-
-    def face_nodes(i, j, k, side):
-        if side == "xmax":
-            return [nid_full(i + 1, j, k), nid_full(i + 1, j + 1, k),
-                    nid_full(i + 1, j + 1, k + 1), nid_full(i + 1, j, k + 1)]
-        if side == "xmin":
-            return [nid_full(i, j, k), nid_full(i, j, k + 1),
-                    nid_full(i, j + 1, k + 1), nid_full(i, j + 1, k)]
-        if side == "ymax":
-            return [nid_full(i, j + 1, k), nid_full(i, j + 1, k + 1),
-                    nid_full(i + 1, j + 1, k + 1), nid_full(i + 1, j + 1, k)]
-        if side == "ymin":
-            return [nid_full(i, j, k), nid_full(i + 1, j, k),
-                    nid_full(i + 1, j, k + 1), nid_full(i, j, k + 1)]
-        if side == "zmax":
-            return [nid_full(i, j, k + 1), nid_full(i + 1, j, k + 1),
-                    nid_full(i + 1, j + 1, k + 1), nid_full(i, j + 1, k + 1)]
-        return [nid_full(i, j, k), nid_full(i, j + 1, k),
-                nid_full(i + 1, j + 1, k), nid_full(i + 1, j, k)]
-
-    def boundary(c, i, j, k, side):
-        side_faces.setdefault(patch_rule(i, j, side), []).append(
-            (c, face_nodes(i, j, k, side)))
-
-    for k in range(nz):
-        for j in range(ny):
-            for i in range(nx):
-                if not mask[i, j]:
-                    continue
-                c = cid[i, j, k]
-                if i + 1 < nx and mask[i + 1, j]:
-                    int_faces.append((c, cid[i + 1, j, k],
-                                      face_nodes(i, j, k, "xmax")))
-                else:
-                    boundary(c, i, j, k, "xmax")
-                if i == 0 or not mask[i - 1, j]:
-                    boundary(c, i, j, k, "xmin")
-                if j + 1 < ny and mask[i, j + 1]:
-                    int_faces.append((c, cid[i, j + 1, k],
-                                      face_nodes(i, j, k, "ymax")))
-                else:
-                    boundary(c, i, j, k, "ymax")
-                if j == 0 or not mask[i, j - 1]:
-                    boundary(c, i, j, k, "ymin")
-                if k + 1 < nz:
-                    int_faces.append((c, cid[i, j, k + 1],
-                                      face_nodes(i, j, k, "zmax")))
-                else:
-                    boundary(c, i, j, k, "zmax")
-                if k == 0:
-                    boundary(c, i, j, k, "zmin")
-
-    int_faces.sort(key=lambda t: (t[0], t[1]))
-    owners = [t[0] for t in int_faces]
-    neighbours = [t[1] for t in int_faces]
-    all_faces = [t[2] for t in int_faces]
-    patches = []
+    own, nei, quads = [], [], []
+    bnd = []                                     # (cell, side rank, name, q)
+    c = np.arange(n_cells)
+    for rank, side in enumerate(("xmax", "xmin", "ymax", "ymin", "zmax",
+                                 "zmin")):
+        di, dj, dk = {"xmax": (1, 0, 0), "xmin": (-1, 0, 0),
+                      "ymax": (0, 1, 0), "ymin": (0, -1, 0),
+                      "zmax": (0, 0, 1), "zmin": (0, 0, -1)}[side]
+        i_, j_, k_ = i + di, j + dj, k + dk
+        ok = (i_ >= 0) & (i_ < nx) & (j_ >= 0) & (j_ < ny) & (k_ >= 0) \
+            & (k_ < nz)
+        s = np.where(ok, i_ + j_ * nx + k_ * nx * ny, 0)
+        has = ok & live[s]
+        q = nodes(side)
+        if side.endswith("max"):
+            own.append(c[has])
+            nei.append(cid[s[has]])
+            quads.append(q[has])
+        b = ~has
+        bnd.append((c[b], np.full(int(b.sum()), rank),
+                    np.asarray(patch_rule(i[b], j[b], side)), q[b]))
+    own, nei = np.concatenate(own), np.concatenate(nei)
+    o = np.lexsort((nei, own))
+    own, nei = own[o], nei[o]
+    owners, faces, patches = [own], [np.concatenate(quads)[o]], []
+    start = own.size
+    bc, br, bn, bq = (np.concatenate([b[m] for b in bnd]) for m in range(4))
     for name in patch_rule.order:
-        start = len(all_faces)
-        for own_c, fpts in side_faces.get(name, []):
-            owners.append(own_c)
-            all_faces.append(fpts)
+        sel = np.nonzero(bn == name)[0]
+        sel = sel[np.lexsort((br[sel], bc[sel]))]
+        owners.append(bc[sel])
+        faces.append(bq[sel])
         patches.append(BoundaryPatch(name, patch_rule.types[name], start,
-                                     len(all_faces) - start))
-
+                                     sel.size))
+        start += sel.size
     # compact points to the used subset
-    flat_full = np.array([p for f in all_faces for p in f])
-    used = np.unique(flat_full)
-    remap = np.full(pts_full.shape[0], -1, dtype=np.int64)
+    flat = np.concatenate(faces).ravel()
+    used = np.unique(flat)
+    remap = np.full((nx + 1) * (ny + 1) * (nz + 1), -1, dtype=np.int64)
     remap[used] = np.arange(used.size)
-    offsets = np.zeros(len(all_faces) + 1, dtype=np.int64)
-    np.cumsum([len(f) for f in all_faces], out=offsets[1:])
-    return PolyMesh(pts_full[used], remap[flat_full], offsets,
-                    np.array(owners, dtype=np.int64),
-                    np.array(neighbours, dtype=np.int64), patches)
+    X, Y, Z = np.meshgrid(xs, ys, zs, indexing="ij")
+    pts = np.stack([X.ravel(order="F"), Y.ravel(order="F"),
+                    Z.ravel(order="F")], axis=1)[used]
+    owner = np.concatenate(owners)
+    if lattice_out is not None:
+        n_int, n_lat = nei.size, nz * ny * nx
+        slot_cell = np.zeros(n_lat, dtype=np.int64)
+        slot_cell[slot] = np.arange(n_cells)
+        lattice_out.update(
+            shape=(nz, ny, nx), slot_cell=slot_cell,
+            ghost_lead=np.arange(n_lat, dtype=np.int64),
+            orig_own_int=slot[owner[:n_int]], orig_nei_int=slot[nei],
+            orig_own_bnd=slot[owner[n_int:]],
+            flip_int=np.zeros(n_int, dtype=bool), dead=~live)
+    return PolyMesh(pts, remap[flat],
+                    np.arange(owner.size + 1, dtype=np.int64) * 4, owner,
+                    nei, patches)
 
 
-def _pitz_daily_mesh(scale: int) -> PolyMesh:
-    """The backward-facing step (BASELINE config 2's geometry): 12*scale
-    upstream and 100*scale downstream columns, 40*scale rows, the
-    upstream lower half blanked."""
+def _pitz_daily_grid(scale: int):
+    """(xs, ys, zs, mask) of the pitzDaily step's masked grid."""
     h = _STEP_H
-    nx_up, nx_dn = 12 * scale, 100 * scale
-    ny_half = _NY_HALF * scale
-    xs = np.concatenate([np.linspace(-0.0206, 0.0, nx_up + 1)[:-1],
-                         np.linspace(0.0, 0.29, nx_dn + 1)])
-    ys = np.linspace(-h, h, 2 * ny_half + 1)
+    xs = np.concatenate([np.linspace(-0.0206, 0.0, 12 * scale + 1)[:-1],
+                         np.linspace(0.0, 0.29, 100 * scale + 1)])
+    ys = np.linspace(-h, h, 2 * _NY_HALF * scale + 1)
     zs = np.array([-0.0005, 0.0005])
-    nx, ny = len(xs) - 1, len(ys) - 1
-    mask = np.ones((nx, ny), dtype=bool)
     xc = 0.5 * (xs[:-1] + xs[1:])
     yc = 0.5 * (ys[:-1] + ys[1:])
+    mask = np.ones((len(xc), len(yc)), dtype=bool)
     mask[np.ix_(xc < 0.0, yc < 0.0)] = False
+    return xs, ys, zs, mask
+
+
+def _pitz_daily_mesh(scale: int,
+                     lattice_out: dict | None = None) -> PolyMesh:
+    """The backward-facing step (BASELINE config 2's geometry): 12*scale
+    upstream and 100*scale downstream columns, 40*scale rows, the
+    upstream lower half blanked; lattice_out receives its gdia
+    embedding (masked_grid_mesh)."""
+    xs, ys, zs, mask = _pitz_daily_grid(scale)
+    nx = len(xs) - 1
 
     def rule(i, j, side):
         if side in ("zmin", "zmax"):
-            return "frontAndBack"
-        if side == "xmin" and i == 0:
-            return "inlet"
-        if side == "xmax" and i == nx - 1:
-            return "outlet"
+            return np.full(i.shape, "frontAndBack", dtype=object)
         if side == "ymax":
-            return "upperWall"
-        return "lowerWall"
+            return np.full(i.shape, "upperWall", dtype=object)
+        out = np.full(i.shape, "lowerWall", dtype=object)
+        if side == "xmin":
+            out[i == 0] = "inlet"
+        if side == "xmax":
+            out[i == nx - 1] = "outlet"
+        return out
     rule.order = ["inlet", "outlet", "upperWall", "lowerWall",
                   "frontAndBack"]
     rule.types = {"inlet": "patch", "outlet": "patch",
                   "upperWall": "wall", "lowerWall": "wall",
                   "frontAndBack": "empty"}
-    return masked_grid_mesh(xs, ys, zs, mask, rule)
+    return masked_grid_mesh(xs, ys, zs, mask, rule, lattice_out)
 
 
 _ZG = "        type            zeroGradient;\n"
@@ -607,13 +610,14 @@ def _tjunction_mesh(section: int, leg: int, bar: int, depth: int,
     mask[leg:, :] = True
 
     def rule(i, j, side_):
-        if side_ == "xmin" and i == 0:
-            return "inlet"
-        if side_ == "ymin" and j == 0:
-            return "outlet1"
-        if side_ == "ymax" and j == ny - 1:
-            return "outlet2"
-        return "walls"
+        out = np.full(i.shape, "walls", dtype=object)
+        if side_ == "xmin":
+            out[i == 0] = "inlet"
+        if side_ == "ymin":
+            out[j == 0] = "outlet1"
+        if side_ == "ymax":
+            out[j == ny - 1] = "outlet2"
+        return out
     rule.order = ["inlet", "outlet1", "outlet2", "walls"]
     rule.types = {"inlet": "patch", "outlet1": "patch", "outlet2": "patch",
                   "walls": "wall"}
@@ -822,12 +826,13 @@ def forward_step_case(case_dir: str, scale: int = 1, end_time: float = 0.5,
 
     def rule(i, j, side):
         if side in ("zmin", "zmax"):
-            return "frontAndBack"
-        if side == "xmin" and i == 0:
-            return "inlet"
-        if side == "xmax" and i == nx - 1:
-            return "outlet"
-        return "obstacle"
+            return np.full(i.shape, "frontAndBack", dtype=object)
+        out = np.full(i.shape, "obstacle", dtype=object)
+        if side == "xmin":
+            out[i == 0] = "inlet"
+        if side == "xmax":
+            out[i == nx - 1] = "outlet"
+        return out
     rule.order = ["inlet", "outlet", "obstacle", "frontAndBack"]
     rule.types = {"inlet": "patch", "outlet": "patch",
                   "obstacle": "wall", "frontAndBack": "empty"}
@@ -1188,10 +1193,14 @@ PIMPLE {{ nOuterCorrectors 1; nCorrectors 2;
 
 def dam_break_case(case_dir: str, n: int = 23, end_time: float = 0.1,
                    delta_t: float = 0.001, mules_corr: bool = False,
-                   n_alpha_sub: int = 1):
+                   n_alpha_sub: int = 1, write_mesh: bool = True,
+                   lattice_out: dict | None = None):
     """Closed-box dam break for interFoam (water column collapse; closed
     lid keeps total water volume exactly conserved — a strong MULES
-    check)."""
+    check). write_mesh=False skips the ascii polyMesh (a million cells):
+    the returned PolyMesh then goes to Case(pmesh=, lattice=), and
+    lattice_out receives its gdia embedding (the box itself, cells in
+    lattice order, no dead slot; detect_lattice(full_box=True)'s)."""
     from ..mesh.geometry import cell_centres_and_vols, face_centres_and_areas
     from ..fields.io import _body_value
 
@@ -1202,7 +1211,18 @@ def dam_break_case(case_dir: str, n: int = 23, end_time: float = 0.1,
         "zmin": ("frontAndBack", "empty"),
         "zmax": ("frontAndBack", "empty"),
     })
-    write_polymesh(mesh, case_dir)
+    if write_mesh:
+        write_polymesh(mesh, case_dir)
+    if lattice_out is not None:
+        n_int = mesh.n_internal_faces
+        lattice_out.update(
+            shape=(1, n, n), slot_cell=np.arange(n * n, dtype=np.int64),
+            ghost_lead=np.arange(n * n, dtype=np.int64),
+            orig_own_int=mesh.owner[:n_int].copy(),
+            orig_nei_int=mesh.neighbour.copy(),
+            orig_own_bnd=mesh.owner[n_int:].copy(),
+            flip_int=np.zeros(n_int, dtype=bool),
+            dead=np.zeros(n * n, dtype=bool))
     Cf, Sf = face_centres_and_areas(mesh)
     C, V = cell_centres_and_vols(mesh, Cf, Sf)
     alpha0 = ((C[:, 0] < 0.25 * L) & (C[:, 1] < 0.5 * L)).astype(float)
@@ -3904,4 +3924,360 @@ Prt             Prt [0 0 0 0 0 0 0] 0.85;
     write_field(case_dir, "0", "T", "volScalarField", "[0 0 0 1 0 0 0]",
                 "uniform 300", {"inlet": _fv(300), "outlet": _ZG,
                                 "walls": _ZG, "fb": _EMPTY})
+    return mesh
+
+
+# ---------------------------------------------------------------------------
+# the turbulence family: pisoFoam LES on the pitzDaily step, the LES channel
+# ---------------------------------------------------------------------------
+
+def pitz_daily_les_dt(scale: int, u_in: float = 10.0,
+                      courant: float = 0.3) -> float:
+    """pitz_daily_les_case's time step: the inlet Courant number
+    u_in dt/dx on the upstream cells (0.0206 m over 12*scale columns)."""
+    return courant * (0.0206 / (12 * scale)) / u_in
+
+
+def pitz_daily_les_case(case_dir: str, scale: int = 1, *,
+                        u_in: float = 10.0, nu: float = 1e-05,
+                        model: str = "dynOneEqEddy",
+                        delta_t: float | None = None,
+                        end_time: float | None = None,
+                        write_interval: int = 1000,
+                        ddt: str = "backward",
+                        write_mesh: bool = True,
+                        lattice_out: dict | None = None) -> PolyMesh:
+    """pisoFoam LES on the backward-facing step, after OpenFOAM 2.3's
+    tutorial incompressible/pisoFoam/les/pitzDaily: LESModel dynOneEqEddy
+    (model=) with the cubeRootVol delta and the simple filter; ddt
+    backward (ddt=); div(phi,U) Gauss LUST grad(U), div(phi,k) Gauss
+    limitedLinear 1; p by GAMG (tolerance 1e-6, relTol 0.05; pFinal
+    relTol 0), U and k by smoothSolver symGaussSeidel to 1e-5; PISO with
+    2 correctors; nu 1e-5; k starts at 2e-5 with fixedValue 2e-5 at the
+    inlet, inletOutlet at the outlet and 0 on the walls; the flow starts
+    from rest. The mesh is pitz_daily_case's masked lattice (12*scale +
+    100*scale columns, 40*scale rows, the upstream lower half blanked:
+    4,240 cells at scale 1, 1,085,440 in 1,146,880 lattice slots at
+    scale 16).
+
+    Where it departs from the tutorial:
+    - the inlet is fixedValue (u_in 0 0): turbulentInlet
+      (rapidcfd_tpu/fields/bcs_derived.py:134-159) draws from jax.random
+      and is not ported;
+    - the eddy viscosity is the field nut, as the JAX package reads it
+      (OpenFOAM 2.3 writes nuSgs);
+    - deltaT holds the inlet Courant number near 0.3
+      (pitz_daily_les_dt), endTime is 20 steps unless given;
+    - the laplacians are Gauss linear orthogonal: the lattice is
+      orthogonal, where the tutorial's corrected adds nothing;
+    - the delta and the filter are also written inside the model's
+      Coeffs dictionary, where the JAX package and the port read them.
+
+    write_mesh=False skips the ascii polyMesh (a million cells at scale
+    16): the returned PolyMesh then goes to Case(pmesh=, lattice=), and
+    lattice_out receives its gdia embedding (masked_grid_mesh)."""
+    mesh = _pitz_daily_mesh(scale, lattice_out)
+    if write_mesh:
+        write_polymesh(mesh, case_dir)
+    dt = pitz_daily_les_dt(scale, u_in) if delta_t is None else delta_t
+    if end_time is None:
+        end_time = 20 * dt
+    _write(os.path.join(case_dir, "system", "controlDict"),
+           foamfile_header("dictionary", "controlDict", "system"), f"""
+application     pisoFoam;
+startFrom       startTime;
+startTime       0;
+stopAt          endTime;
+endTime         {end_time!r};
+deltaT          {dt!r};
+writeControl    timeStep;
+writeInterval   {write_interval};
+purgeWrite      0;
+writeFormat     ascii;
+writePrecision  6;
+runTimeModifiable true;
+""")
+    _write(os.path.join(case_dir, "system", "fvSchemes"),
+           foamfile_header("dictionary", "fvSchemes", "system"), f"""
+ddtSchemes      {{ default {ddt}; }}
+gradSchemes     {{ default Gauss linear; }}
+divSchemes
+{{
+    default         none;
+    div(phi,U)      Gauss LUST grad(U);
+    div(phi,k)      Gauss limitedLinear 1;
+    div(phi,nuTilda) Gauss limitedLinear 1;
+    div((nuEff*dev(T(grad(U))))) Gauss linear;
+}}
+laplacianSchemes {{ default Gauss linear orthogonal; }}
+interpolationSchemes {{ default linear; }}
+snGradSchemes   {{ default orthogonal; }}
+""")
+    _write(os.path.join(case_dir, "system", "fvSolution"),
+           foamfile_header("dictionary", "fvSolution", "system"), """
+solvers
+{
+    p
+    {
+        solver          GAMG;
+        tolerance       1e-06;
+        relTol          0.05;
+        smoother        GaussSeidel;
+        nCellsInCoarsestLevel 10;
+    }
+    pFinal
+    {
+        solver          GAMG;
+        tolerance       1e-06;
+        relTol          0;
+        smoother        GaussSeidel;
+        nCellsInCoarsestLevel 10;
+    }
+    "(U|k|nuTilda)"
+    {
+        solver          smoothSolver;
+        smoother        symGaussSeidel;
+        tolerance       1e-05;
+        relTol          0;
+    }
+}
+PISO
+{
+    nCorrectors     2;
+    nNonOrthogonalCorrectors 0;
+    pRefCell        0;
+    pRefValue       0;
+}
+""")
+    _write_transport(case_dir, nu)
+    _write(os.path.join(case_dir, "constant", "turbulenceProperties"),
+           foamfile_header("dictionary", "turbulenceProperties", "constant"),
+           f"""
+simulationType  LESModel;
+LESModel        {model};
+turbulence      on;
+printCoeffs     on;
+delta           cubeRootVol;
+{model}Coeffs
+{{
+    filter          simple;
+    delta           cubeRootVol;
+    cubeRootVolCoeffs {{ deltaCoeff 1; }}
+}}
+cubeRootVolCoeffs {{ deltaCoeff 1; }}
+""")
+    write_field(case_dir, "0", "p", "volScalarField", "[0 2 -2 0 0 0 0]",
+                "uniform 0", {
+                    "inlet": _ZG, "outlet": _fixed("0"),
+                    "upperWall": _ZG, "lowerWall": _ZG,
+                    "frontAndBack": _EMPTY})
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                "uniform (0 0 0)", {
+                    "inlet": _fixed(f"({u_in} 0 0)"),
+                    "outlet": "        type            inletOutlet;\n"
+                              "        inletValue      uniform (0 0 0);\n"
+                              "        value           uniform (0 0 0);\n",
+                    "upperWall": _fixed("(0 0 0)"),
+                    "lowerWall": _fixed("(0 0 0)"),
+                    "frontAndBack": _EMPTY})
+    write_field(case_dir, "0", "k", "volScalarField", "[0 2 -2 0 0 0 0]",
+                "uniform 2e-05", {
+                    "inlet": _fixed("2e-05"),
+                    "outlet": "        type            inletOutlet;\n"
+                              "        inletValue      uniform 2e-05;\n"
+                              "        value           uniform 2e-05;\n",
+                    "upperWall": _fixed("0"), "lowerWall": _fixed("0"),
+                    "frontAndBack": _EMPTY})
+    write_field(case_dir, "0", "nut", "volScalarField", "[0 2 -1 0 0 0 0]",
+                "uniform 0", {
+                    "inlet": _ZG, "outlet": _ZG, "upperWall": _ZG,
+                    "lowerWall": _ZG, "frontAndBack": _EMPTY})
+    if "SpalartAllmaras" in model:
+        write_field(case_dir, "0", "nuTilda", "volScalarField",
+                    "[0 2 -1 0 0 0 0]", "uniform 0", {
+                        "inlet": _fixed("0"), "outlet": _ZG,
+                        "upperWall": _fixed("0"), "lowerWall": _fixed("0"),
+                        "frontAndBack": _EMPTY})
+    return mesh
+
+
+def les_channel_case(case_dir: str, model: str, coeffs: str = "",
+                     extra_schemes: str = "", solver_fields: str = "U",
+                     fields=(), end_time: float = 0.01, nx: int = 30,
+                     ny: int = 10, ddt: str = "Euler",
+                     u_seed: int | None = None) -> PolyMesh:
+    """The transient LES channel of the JAX package's tests (a copy of
+    tests/test_turbulence_extra.py:21-96's _les_channel, which writes and
+    runs it; this writes it only): 0.3 x 0.05 x 0.01 m on nx x ny x 1
+    cells, inlet (2 0 0), walls, the empty fb pair; pimpleFoam 1 x 2
+    with PCG/DIC p and smoothSolver for solver_fields; nu 1e-5; deltaT
+    5e-4; the LES model and its coeffs in constant/turbulenceProperties;
+    U, p and nut, and each (name, class, dims, internal, bcs) of fields.
+    U starts uniform at (2 0 0), or with u_seed a numpy-seeded stream
+    about it (x: 0.2, y: 0.1 standard deviations): in a uniform stream
+    the dynamic LES coefficients are ratios of rounding residues
+    (filter(UU) - filter(U)filter(U) cancels), which no two evaluation
+    orders share."""
+    mesh = box_mesh(nx, ny, 1, size=(0.3, 0.05, 0.01), patch_spec={
+        "xmin": ("inlet", "patch"), "xmax": ("outlet", "patch"),
+        "ymin": ("walls", "wall"), "ymax": ("walls", "wall"),
+        "zmin": ("fb", "empty"), "zmax": ("fb", "empty")})
+    write_polymesh(mesh, case_dir)
+    _write(os.path.join(case_dir, "system", "controlDict"),
+           foamfile_header("dictionary", "controlDict", "system"), f"""
+application pimpleFoam; startFrom startTime; startTime 0;
+stopAt endTime; endTime {end_time}; deltaT 0.0005;
+writeControl timeStep; writeInterval 1000; writeFormat ascii;
+""")
+    _write(os.path.join(case_dir, "system", "fvSchemes"),
+           foamfile_header("dictionary", "fvSchemes", "system"), f"""
+ddtSchemes {{ default {ddt}; }}
+gradSchemes {{ default Gauss linear; }}
+divSchemes {{ default none; div(phi,U) Gauss upwind;
+             div(phi,k) Gauss upwind; {extra_schemes} }}
+laplacianSchemes {{ default Gauss linear orthogonal; }}
+interpolationSchemes {{ default linear; }}
+snGradSchemes {{ default orthogonal; }}
+""")
+    _write(os.path.join(case_dir, "system", "fvSolution"),
+           foamfile_header("dictionary", "fvSolution", "system"), f"""
+solvers
+{{
+    p {{ solver PCG; preconditioner DIC; tolerance 1e-07; relTol 0.01; }}
+    pFinal {{ solver PCG; preconditioner DIC; tolerance 1e-07; relTol 0; }}
+    "({solver_fields})" {{ solver smoothSolver; smoother symGaussSeidel;
+              tolerance 1e-07; relTol 0; }}
+    "({solver_fields})Final" {{ solver smoothSolver;
+              smoother symGaussSeidel; tolerance 1e-07; relTol 0; }}
+}}
+PIMPLE {{ nOuterCorrectors 1; nCorrectors 2;
+         nNonOrthogonalCorrectors 0; momentumPredictor yes; }}
+""")
+    _write(os.path.join(case_dir, "constant", "transportProperties"),
+           foamfile_header("dictionary", "transportProperties", "constant"),
+           "\nnu              nu [0 2 -1 0 0 0 0] 1e-05;\n")
+    _write(os.path.join(case_dir, "constant", "turbulenceProperties"),
+           foamfile_header("dictionary", "turbulenceProperties", "constant"),
+           f"""
+simulationType  LES;
+LES
+{{
+    LESModel        {model};
+    turbulence      on;
+    {coeffs}
+}}
+""")
+    u_internal = "uniform (2 0 0)"
+    if u_seed is not None:
+        rng = np.random.default_rng(u_seed)
+        n = nx * ny
+        u = np.stack([2.0 + 0.2 * rng.standard_normal(n),
+                      0.1 * rng.standard_normal(n), np.zeros(n)], 1)
+        u_internal = f"nonuniform List<vector> {n} (" + " ".join(
+            f"({float(a)!r} {float(b)!r} {float(c)!r})" for a, b, c in u) \
+            + ")"
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                u_internal, {
+                    "inlet": _fixed("(2 0 0)"), "outlet": _ZG,
+                    "walls": _fixed("(0 0 0)"), "fb": _EMPTY})
+    write_field(case_dir, "0", "p", "volScalarField", "[0 2 -2 0 0 0 0]",
+                "uniform 0", {"inlet": _ZG, "outlet": _fixed(0),
+                              "walls": _ZG, "fb": _EMPTY})
+    write_field(case_dir, "0", "nut", "volScalarField", "[0 2 -1 0 0 0 0]",
+                "uniform 0", {"inlet": _ZG, "outlet": _ZG, "walls": _ZG,
+                              "fb": _EMPTY})
+    for name, ftype, dims, internal, bcs in fields:
+        write_field(case_dir, "0", name, ftype, dims, internal, bcs)
+    return mesh
+
+
+#: the LES channel's dictionaries and extra fields per LES model, as the
+#: JAX package's tests write them (tests/test_turbulence_extra.py):
+#: (coeffs, extra div schemes, solver regex, fields)
+def _les_field(name, dims, value, walls):
+    return (name, "volScalarField", dims, f"uniform {value}",
+            {"inlet": _fixed(value), "outlet": _ZG,
+             "walls": _fixed(walls), "fb": _EMPTY})
+
+
+_LES_K = _les_field("k", "[0 2 -2 0 0 0 0]", 2e-05, 0)
+_LES_NUTILDA = _les_field("nuTilda", "[0 2 -1 0 0 0 0]", "4e-05", 0)
+LES_CHANNEL_SPECS = {
+    "Smagorinsky": ("", "", "U", ()),
+    "Smagorinsky2": ("Smagorinsky2Coeffs { cD2 0.02; }", "", "U", ()),
+    "scaleSimilarity": ("", "", "U", ()),
+    "mixedSmagorinsky": ("", "", "U", ()),
+    "homogeneousDynSmagorinsky": ("", "", "U", ()),
+    "spectEddyVisc": ("", "", "U", ()),
+    "oneEqEddy": ("", "", "U|k", (_LES_K,)),
+    "kEqn": ("", "", "U|k", (_LES_K,)),
+    "dynOneEqEddy": ("", "", "U|k", (_LES_K,)),
+    "homogeneousDynOneEqEddy": ("", "", "U|k", (_LES_K,)),
+    "SpalartAllmarasDES": ("", "div(phi,nuTilda) Gauss upwind;",
+                           "U|nuTilda", (_LES_NUTILDA,)),
+    "SpalartAllmaras": ("", "div(phi,nuTilda) Gauss upwind;", "U|nuTilda",
+                        (_LES_NUTILDA,)),
+    "SpalartAllmarasDDES": ("", "div(phi,nuTilda) Gauss upwind;",
+                            "U|nuTilda", (_LES_NUTILDA,)),
+    "SpalartAllmarasIDDES": ("", "div(phi,nuTilda) Gauss upwind;",
+                             "U|nuTilda", (_LES_NUTILDA,)),
+    "kOmegaSSTSAS": ("", "div(phi,omega) Gauss upwind;", "U|k|omega", (
+        _les_field("k", "[0 2 -2 0 0 0 0]", 0.015, 1e-10),
+        _les_field("omega", "[0 0 -1 0 0 0 0]", 100.0, 100.0))),
+    "dynLagrangian": ("dynLagrangianCoeffs { theta 1.5; }",
+                      "div(phi,flm) Gauss upwind; div(phi,fmm) Gauss "
+                      "upwind;", "U|flm|fmm", ()),
+    "laminar": ("", "", "U", ()),
+}
+
+
+def les_model_channel_case(case_dir: str, model: str, **kw) -> PolyMesh:
+    """les_channel_case with the model's dictionaries and fields from
+    LES_CHANNEL_SPECS (kw: end_time, nx, ny, ddt, u_seed)."""
+    coeffs, schemes, fields_re, fields = LES_CHANNEL_SPECS[model]
+    return les_channel_case(case_dir, model, coeffs=coeffs,
+                            extra_schemes=schemes, solver_fields=fields_re,
+                            fields=fields, **kw)
+
+
+def pitz_daily_ras_case(case_dir: str, model: str, scale: int = 1,
+                        **kw) -> PolyMesh:
+    """pitz_daily_case for any RAS model: the solver entry widened to v2,
+    f, kt and kl, and the fields kkLOmega (omega, kt, kl, as the JAX
+    package's test writes them) and v2f (v2 with v2WallFunction, f with
+    fWallFunction; v2 = 2/3 k) read beside k and epsilon."""
+    mesh = pitz_daily_case(case_dir, scale=scale, model=model, **kw)
+    path = os.path.join(case_dir, "system", "fvSolution")
+    with open(path) as fh:
+        txt = fh.read()
+    with open(path, "w") as fh:
+        fh.write(txt.replace("(U|k|epsilon|omega|nuTilda)",
+                             "(U|k|epsilon|omega|nuTilda|v2|f|kt|kl)"))
+    u_in = kw.get("u_in", 10.0)
+    k_in = 1.5 * (0.05 * u_in) ** 2
+    walls = ("upperWall", "lowerWall")
+
+    def bcs(inlet, wall):
+        out = {"inlet": inlet, "outlet": _ZG, "frontAndBack": _EMPTY}
+        out.update({w: wall for w in walls})
+        return out
+    if model == "kkLOmega":
+        om_in = 0.09 ** 0.75 * k_in ** 1.5 / (0.1 * _STEP_H) / (0.09 * k_in)
+        write_field(case_dir, "0", "omega", "volScalarField",
+                    "[0 0 -1 0 0 0 0]", f"uniform {om_in}",
+                    bcs(_fixed(om_in), _ZG))
+        for name, v in (("kt", k_in), ("kl", 1e-8)):
+            write_field(case_dir, "0", name, "volScalarField",
+                        "[0 2 -2 0 0 0 0]", f"uniform {v}",
+                        bcs(_fixed(v), _fixed(1e-10)))
+    if model == "v2f":
+        v2 = 2.0 / 3.0 * k_in
+        write_field(case_dir, "0", "v2", "volScalarField",
+                    "[0 2 -2 0 0 0 0]", f"uniform {v2}",
+                    bcs(_fixed(v2), "        type            v2WallFunction;"
+                        "\n        value           uniform 1e-10;\n"))
+        write_field(case_dir, "0", "f", "volScalarField",
+                    "[0 0 -1 0 0 0 0]", "uniform 0",
+                    bcs(_fixed(0), "        type            fWallFunction;"
+                        "\n        value           uniform 0;\n"))
     return mesh

@@ -36,7 +36,9 @@ def _install_signal_handlers(clock: "Time"):
     the end of the current step and continues; SIGUSR2 checkpoints and
     stops cleanly. Handlers only set flags — the time loop does the IO —
     so they are async-signal-safe. Installed once per process, on the
-    main thread only; every live Time instance responds."""
+    main thread only; every live Time instance responds, and a Python
+    handler installed before (another package's Time in the same
+    process) is called after them rather than replaced."""
     global _SIGNALS_INSTALLED
     _SIGNAL_CLOCKS.append(weakref.ref(clock))
     if _SIGNALS_INSTALLED:
@@ -56,9 +58,18 @@ def _install_signal_handlers(clock: "Time"):
             if stop:
                 t._stop_requested = True
 
+    def chained(stop: bool, prev):
+        def handle(signum, frame):
+            _fan_out(stop)
+            if callable(prev):
+                prev(signum, frame)
+        return handle
+
     try:
-        signal.signal(signal.SIGUSR1, lambda s, f: _fan_out(False))
-        signal.signal(signal.SIGUSR2, lambda s, f: _fan_out(True))
+        signal.signal(signal.SIGUSR1, chained(
+            False, signal.getsignal(signal.SIGUSR1)))
+        signal.signal(signal.SIGUSR2, chained(
+            True, signal.getsignal(signal.SIGUSR2)))
         _SIGNALS_INSTALLED = True
     except (ValueError, OSError):      # non-main thread / exotic host
         pass

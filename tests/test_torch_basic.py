@@ -273,7 +273,28 @@ def test_cli_runs_on_cpu(tmp_path, solver):
 
 
 def test_crank_nicolson_raises(tmp_path):
-    """The CrankNicolson ddt is not ported: laplacianFoam refuses it."""
+    """CrankNicolson reads two old levels and its ddt0 state: fvm.ddt
+    raises on a field stored with one level and on one without ddt0
+    (laplacianFoam and scalarTransportFoam store both and run the scheme:
+    test_crank_nicolson_laplacian_matches_jax)."""
+    from rapidcfd_tpu_torch.ops import fvm as tfvm
+    d = str(tmp_path / "cn")
+    with captured():
+        thermal_cavity_case(d)
+    case = port_case(d, "gdia")
+    T = case.read_field("T")
+    with pytest.raises(ValueError, match="CrankNicolson"):
+        tfvm.ddt(case.mesh, T.store_old(), 0.01, ("CrankNicolson", 0.9))
+    with pytest.raises(ValueError, match="ddt0"):
+        tfvm.ddt(case.mesh, T.store_old(levels=2), 0.01,
+                 ("CrankNicolson", 0.9))
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_crank_nicolson_laplacian_matches_jax(tmp_path, layout):
+    """5 laplacianFoam steps with CrankNicolson 0.9 at constant dt: T
+    within 1e-8 of the JAX package's (its basic solvers keep two levels
+    and the ddt0 state under CrankNicolson), counts within one."""
     d = str(tmp_path / "cn")
     with captured():
         thermal_cavity_case(d)
@@ -282,7 +303,12 @@ def test_crank_nicolson_raises(tmp_path):
                                      "default CrankNicolson 0.9;")
     with open(path, "w") as f:
         f.write(text)
-    with pytest.raises(NotImplementedError, match="CrankNicolson"):
-        with captured():
-            tbasic.run_laplacian_foam(d, device=CPU, dtype=F64,
-                                      write=False, max_steps=1)
+    (jcase, jT), jits = _jax_basic("run_laplacian_foam", d, layout, 5)
+    tcase = port_case(d, layout)
+    with captured():
+        _, tT = tbasic.run_laplacian_foam(d, device=CPU, dtype=F64,
+                                          write=False, max_steps=5,
+                                          case=tcase)
+    assert tT.levels == 2 and int(tT.ddt0[2]) == 5
+    assert cell_errors(tcase, jcase, dict(T=(tT, jT)))["T"] <= RUN_TOL
+    assert counts_close([s["iterations"] for s in tcase.step_log], jits)

@@ -307,3 +307,27 @@ def test_u_scheme_is_linear_upwind_whatever_the_case_names(tmp_path):
         assert torch.equal(x[i].data, y[i].data)
     jout, j_its = run_jax(jif, b, 3, "gdia", _jax_its, prestore=(1, 2))
     _compare(y, jout, ("alpha", "U", "p_rgh"), y_its, j_its)
+
+
+@pytest.mark.parametrize("n", [4, 7, 16])
+def test_dam_break_lattice_out_is_detect_lattice(tmp_path, n):
+    """dam_break_case(write_mesh=False, lattice_out=) builds in memory the
+    mesh it writes and the gdia embedding detect_lattice(full_box=True)
+    finds on that mesh read back from disk, key for key."""
+    import numpy as np
+    from rapidcfd_tpu_torch.mesh.polymesh import read_polymesh
+    from rapidcfd_tpu_torch.utils.unstructured import detect_lattice
+    disk, mem = str(tmp_path / "disk"), str(tmp_path / "mem")
+    lat = {}
+    with captured():
+        dam_break_case(disk, n=n)
+        pm = dam_break_case(mem, n=n, write_mesh=False, lattice_out=lat)
+    read = read_polymesh(disk)
+    assert np.array_equal(pm.owner, read.owner)
+    assert np.array_equal(pm.neighbour, read.neighbour)
+    want = detect_lattice(read, full_box=True)
+    assert sorted(lat) == sorted(want)
+    assert lat["shape"] == want["shape"] == (1, n, n)
+    for key in want:
+        assert np.array_equal(np.asarray(lat[key]), np.asarray(want[key])), \
+            key

@@ -192,7 +192,7 @@ def test_smooth_matches_jax(meshes):
 def test_local_euler_ddt_matches_jax(meshes, layout):
     """fvm.ddt with a per-cell dt (localEuler, CoEuler, SLTS), with and
     without a density coefficient, scalar and vector: diag and source to
-    1e-12; backward still raises."""
+    1e-12; backward raises on a field stored with one level."""
     import jax.numpy as jnp
     jcase, tmesh = meshes[layout]
     jmesh = jcase.mesh
@@ -213,8 +213,8 @@ def test_local_euler_ddt_matches_jax(meshes, layout):
                 assert _rel(tm.diag, jm.diag) <= 1e-12
                 assert _rel(tm.source, jm.source) <= 1e-12
                 assert tm.dims == interop.dims(jm.dims)
-    with pytest.raises(NotImplementedError, match="backward"):
-        tfvm.ddt(tmesh, tf, 0.01, "backward")
+    with pytest.raises(ValueError, match="backward"):
+        tfvm.ddt(tmesh, tf.store_old(), 0.01, "backward")
 
 
 def test_make_rdelta_t_matches_jax(meshes):

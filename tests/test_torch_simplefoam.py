@@ -282,14 +282,14 @@ def _edited(path, old, new):
 
 
 def test_unported_options_raise(tmp_path):
-    """Other RAS models, an fvOptions type neither package has and
-    function objects raise and name themselves."""
+    """A RAS model neither package has, an fvOptions type neither package
+    has and function objects raise and name themselves."""
     d = str(tmp_path / "case")
     pitz_daily_case(d, scale=1)
     ras = os.path.join(d, "constant", "RASProperties")
     with _edited(ras, "RASModel        kEpsilon;",
-                 "RASModel        RNGkEpsilon;"):
-        with pytest.raises(NotImplementedError, match="RNGkEpsilon"):
+                 "RASModel        noSuchModel;"):
+        with pytest.raises(NotImplementedError, match="noSuchModel"):
             make_ras_model(Case(d, device=CPU, dtype=F64), None)
     with open(os.path.join(d, "system", "fvOptions"), "w") as f:
         f.write("src1 { type noSuchSource; }\n")
