@@ -72,6 +72,9 @@ SOLVERS = {
                             {"_fn": "run_scalar_transport_foam"}),
     "potentialFoam": ("rapidcfd_tpu_torch.solvers.basic",
                       {"_fn": "run_potential_foam"}),
+    "SRFSimpleFoam": ("rapidcfd_tpu_torch.solvers.srffoam", {}),
+    "SRFPimpleFoam": ("rapidcfd_tpu_torch.solvers.srffoam",
+                      {"_fn": "run_pimple"}),
 }
 
 

@@ -25,8 +25,9 @@ v2WallFunction and fWallFunction (the JAX
 package keeps those in models/turbulence.py, which re-exports them
 here); and the heat-transfer set: fixedGradient, fixedFluxPressure with
 its setSnGrad helpers, prghPressure and the Marshak condition of the P1
-radiation model (kept in models/radiation.py by the JAX package). Other
-types raise in `make_bc`.
+radiation model (kept in models/radiation.py by the JAX package); the
+rotating frame's SRFVelocity; and, in fields/bcs_derived.py,
+turbulentInlet. Other types raise in `make_bc`.
 
 The open-boundary types read the flux, the velocity or k from `env`, as
 the JAX call sites pass it; without it they fall back as the JAX package
@@ -583,6 +584,26 @@ class FlowRateInletVelocity(BC):
         return -mesh.patch_delta_coeffs(patch)[:, None]
 
 
+@dataclass(frozen=True)
+class SRFVelocity(FixedValue):
+    """Velocity in the single rotating frame (port of rapidcfd_tpu/fields/
+    bcs.py:647-664; reference: cfdTools/general/SRF/derivedFvPatchFields/
+    SRFVelocityFvPatchVectorField): Urel = inletValue under `relative
+    yes`, else inletValue minus the frame velocity at the faces. The frame
+    velocity is static per mesh: the SRF solvers put it in
+    bd['srfValue'] at start-up (models/srf.SRFModel.patch_bcs)."""
+    word = "SRFVelocity"
+
+    def evaluate(self, mesh, patch, field, bd, env=None):
+        shape = field.patch_internal(mesh, patch).shape
+        val = torch.broadcast_to(bd["inletValue"], shape)
+        srf_v = bd.get("srfValue")
+        if srf_v is None:
+            return val
+        rel = bd.get("relative", 0.0)
+        return val - (1.0 - rel) * srf_v
+
+
 # ---------------------------------------------------------------------------
 # wall functions (port of rapidcfd_tpu/models/turbulence.py:30-99)
 # ---------------------------------------------------------------------------
@@ -694,7 +715,8 @@ BC_TYPES = {cls.word: cls for cls in (
     TurbulentIntensityKineticEnergyInlet,
     TurbulentMixingLengthDissipationRateInlet,
     TurbulentMixingLengthFrequencyInlet, TotalPressure, UniformTotalPressure,
-    PressureInletOutletVelocity, FlowRateInletVelocity, NutkWallFunction,
+    PressureInletOutletVelocity, FlowRateInletVelocity, SRFVelocity,
+    NutkWallFunction,
     KqRWallFunction, EpsilonWallFunction, OmegaWallFunction, FixedGradient,
     FixedFluxPressure, PrghPressure, MarshakRadiation,
     NutUSpaldingWallFunction, V2WallFunction, FWallFunction)}
@@ -711,10 +733,11 @@ BC_TYPES["symmetry"] = Symmetry
 
 def make_bc(type_word: str, patch_idx: int, pd=None) -> BC:
     """Construct a BC from its dictionary word: the types above, then
-    those a solver module registers in utils/registry.py's fvPatchField
-    table (potentialFreeSurfaceFoam's waveSurfacePressure); any other
-    word raises."""
+    those registered in utils/registry.py's fvPatchField table
+    (fields/bcs_derived.py's turbulentInlet, potentialFreeSurfaceFoam's
+    waveSurfacePressure); any other word raises."""
     from ..utils.registry import lookup, registered_names
+    from . import bcs_derived  # noqa: F401  (registers its types)
     cls = BC_TYPES.get(type_word)
     if cls is None and type_word in registered_names("fvPatchField"):
         cls = lookup("fvPatchField", type_word)

@@ -1,56 +1,74 @@
-"""Field file IO: read/write `<time>/<field>` in OpenFOAM ascii format
-(port of rapidcfd_tpu/fields/io.py). Files hold file-order cells and
-faces; MeshMaps translates to and from the device layout. Binary and
-compressed field files are not ported yet."""
+"""Field file IO: read/write `<time>/<field>` in OpenFOAM format (port of
+rapidcfd_tpu/fields/io.py). Files hold file-order cells and faces; MeshMaps
+translates to and from the device layout. Reads ascii and binary files,
+gzip-compressed or not (binary payloads through utils/foambin's
+decode_binary_dict); writes either format, compressed or not: a binary file
+holds every nonuniform list as raw doubles, whatever the run's precision,
+as the JAX package writes them."""
 
 from __future__ import annotations
 
+import gzip
 import os
 
 import numpy as np
 import torch
 
+from ..utils import foambin
 from ..utils.dictionary import foamfile_header, parse_file
 from ..utils.dimensions import DimensionSet
 
 from ..mesh.mesharrays import MeshArrays, MeshMaps
+from ..mesh.polymesh import BINARY_ARCH, GZIP_LEVEL
 from .bcs import Calculated, make_bc
 from .field import SurfaceField, VolField
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
 #: per-face boundary-condition entries, broadcast to the patch size (the
-#: JAX package's _BC_DATA_KEYS, rapidcfd_tpu/fields/io.py:25)
+#: JAX package's _BC_DATA_KEYS, rapidcfd_tpu/fields/io.py:25, and
+#: turbulentInlet's referenceField, a field in the reference, which the JAX
+#: package does not capture and takes `value` for)
 _BC_DATA_KEYS = ("value", "gradient", "refValue", "refGradient",
                  "valueFraction", "inletValue", "outletValue", "p0",
                  "volumetricFlowRate", "uniformValue", "freestreamValue",
-                 "emissivity", "jump")
+                 "emissivity", "jump", "referenceField")
+
+#: yes/no words kept as 0/1 scalars (the JAX package's _BC_SWITCH_KEYS,
+#: rapidcfd_tpu/fields/io.py:31): SRFVelocity's `relative`
+_BC_SWITCH_KEYS = ("relative", "setAverage")
 
 #: entries that are configuration words, not data
 _BC_WORD_KEYS = ("type", "mode", "patchType", "neighbourPatch",
                  "fieldName", "sampleMode", "samplePatch", "sampleRegion",
-                 "offsetMode", "interpolationScheme", "relative",
-                 "setAverage")
+                 "offsetMode", "interpolationScheme")
 
 
-def _boundary_data(pd, size: int, npdt) -> dict:
+def _boundary_data(pd, size: int, npdt, stash=None) -> dict:
     """A patch dictionary's numeric entries as numpy arrays: the
     per-face keys at the patch size, every other number or vector as it
-    stands (intensity, mixingLength, ...). A tabulated entry is not
-    ported and raises."""
+    stands (intensity, mixingLength, ...). A tabulated entry (a
+    uniformTotalPressure's p0 table, say) raises: the JAX package
+    evaluates none (it keeps a table as raw data only,
+    rapidcfd_tpu/fields/io.py:58-65)."""
     bd = {}
     for key in pd:
         entry = pd.lookup(key)
         if key in _BC_WORD_KEYS:
             continue
+        if key in _BC_SWITCH_KEYS:
+            bd[key] = np.asarray(1.0 if pd.word(key) in ("yes", "true", "on",
+                                                       "1") else 0.0, npdt)
+            continue
         if isinstance(entry, tuple) and entry and entry[0] == "table":
             raise NotImplementedError(
-                f"tabulated boundary entry '{key}' is not ported yet")
+                f"tabulated boundary entry '{key}' ({pd.word('type')}): "
+                "a table is evaluated by neither package")
         if key == "value":
-            bd[key] = _parse_value(entry, size, npdt)
+            bd[key] = _parse_value(entry, size, npdt, stash)
         elif key in _BC_DATA_KEYS:
             try:
-                bd[key] = _parse_value(entry, size, npdt)
+                bd[key] = _parse_value(entry, size, npdt, stash)
             except (ValueError, TypeError):
                 continue
         elif isinstance(entry, (int, float)) and not isinstance(entry, bool):
@@ -63,9 +81,11 @@ def _boundary_data(pd, size: int, npdt) -> dict:
     return bd
 
 
-def _parse_value(entry, n: int, npdt):
+def _parse_value(entry, n: int, npdt, stash=None):
     """Parse `uniform v`, `uniform (x y z)`, `nonuniform List<T> N (...)`
-    into a numpy array of n entries."""
+    into a numpy array of n entries. A binary file holds a `__binK__`
+    placeholder word where its payload was; stash (the parsed file's
+    binstash) resolves it."""
     if isinstance(entry, (int, float)):
         return np.full((n,), float(entry), npdt)
     if isinstance(entry, tuple):
@@ -79,8 +99,10 @@ def _parse_value(entry, n: int, npdt):
         if items[0] == "nonuniform":
             payload = items[-1]
             if isinstance(payload, str):
-                raise NotImplementedError("binary field files are not "
-                                          "supported by the port yet")
+                if stash is None or payload not in stash:
+                    raise ValueError(f"nonuniform payload {payload!r} "
+                                     "without its binary block")
+                payload = stash[payload]
             if isinstance(payload, int):    # `nonuniform List<scalar> 0 ()`
                 payload = []
             arr = np.asarray(payload, dtype=float)
@@ -102,11 +124,12 @@ def read_vol_field(case_dir: str, time: str, name: str, mesh: MeshArrays,
     dtype, then evaluate its boundary conditions."""
     npdt = _NP_DTYPE[mesh.dtype]
     d = parse_file(os.path.join(case_dir, time, name))
+    stash = getattr(d, "binstash", None)
     dims = d.lookup("dimensions", required=True)
     if not isinstance(dims, DimensionSet):
         raise ValueError(f"{name}: dimensions entry is not a dimension set")
     data = _parse_value(d.lookup("internalField", required=True),
-                        maps.n_file_cells, npdt)
+                        maps.n_file_cells, npdt, stash)
     data = maps.cells_to_device(data)
 
     bfield = d.subdict("boundaryField")
@@ -118,7 +141,7 @@ def read_vol_field(case_dir: str, time: str, name: str, mesh: MeshArrays,
             raise KeyError(f"field {name}: no boundaryField entry for "
                            f"patch '{patch.name}'")
         bcs.append(make_bc(pd.word("type"), i, pd))
-        bd = _boundary_data(pd, patch.size, npdt)
+        bd = _boundary_data(pd, patch.size, npdt, stash)
         if "value" in bd:
             bvalues[patch.bstart:patch.bstart + patch.size] = \
                 np.broadcast_to(bd["value"], (patch.size,) + data.shape[1:])
@@ -131,17 +154,30 @@ def read_vol_field(case_dir: str, time: str, name: str, mesh: MeshArrays,
     return f.correct_boundary_conditions(mesh)
 
 
+#: the List<T> word and the field class of each component count
+_COMP = {3: "vector", 6: "symmTensor", 9: "tensor"}
+_VOL_CLASS = {1: "volScalarField", 3: "volVectorField",
+              6: "volSymmTensorField", 9: "volTensorField"}
+
+
 def _fmt_scalar(v: float, prec: int = 8) -> str:
     return f"{v:.{prec}g}"
 
 
-def _body_value(arr: np.ndarray, prec: int = 8) -> str:
+def _body_value(arr: np.ndarray, prec: int = 8, binary: bool = False):
+    """The value of an entry: `uniform ...`, or a nonuniform list (ascii
+    text, or under binary an ascii prefix and a raw-double block, even
+    where the values are uniform, as the JAX package writes them)."""
+    if binary and arr.size:
+        comp = "scalar" if arr.ndim == 1 else _COMP[arr.shape[1]]
+        return (f"nonuniform List<{comp}>".encode("latin-1")
+                + foambin.fmt_list(arr))
     if arr.ndim == 1:
         if arr.size and np.all(arr == arr[0]):
             return f"uniform {_fmt_scalar(float(arr[0]), prec)}"
         body = "\n".join(_fmt_scalar(float(v), prec) for v in arr)
         return f"nonuniform List<scalar>\n{arr.shape[0]}\n(\n{body}\n)"
-    comp = "vector" if arr.shape[1] == 3 else f"Type{arr.shape[1]}"
+    comp = _COMP[arr.shape[1]]
     if arr.size and np.all(arr == arr[0]):
         return ("uniform ("
                 + " ".join(_fmt_scalar(float(v), prec) for v in arr[0]) + ")")
@@ -156,20 +192,44 @@ def _dims_str(dims: DimensionSet) -> str:
                           for e in dims.as_tuple()) + "]"
 
 
-def _emit(path: str, parts):
+def _header(cls: str, name: str, time: str, fmt: str) -> str:
+    if fmt not in ("ascii", "binary"):
+        raise ValueError(f"writeFormat '{fmt}' (ascii or binary)")
+    return foamfile_header(cls, name, time, fmt=fmt,
+                           arch=BINARY_ARCH if fmt == "binary" else "")
+
+
+def _emit(path: str, parts, compress: bool = False):
+    """Join the str/bytes parts and write them, gzipped to <path>.gz under
+    compress (`writeCompression compressed`); the other form of the file
+    is removed."""
+    payload = b"".join(p if isinstance(p, bytes) else p.encode("latin-1")
+                       for p in parts)
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    with open(path, "w", encoding="latin-1") as f:
-        f.write("".join(parts))
+    if compress:
+        with gzip.open(path + ".gz", "wb",
+                       compresslevel=GZIP_LEVEL) as f:
+            f.write(payload)
+        stale = path
+    else:
+        with open(path, "wb") as f:
+            f.write(payload)
+        stale = path + ".gz"
+    if os.path.isfile(stale):
+        os.remove(stale)
 
 
 def write_vol_field(field: VolField, case_dir: str, time: str,
-                    mesh: MeshArrays, maps: MeshMaps, prec: int = 8):
-    """Write a VolField in file cell order (ascii)."""
-    cls = "volScalarField" if field.data.dim() == 1 else "volVectorField"
+                    mesh: MeshArrays, maps: MeshMaps, prec: int = 8,
+                    fmt: str = "ascii", compress: bool = False):
+    """Write a VolField in file cell order; fmt='binary' writes every
+    nonuniform list as a raw-double block, compress gzips the file."""
+    binary = fmt == "binary"
+    cls = _VOL_CLASS[1 if field.data.dim() == 1 else field.data.shape[1]]
     data = maps.cells_to_file(field.data.detach().cpu().numpy())
-    lines = [foamfile_header(cls, field.name, time),
+    lines = [_header(cls, field.name, time, fmt),
              f"\ndimensions      {_dims_str(field.dims)};\n\n",
-             "internalField   ", _body_value(data, prec),
+             "internalField   ", _body_value(data, prec, binary),
              ";\n\n", "boundaryField\n{\n"]
     bvals = field.bvalues.detach().cpu().numpy()
     for bc, bd in zip(field.bcs, field.bcdata):
@@ -178,8 +238,8 @@ def write_vol_field(field: VolField, case_dir: str, time: str,
                      f"        type            {bc.word};\n")
         if isinstance(bc, Calculated) or "value" in bd:
             pb = bvals[patch.bstart:patch.bstart + patch.size]
-            lines += ["        value           ", _body_value(pb, prec),
-                      ";\n"]
+            lines += ["        value           ",
+                      _body_value(pb, prec, binary), ";\n"]
         for key, v in bd.items():
             if key == "value":
                 continue
@@ -190,32 +250,34 @@ def write_vol_field(field: VolField, case_dir: str, time: str,
                 body = "(" + " ".join(_fmt_scalar(float(x), prec)
                                       for x in arr) + ")"
             else:
-                body = _body_value(arr, prec)
+                body = _body_value(arr, prec, binary)
             lines += [f"        {key}           ", body, ";\n"]
         lines.append("    }\n")
     lines.append("}\n")
-    _emit(os.path.join(case_dir, time, field.name), lines)
+    _emit(os.path.join(case_dir, time, field.name), lines, compress)
 
 
 def write_surface_field(sf: SurfaceField, case_dir: str, time: str,
-                        mesh: MeshArrays, maps: MeshMaps, prec: int = 8):
+                        mesh: MeshArrays, maps: MeshMaps, prec: int = 8,
+                        fmt: str = "ascii", compress: bool = False):
     """Write a face flux (e.g. phi) as a surfaceScalarField file in file
     face order and orientation (padded dummy faces are dropped)."""
+    binary = fmt == "binary"
     data = maps.faces_to_file(sf.data.detach().cpu().numpy(), flux=True)
     n_int = maps.n_file_faces - mesh.n_boundary
-    lines = [foamfile_header("surfaceScalarField", sf.name or "phi", time),
+    lines = [_header("surfaceScalarField", sf.name or "phi", time, fmt),
              f"\ndimensions      {_dims_str(sf.dims)};\n\n",
-             "internalField   ", _body_value(data[:n_int], prec),
+             "internalField   ", _body_value(data[:n_int], prec, binary),
              ";\n\n", "boundaryField\n{\n"]
     for patch in mesh.patches:
         start = n_int + patch.bstart
         pb = data[start:start + patch.size]
         lines += [f"    {patch.name}\n    {{\n"
                   "        type            calculated;\n"
-                  "        value           ", _body_value(pb, prec),
+                  "        value           ", _body_value(pb, prec, binary),
                   ";\n    }\n"]
     lines.append("}\n")
-    _emit(os.path.join(case_dir, time, sf.name or "phi"), lines)
+    _emit(os.path.join(case_dir, time, sf.name or "phi"), lines, compress)
 
 
 def read_surface_field(case_dir: str, time: str, name: str,
@@ -225,11 +287,12 @@ def read_surface_field(case_dir: str, time: str, name: str,
     the device orientation."""
     npdt = _NP_DTYPE[mesh.dtype]
     d = parse_file(os.path.join(case_dir, time, name))
+    stash = getattr(d, "binstash", None)
     dims = d.lookup("dimensions", required=True)
     n_int = maps.n_file_faces - mesh.n_boundary
     data = np.zeros(maps.n_file_faces, npdt)
     data[:n_int] = _parse_value(d.lookup("internalField", required=True),
-                                n_int, npdt)
+                                n_int, npdt, stash)
     bfield = d.subdict("boundaryField")
     for patch in mesh.patches:
         pd = bfield.lookup(patch.name)
@@ -237,6 +300,6 @@ def read_surface_field(case_dir: str, time: str, name: str,
             continue
         start = n_int + patch.bstart
         data[start:start + patch.size] = _parse_value(
-            pd.lookup("value"), patch.size, npdt)
+            pd.lookup("value"), patch.size, npdt, stash)
     return SurfaceField(torch.as_tensor(maps.faces_to_device(data, flux=True),
                                         device=mesh.device), dims, name)

@@ -1,8 +1,10 @@
 """polyMesh reader/writer: constant/polyMesh/{points,faces,owner,neighbour,
 boundary}, and the faceZones reader — a numpy copy of
-rapidcfd_tpu/mesh/polymesh.py (ascii, with
-gzip-compressed files read transparently). Binary polyMesh files are not
-ported yet and raise."""
+rapidcfd_tpu/mesh/polymesh.py. Reads ascii, binary and gzip-compressed
+files (binary payloads by utils/foambin, at the widths of the `arch`
+header entry); writes ascii or binary, compressed or not. Ascii lists are
+parsed by the native parser (utils/foamio_native, csrc/foamio.cpp) when it
+builds, else by numpy; read_polymesh logs which."""
 
 from __future__ import annotations
 
@@ -13,21 +15,15 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..utils import foambin, foamio_native
 from ..utils.dictionary import (Dictionary, foamfile_header,
                                            parse_dictionary)
+from ..utils.logging import info
 
 
 def _read_text(path: str) -> str:
-    if os.path.isfile(path + ".gz"):
-        with gzip.open(path + ".gz", "rt", encoding="latin-1") as f:
-            text = f.read()
-    else:
-        with open(path, encoding="latin-1") as f:
-            text = f.read()
-    if re.search(r"format\s+binary\s*;", text[:2048]):
-        raise NotImplementedError(f"{path}: binary polyMesh files are not "
-                                  "supported by the port yet (ascii only)")
-    return text
+    """An ascii dictionary file (boundary, faceZones), gzip or not."""
+    return foambin.read_raw(path).decode("latin-1")
 
 
 def _strip_header(text: str) -> tuple[Dictionary, str]:
@@ -63,19 +59,39 @@ def _list_body(body: str) -> tuple[int, str]:
     return int(m.group(1)), body[m.end():body.rfind(")")]
 
 
-def _parse_scalar_list(body: str, ncols: int) -> np.ndarray:
-    """`N ( (x y z) ... )` or `N ( v ... )` -> (N, ncols) / (N,) array."""
+def _native_missed(name: str, what: str) -> None:
+    """Say by name that a list the native parser could not read goes to
+    the numpy parse (silent only when the library is unavailable, which
+    read_polymesh logs once)."""
+    if foamio_native.get_lib() is not None:
+        info(f"polyMesh {name}: the native parser did not read {what}; "
+             "numpy parse")
+
+
+def _parse_scalar_list(body: str, ncols: int, native: bool = True,
+                       name: str = "list") -> np.ndarray:
+    """`N ( (x y z) ... )` or `N ( v ... )` -> (N, ncols) / (N,) array;
+    native=False takes the numpy parse."""
     n, data = _list_body(body)
-    arr = np.array(data.replace("(", " ").replace(")", " ").split(),
-                   dtype=np.float64)
+    arr = foamio_native.parse_scalars(data, n * ncols) if native else None
+    if arr is None:
+        if native:
+            _native_missed(name, f"{n * ncols} scalars")
+        arr = np.array(data.replace("(", " ").replace(")", " ").split(),
+                       dtype=np.float64)
     if arr.size != n * ncols:
         raise ValueError(f"expected {n * ncols} values, got {arr.size}")
     return arr.reshape(n, ncols) if ncols > 1 else arr
 
 
-def _parse_label_list(body: str) -> np.ndarray:
+def _parse_label_list(body: str, native: bool = True,
+                      name: str = "list") -> np.ndarray:
     n, data = _list_body(body)
-    arr = np.array(data.split(), dtype=np.int64)
+    arr = foamio_native.parse_labels(data, n) if native else None
+    if arr is None:
+        if native:
+            _native_missed(name, f"{n} labels")
+        arr = np.array(data.split(), dtype=np.int64)
     if arr.shape[0] != n:
         raise ValueError(f"expected {n} labels, got {arr.shape[0]}")
     return arr
@@ -84,9 +100,15 @@ def _parse_label_list(body: str) -> np.ndarray:
 _FACE_RE = re.compile(r"(\d+)\s*\(([^)]*)\)")
 
 
-def _parse_face_list(body: str) -> tuple[np.ndarray, np.ndarray]:
+def _parse_face_list(body: str, native: bool = True, name: str = "faces"
+                     ) -> tuple[np.ndarray, np.ndarray]:
     """Parse faces `N ( 4(a b c d) ... )` -> (flat_points, offsets)."""
     n, chunk = _list_body(body)
+    got = foamio_native.parse_faces(chunk, n) if native else None
+    if got is not None:
+        return got
+    if native:
+        _native_missed(name, f"{n} faces")
     sizes = np.empty(n, dtype=np.int64)
     flats = []
     for i, fm in enumerate(_FACE_RE.finditer(chunk)):
@@ -143,17 +165,76 @@ class PolyMesh:
         return self.face_points[self.face_offsets[i]:self.face_offsets[i + 1]]
 
 
+def _bin_header_end(raw: bytes) -> int:
+    i = raw.find(b"FoamFile")
+    return raw.find(b"}", i) + 1
+
+
+def _bin_class(raw: bytes) -> str:
+    m = re.search(rb"class\s+(\w+)\s*;", raw[:2048])
+    return m.group(1).decode() if m else ""
+
+
+def _ascii_body(raw: bytes) -> str:
+    return _strip_header(raw.decode("latin-1"))[1]
+
+
+def _read_points(path: str) -> np.ndarray:
+    raw = foambin.read_raw(path)
+    if foambin.is_binary(raw):
+        _, scalar_w = foambin.arch_widths(raw)
+        pts, _ = foambin.scan_list(raw, _bin_header_end(raw), 3, "f",
+                                   scalar_w)
+        return np.asarray(pts, np.float64)
+    return _parse_scalar_list(_ascii_body(raw), 3,
+                              name=os.path.basename(path))
+
+
+def _read_faces(path: str) -> tuple[np.ndarray, np.ndarray]:
+    raw = foambin.read_raw(path)
+    if foambin.is_binary(raw):
+        # binary faces are a CompactIOList: the offsets labelList, then
+        # the flattened labelList (reference: CompactIOList.C:operator<<)
+        cls = _bin_class(raw)
+        if "Compact" not in cls:
+            raise NotImplementedError(
+                f"binary faces class '{cls}': only faceCompactIOList "
+                "(the reference's binary write format) is read")
+        label_w, _ = foambin.arch_widths(raw)
+        offsets, pos = foambin.scan_list(raw, _bin_header_end(raw), 1, "i",
+                                         label_w)
+        flat, _ = foambin.scan_list(raw, pos, 1, "i", label_w)
+        return np.asarray(flat, np.int64), np.asarray(offsets, np.int64)
+    return _parse_face_list(_ascii_body(raw))
+
+
+def _read_labels(path: str) -> np.ndarray:
+    raw = foambin.read_raw(path)
+    if foambin.is_binary(raw):
+        label_w, _ = foambin.arch_widths(raw)
+        arr, _ = foambin.scan_list(raw, _bin_header_end(raw), 1, "i",
+                                   label_w)
+        return np.asarray(arr, np.int64)
+    return _parse_label_list(_ascii_body(raw),
+                             name=os.path.basename(path))
+
+
 def read_polymesh(case_dir: str) -> PolyMesh:
+    """Read constant/polyMesh. Logs the files' format and, for ascii, the
+    parser that runs (and, by name, any list the native parser leaves to
+    the numpy parse)."""
     d = os.path.join(case_dir, "constant", "polyMesh")
-
-    def body(name):
-        return _strip_header(_read_text(os.path.join(d, name)))[1]
-
-    points = _parse_scalar_list(body("points"), 3)
-    face_points, face_offsets = _parse_face_list(body("faces"))
-    owner = _parse_label_list(body("owner"))
-    neighbour = _parse_label_list(body("neighbour"))
-    patches = _parse_boundary(body("boundary"))
+    raw = foambin.read_raw(os.path.join(d, "faces"))
+    fmt = "binary" if foambin.is_binary(raw) else "ascii"
+    if fmt == "ascii":
+        fmt += ", " + foamio_native.parser_status()
+    info(f"polyMesh: {fmt}\n")
+    points = _read_points(os.path.join(d, "points"))
+    face_points, face_offsets = _read_faces(os.path.join(d, "faces"))
+    owner = _read_labels(os.path.join(d, "owner"))
+    neighbour = _read_labels(os.path.join(d, "neighbour"))
+    patches = _parse_boundary(_strip_header(_read_text(
+        os.path.join(d, "boundary")))[1])
     return PolyMesh(points, face_points, face_offsets, owner, neighbour,
                     patches)
 
@@ -177,29 +258,69 @@ def _parse_boundary(body: str) -> list[BoundaryPatch]:
     return patches
 
 
-def write_polymesh(mesh: PolyMesh, case_dir: str):
-    """Write the mesh in ascii (the reference's polyMesh contract)."""
+#: the binary files' `arch` entry: the widths foambin.fmt_list writes
+BINARY_ARCH = "LSB;label=32;scalar=64"
+#: zlib's default level, that of the reference's gzstream (gzip.open's own
+#: default, 9, takes several times as long on a million-cell mesh)
+GZIP_LEVEL = 6
+
+
+def write_polymesh(mesh: PolyMesh, case_dir: str, fmt: str = "ascii",
+                   compress: bool = False):
+    """Write the mesh (the reference's polyMesh contract). fmt='binary'
+    writes points/owner/neighbour as binary lists and faces as a
+    faceCompactIOList (rapidcfd_tpu/mesh/polymesh.py:261-300); compress
+    gzips the data files. The boundary file stays ascii."""
     d = os.path.join(case_dir, "constant", "polyMesh")
     os.makedirs(d, exist_ok=True)
     loc = "constant/polyMesh"
 
-    def wr(name, cls, body):
-        with open(os.path.join(d, name), "w", encoding="latin-1") as f:
-            f.write(foamfile_header(cls, name, loc) + body)
+    def wr(name, cls, body, binary=False):
+        hdr = foamfile_header(cls, name, loc,
+                              fmt="binary" if binary else "ascii",
+                              arch=BINARY_ARCH if binary else "")
+        payload = hdr.encode("latin-1") + (
+            body if isinstance(body, bytes) else body.encode("latin-1"))
+        path = os.path.join(d, name)
+        if compress and name != "boundary":
+            with gzip.open(path + ".gz", "wb",
+                           compresslevel=GZIP_LEVEL) as f:
+                f.write(payload)
+            stale = path
+        else:
+            with open(path, "wb") as f:
+                f.write(payload)
+            stale = path + ".gz"
+        if os.path.isfile(stale):
+            os.remove(stale)
 
-    pts = "\n".join(f"({p[0]:.12g} {p[1]:.12g} {p[2]:.12g})"
-                    for p in mesh.points)
-    wr("points", "vectorField", f"\n{mesh.n_points}\n(\n{pts}\n)\n")
-    lines = []
-    for i in range(mesh.n_faces):
-        fp = mesh.face(i)
-        lines.append(f"{len(fp)}({' '.join(map(str, fp))})")
-    wr("faces", "faceList", f"\n{mesh.n_faces}\n(\n" + "\n".join(lines)
-       + "\n)\n")
-    wr("owner", "labelList", f"\n{mesh.n_faces}\n(\n"
-       + "\n".join(map(str, mesh.owner)) + "\n)\n")
-    wr("neighbour", "labelList", f"\n{mesh.n_internal_faces}\n(\n"
-       + "\n".join(map(str, mesh.neighbour)) + "\n)\n")
+    if fmt == "binary":
+        wr("points", "vectorField", foambin.fmt_list(mesh.points) + b"\n",
+           binary=True)
+        wr("faces", "faceCompactIOList",
+           foambin.fmt_list(mesh.face_offsets)
+           + foambin.fmt_list(mesh.face_points) + b"\n", binary=True)
+        wr("owner", "labelList", foambin.fmt_list(mesh.owner) + b"\n",
+           binary=True)
+        wr("neighbour", "labelList",
+           foambin.fmt_list(mesh.neighbour) + b"\n", binary=True)
+    elif fmt == "ascii":
+        pts = "\n".join(f"({p[0]:.12g} {p[1]:.12g} {p[2]:.12g})"
+                        for p in mesh.points)
+        wr("points", "vectorField", f"\n{mesh.n_points}\n(\n{pts}\n)\n")
+        lines = []
+        for i in range(mesh.n_faces):
+            fp = mesh.face(i)
+            lines.append(f"{len(fp)}({' '.join(map(str, fp))})")
+        wr("faces", "faceList", f"\n{mesh.n_faces}\n(\n"
+           + "\n".join(lines) + "\n)\n")
+        wr("owner", "labelList", f"\n{mesh.n_faces}\n(\n"
+           + "\n".join(map(str, mesh.owner)) + "\n)\n")
+        wr("neighbour", "labelList", f"\n{mesh.n_internal_faces}\n(\n"
+           + "\n".join(map(str, mesh.neighbour)) + "\n)\n")
+    else:
+        raise ValueError(f"write_polymesh: format '{fmt}' (ascii or "
+                         "binary)")
 
     pb = [f"\n{len(mesh.patches)}\n("]
     for p in mesh.patches:

@@ -22,7 +22,7 @@ def read_set(case_dir: str, name: str) -> np.ndarray:
     """constant/polyMesh/sets/<name> -> label array (FILE numbering)."""
     path = os.path.join(case_dir, "constant", "polyMesh", "sets", name)
     _, body = _strip_header(_read_text(path))
-    return _parse_label_list(body)
+    return _parse_label_list(body, name=f"sets/{name}")
 
 
 def read_cell_zones(case_dir: str, region: str = "") -> dict:

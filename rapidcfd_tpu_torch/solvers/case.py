@@ -83,20 +83,35 @@ class Case:
         return read_vol_field(self.dir, time or self.time.name, name,
                               self.mesh, self.maps)
 
-    def field_exists(self, name: str) -> bool:
-        return os.path.isfile(os.path.join(self.dir, self.time.name, name))
+    def field_exists(self, name: str, time: str | None = None) -> bool:
+        """The field's file (or its gzipped form) in the current time
+        directory (or in `time`)."""
+        path = os.path.join(self.dir, time or self.time.name, name)
+        return os.path.isfile(path) or os.path.isfile(path + ".gz")
 
-    def write_fields(self, fields):
+    def write_format(self) -> tuple[str, bool]:
+        """controlDict's (writeFormat, writeCompression on)
+        (rapidcfd_tpu/solvers/case.py:126)."""
+        return (self.control_dict.word("writeFormat", "ascii"),
+                self.control_dict.word("writeCompression", "uncompressed")
+                in ("compressed", "on", "yes", "true"))
+
+    def write_fields(self, fields, mark: bool = True):
+        """Write the fields into the current time directory in the
+        controlDict's writeFormat and writeCompression. mark=False (a
+        function object's derived fields) leaves the write-control state
+        alone, so that the step's own write still happens."""
         t = self.time.name
-        if self.control_dict.word("writeFormat", "ascii") != "ascii":
-            raise NotImplementedError("the port writes ascii fields only")
+        fmt, compress = self.write_format()
         prec = int(self.control_dict.scalar("writePrecision", 8))
         for f in fields:
-            write_vol_field(f, self.dir, t, self.mesh, self.maps, prec=prec)
+            write_vol_field(f, self.dir, t, self.mesh, self.maps, prec=prec,
+                            fmt=fmt, compress=compress)
         os.makedirs(os.path.join(self.dir, t, "uniform"), exist_ok=True)
         with open(os.path.join(self.dir, t, "uniform", "time"), "w") as fh:
             fh.write(self.time.uniform_time_dict())
-        self.time.mark_written()
+        if mark:
+            self.time.mark_written()
 
     # -- constant/ dictionaries --------------------------------------------------
     def transport_properties(self) -> Dictionary:

@@ -21,6 +21,7 @@ from ..linalg.solvers import gmax, gsum, solve
 from ..ops import fvc, fvm
 from ..utils.logging import (ExecutionTimer, info, log_continuity,
                              log_courant, log_solve)
+from ..postprocess import FunctionObjectList
 from .case import Case
 
 
@@ -171,8 +172,6 @@ def run(case_dir: str, *, device: torch.device, dtype: torch.dtype,
     if case is None:
         case = Case(case_dir, device=device, dtype=dtype)
     mesh = case.mesh
-    if case.control_dict.lookup("functions"):
-        raise NotImplementedError("functionObjects are not ported yet")
     tp = case.transport_properties()
     if non_newtonian:
         from ..models.transport import SinglePhaseTransportModel
@@ -208,6 +207,7 @@ def run(case_dir: str, *, device: torch.device, dtype: torch.dtype,
     timer = ExecutionTimer()
     cumulative_err = 0.0
     case.step_log = []
+    fos = FunctionObjectList(case)
 
     info("\nStarting time loop\n")
     n = 0
@@ -229,17 +229,23 @@ def run(case_dir: str, *, device: torch.device, dtype: torch.dtype,
             co=tuple(float(c) for c in stats["co"]),
             cont=(float(local_err), float(glob_err)),
             iterations=iteration_counts(stats)))
+        if fos.objects:
+            fos.execute({"U": U, "p": p})
         timer.log()
 
         if write and case.time.write_time():
             from ..fields.io import write_surface_field
-            write_surface_field(phi, case.dir, case.time.name, mesh,
-                                case.maps)
+            fmt, compress = case.write_format()
+            write_surface_field(
+                phi, case.dir, case.time.name, mesh, case.maps,
+                prec=int(case.control_dict.scalar("writePrecision", 8)),
+                fmt=fmt, compress=compress)
             case.write_fields([U, p])
         n += 1
         if max_steps and n >= max_steps:
             break
 
+    fos.close()
     info("End\n")
     return case, U, p, phi
 

@@ -8,6 +8,7 @@ equation with its non-orthogonal correctors, the explicit relaxation of
 p, the momentum correction and the turbulence model's correct(), run
 eagerly on the case's device; the host loop checks residualControl,
 logs residuals in OpenFOAM format and writes time directories.
+SRFSimpleFoam (solvers/srffoam.py) is this run with the case's SRFModel.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from ..models.transport import SinglePhaseTransportModel
 from ..models.turbulence import make_ras_model
 from ..ops import fvc, fvm
 from ..utils.logging import ExecutionTimer, info, log_continuity, log_solve
+from ..postprocess import FunctionObjectList
 from .case import Case
 from .controls import SimpleControl
 from .icofoam import continuity_errors
@@ -67,8 +69,9 @@ def turb_nl_stress(turb, mesh, turb_state, U):
 def simple_step(mesh, U: VolField, p: VolField, phi: SurfaceField,
                 turb_state, *, transport, turb, fv_options, div_u,
                 lap_corr, u_controls, p_controls, u_relax, p_relax,
-                n_non_orth, p_ref_cell, p_ref_value):
-    """One SIMPLE iteration."""
+                n_non_orth, p_ref_cell, p_ref_value, u_source=None):
+    """One SIMPLE iteration. u_source: (mesh, U) -> (n, 3) acceleration
+    on the momentum LHS (SRFSimpleFoam's `+ SRF->Su()`)."""
     nu = transport.nu(mesh, U)
     nu_eff = turb.nu_eff(mesh, turb_state, nu)
 
@@ -76,6 +79,9 @@ def simple_step(mesh, U: VolField, p: VolField, phi: SurfaceField,
     UEqn = fvm.div(mesh, phi, U, div_u) \
         + div_dev_reff(mesh, nu_eff, U, lap_corr,
                        turb_nl_stress(turb, mesh, turb_state, U))
+    if u_source is not None:
+        UEqn = UEqn.replace(
+            source=UEqn.source - mesh.V[:, None] * u_source(mesh, U))
     UEqn = fv_options(mesh, "U", UEqn, {"nu": nu})
     UEqn = UEqn.relax(mesh, u_relax)
     UEqn = fv_options.constrain(mesh, "U", UEqn)
@@ -111,6 +117,26 @@ def simple_step(mesh, U: VolField, p: VolField, phi: SurfaceField,
     return U, p, phi, turb_state, stats
 
 
+def hook_fields(mesh, transport, turb, U, p, phi, turb_state) -> dict:
+    """The fields a step hands its function objects, as the JAX package's
+    simpleFoam, pimpleFoam and pisoFoam do (rapidcfd_tpu/solvers/
+    pimplefoam.py:174-180): U, p, phi, the turbulence state, nu (where it
+    is a field) and nuEff."""
+    nu = transport.nu(mesh, U)
+    extra = dict(turb_state)
+    extra["nu"] = nu if hasattr(nu, "bvalues") else None
+    extra["nuEff"] = turb.nu_eff(mesh, turb_state, nu)
+    return {"U": U, "p": p, "phi": phi,
+            **{k: v for k, v in extra.items() if v is not None}}
+
+
+def written_fields(mesh, U, p, turb_state, srf=None) -> list:
+    """The fields a write time writes: U, p (and Uabs under an SRFModel),
+    then the turbulence state."""
+    extra = [] if srf is None else [srf.u_abs(mesh, U)]
+    return [U, p] + extra + list(turb_state.values())
+
+
 def iteration_counts(stats) -> list[tuple[str, int]]:
     """A SIMPLE iteration's or a pimpleFoam timestep's linear-solver
     iterations from its stats, in the order the solves are logged: Ux,
@@ -121,29 +147,33 @@ def iteration_counts(stats) -> list[tuple[str, int]]:
 
 
 def step_kwargs_from_case(case: Case, simple: SimpleControl, transport,
-                          turb) -> dict:
+                          turb, u_source=None, u_name: str = "U") -> dict:
     """The solver configuration simple_step takes. pRefCell is a cell
     label of the mesh as written (file order), mapped to its device row
-    here."""
+    here. u_name: the velocity's fvSolution/fvSchemes name (Urel in
+    SRFSimpleFoam)."""
     return dict(
         transport=transport, turb=turb, fv_options=FvOptions(case),
-        div_u=case.div_scheme("div(phi,U)"),
+        div_u=case.div_scheme(f"div(phi,{u_name})"),
         lap_corr=case.laplacian_scheme(),
-        u_controls=case.solver_controls("U"),
+        u_controls=case.solver_controls(u_name),
         p_controls=case.solver_controls("p"),
-        u_relax=case.relaxation_factor("U", "equations", 0.0),
+        u_relax=case.relaxation_factor(u_name, "equations", 0.0),
         p_relax=case.relaxation_factor("p", "fields", 0.0),
         n_non_orth=simple.n_non_orth,
         p_ref_cell=case.maps.device_cell(simple.p_ref_cell),
-        p_ref_value=simple.p_ref_value)
+        p_ref_value=simple.p_ref_value, u_source=u_source)
 
 
-def make_step(case: Case, transport, turb, simple: SimpleControl):
+def make_step(case: Case, transport, turb, simple: SimpleControl,
+              u_source=None, u_name: str = "U"):
     """step(U, p, phi, turb_state) -> (U, p, phi, turb_state, stats) on
     the case's mesh (an ELL mesh gets its GAMG hierarchy here; a gdia
-    mesh builds its structured levels in each solve)."""
+    mesh builds its structured levels in each solve); u_source and u_name
+    as in step_kwargs_from_case and simple_step."""
     from ..linalg.precompute import attach_solver_layouts
-    kw = step_kwargs_from_case(case, simple, transport, turb)
+    kw = step_kwargs_from_case(case, simple, transport, turb, u_source,
+                               u_name)
     mesh = attach_solver_layouts(
         case.mesh, (kw["u_controls"], kw["p_controls"]),
         timings=case.setup_seconds)
@@ -154,9 +184,17 @@ def make_step(case: Case, transport, turb, simple: SimpleControl):
     return step
 
 
+def refuse_srf_functions(case: Case, solver: str):
+    """The JAX package runs no function objects in the SRF solvers."""
+    if case.control_dict.lookup("functions"):
+        raise NotImplementedError(
+            f"{solver}: functionObjects do not run in the SRF solvers (the "
+            "JAX package runs none there)")
+
+
 def run(case_dir: str, *, device: torch.device, dtype: torch.dtype,
         write: bool = True, max_steps: int | None = None,
-        case: Case | None = None):
+        case: Case | None = None, srf=None):
     """Run simpleFoam (and porousSimpleFoam: the porosity comes from
     system/fvOptions) on a case directory until residualControl is met,
     endTime or max_steps. `case` passes a Case built already (an
@@ -164,16 +202,21 @@ def run(case_dir: str, *, device: torch.device, dtype: torch.dtype,
     turb_state); case.step_seconds holds the wall time of each iteration
     (host clock; each ends in a device sync when its residuals are
     logged) and case.step_log its continuity errors (local, global) and
-    iteration_counts."""
+    iteration_counts. srf: an SRFModel (SRFSimpleFoam): U is the relative
+    velocity Urel, with the frame's acceleration on the momentum LHS, and
+    Uabs is written beside it."""
     if case is None:
         case = Case(case_dir, device=device, dtype=dtype)
-    if case.control_dict.lookup("functions"):
-        raise NotImplementedError("functionObjects are not ported yet")
     mesh = case.mesh
+    u_name = "U" if srf is None else "Urel"
+    if srf is not None:
+        refuse_srf_functions(case, "SRFSimpleFoam")
 
-    info("Reading field p\n\nReading field U\n")
+    info(f"Reading field p\n\nReading field {u_name}\n")
     p = case.read_field("p")
-    U = case.read_field("U")
+    U = case.read_field(u_name)
+    if srf is not None:
+        U = srf.patch_bcs(mesh, U)
     phi = fvc.flux(mesh, U)
 
     transport = SinglePhaseTransportModel(case.transport_properties())
@@ -181,12 +224,15 @@ def run(case_dir: str, *, device: torch.device, dtype: torch.dtype,
     turb_state = turb.init_state(U)
     simple = SimpleControl(case)
 
-    step = make_step(case, transport, turb, simple)
+    step = make_step(case, transport, turb, simple,
+                     u_source=None if srf is None else srf.su,
+                     u_name=u_name)
     timer = ExecutionTimer()
     cumulative_err = 0.0
-    u_solver = case.solver_controls("U").solver
+    u_solver = case.solver_controls(u_name).solver
     p_solver = case.solver_controls("p").solver
     case.step_log = []
+    fos = FunctionObjectList(case)
 
     info("\nStarting time loop\n")
     n = 0
@@ -198,7 +244,7 @@ def run(case_dir: str, *, device: torch.device, dtype: torch.dtype,
 
         initial_residuals = {}
         for cmpt, perf in zip("xyz", stats["u_perf"]):
-            log_solve(u_solver, f"U{cmpt}", *perf)
+            log_solve(u_solver, f"{u_name}{cmpt}", *perf)
             initial_residuals[f"U{cmpt}"] = float(perf[0])
         initial_residuals["U"] = max(float(pf[0]) for pf in stats["u_perf"])
         for perf in stats["p_perf"]:
@@ -216,15 +262,19 @@ def run(case_dir: str, *, device: torch.device, dtype: torch.dtype,
         case.step_log.append(dict(
             cont=(float(local_err), float(glob_err)),
             iterations=iteration_counts(stats)))
+        if fos.objects:
+            fos.execute(hook_fields(mesh, transport, turb, U, p, phi,
+                                    turb_state))
         timer.log()
 
         if write and case.time.write_time():
-            case.write_fields([U, p] + list(turb_state.values()))
+            case.write_fields(written_fields(mesh, U, p, turb_state, srf))
         n += 1
         if max_steps and n >= max_steps:
             break
 
     if write:
-        case.write_fields([U, p] + list(turb_state.values()))
+        case.write_fields(written_fields(mesh, U, p, turb_state, srf))
+    fos.close()
     info("End\n")
     return case, U, p, phi, turb_state

@@ -14,6 +14,7 @@ directories unchanged."""
 
 from __future__ import annotations
 
+import math
 import os
 
 import numpy as np
@@ -795,15 +796,20 @@ def _write(path: str, header: str, body: str):
 
 
 def write_field(case_dir: str, time: str, name: str, cls: str,
-                dims: str, internal: str, boundary: dict[str, str]):
-    lines = [f"\ndimensions      {dims};\n",
-             f"\ninternalField   {internal};\n",
-             "\nboundaryField\n{\n"]
+                dims: str, internal: str, boundary: dict[str, str],
+                fmt: str = "ascii", compress: bool = False):
+    """A field file from its entries' text. fmt='binary' marks it a
+    binary file (its uniform values stay text, as in the reference's; a
+    nonuniform internal field is then given as bytes, as
+    fields/io._body_value writes it); compress writes <name>.gz."""
+    from ..fields.io import _emit, _header
+    lines = [f"\ndimensions      {dims};\n", "\ninternalField   ", internal,
+             ";\n", "\nboundaryField\n{\n"]
     for pname, bspec in boundary.items():
         lines.append(f"    {pname}\n    {{\n{bspec}    }}\n")
     lines.append("}\n")
-    _write(os.path.join(case_dir, time, name),
-           foamfile_header(cls, name, time), "".join(lines))
+    _emit(os.path.join(case_dir, time, name),
+          [_header(cls, name, time, fmt)] + lines, compress)
 
 
 def forward_step_case(case_dir: str, scale: int = 1, end_time: float = 0.5,
@@ -3938,6 +3944,54 @@ def pitz_daily_les_dt(scale: int, u_in: float = 10.0,
     return courant * (0.0206 / (12 * scale)) / u_in
 
 
+#: the probe locations of OpenFOAM 2.3's pisoFoam/les/pitzDaily
+#: controlDict (along the channel, 0.1 mm under the upper wall)
+PITZ_LES_PROBES = tuple((0.0254 * i, 0.0253, 0.0) for i in range(1, 8))
+
+#: that controlDict's function objects
+PITZ_LES_FUNCTIONS = """
+functions
+{
+    probes
+    {
+        type            probes;
+        functionObjectLibs ("libsampling.so");
+        enabled         true;
+        outputControl   timeStep;
+        outputInterval  1;
+        fields          ( p );
+        probeLocations
+        (
+%s
+        );
+    }
+    fieldAverage1
+    {
+        type            fieldAverage;
+        functionObjectLibs ( "libfieldFunctionObjects.so" );
+        enabled         true;
+        outputControl   outputTime;
+        fields
+        (
+            U
+            {
+                mean        on;
+                prime2Mean  on;
+                base        time;
+            }
+            p
+            {
+                mean        on;
+                prime2Mean  on;
+                base        time;
+            }
+        );
+    }
+}
+""" % "\n".join(f"            ({x:g} {y:g} {z:g})"
+                for x, y, z in PITZ_LES_PROBES)
+
+
 def pitz_daily_les_case(case_dir: str, scale: int = 1, *,
                         u_in: float = 10.0, nu: float = 1e-05,
                         model: str = "dynOneEqEddy",
@@ -3945,6 +3999,9 @@ def pitz_daily_les_case(case_dir: str, scale: int = 1, *,
                         end_time: float | None = None,
                         write_interval: int = 1000,
                         ddt: str = "backward",
+                        tutorial: bool = False,
+                        fmt: str = "ascii", compress: bool = False,
+                        u_seed: int | None = None,
                         write_mesh: bool = True,
                         lattice_out: dict | None = None) -> PolyMesh:
     """pisoFoam LES on the backward-facing step, after OpenFOAM 2.3's
@@ -3960,10 +4017,16 @@ def pitz_daily_les_case(case_dir: str, scale: int = 1, *,
     4,240 cells at scale 1, 1,085,440 in 1,146,880 lattice slots at
     scale 16).
 
+    tutorial=True takes the tutorial's U inlet, turbulentInlet
+    (referenceField uniform (u_in 0 0), fluctuationScale (0.02 0.01
+    0.01), alpha 0.1), and its controlDict functions: probes of p at
+    PITZ_LES_PROBES and fieldAverage1 of U and p with mean and
+    prime2Mean (PITZ_LES_FUNCTIONS). Without it the inlet is fixedValue
+    (u_in 0 0) and there are no functions. fmt ('ascii' or 'binary') and
+    compress are the mesh's and the fields' format, on disk and in the
+    controlDict's writeFormat and writeCompression.
+
     Where it departs from the tutorial:
-    - the inlet is fixedValue (u_in 0 0): turbulentInlet
-      (rapidcfd_tpu/fields/bcs_derived.py:134-159) draws from jax.random
-      and is not ported;
     - the eddy viscosity is the field nut, as the JAX package reads it
       (OpenFOAM 2.3 writes nuSgs);
     - deltaT holds the inlet Courant number near 0.3
@@ -3971,14 +4034,29 @@ def pitz_daily_les_case(case_dir: str, scale: int = 1, *,
     - the laplacians are Gauss linear orthogonal: the lattice is
       orthogonal, where the tutorial's corrected adds nothing;
     - the delta and the filter are also written inside the model's
-      Coeffs dictionary, where the JAX package and the port read them.
+      Coeffs dictionary, where the JAX package and the port read them;
+    - the mesh is the masked lattice above, not the tutorial's graded
+      blockMesh (pitz_daily_case).
 
-    write_mesh=False skips the ascii polyMesh (a million cells at scale
-    16): the returned PolyMesh then goes to Case(pmesh=, lattice=), and
-    lattice_out receives its gdia embedding (masked_grid_mesh)."""
+    u_seed starts U from a numpy-seeded field (x and y components of 0.5
+    m/s standard deviation about rest) in place of rest: from rest
+    dynOneEqEddy's coefficients are ratios of rounding residues wherever
+    the flow is uniform, so two evaluation orders (two devices, two
+    packages) part at 1e-3 in k within a few steps.
+
+    write_mesh=False skips writing the polyMesh: the returned PolyMesh
+    then goes to Case(pmesh=, lattice=), and lattice_out receives its gdia
+    embedding (masked_grid_mesh)."""
     mesh = _pitz_daily_mesh(scale, lattice_out)
+    u_internal = "uniform (0 0 0)"
+    if u_seed is not None:
+        from ..fields.io import _body_value
+        u = 0.5 * np.random.default_rng(u_seed).standard_normal(
+            (mesh.n_cells, 3))
+        u[:, 2] = 0.0
+        u_internal = _body_value(u, 17, binary=fmt == "binary")
     if write_mesh:
-        write_polymesh(mesh, case_dir)
+        write_polymesh(mesh, case_dir, fmt=fmt, compress=compress)
     dt = pitz_daily_les_dt(scale, u_in) if delta_t is None else delta_t
     if end_time is None:
         end_time = 20 * dt
@@ -3993,10 +4071,11 @@ deltaT          {dt!r};
 writeControl    timeStep;
 writeInterval   {write_interval};
 purgeWrite      0;
-writeFormat     ascii;
+writeFormat     {fmt};
 writePrecision  6;
+writeCompression {"compressed" if compress else "uncompressed"};
 runTimeModifiable true;
-""")
+""" + (PITZ_LES_FUNCTIONS if tutorial else ""))
     _write(os.path.join(case_dir, "system", "fvSchemes"),
            foamfile_header("dictionary", "fvSchemes", "system"), f"""
 ddtSchemes      {{ default {ddt}; }}
@@ -4070,16 +4149,22 @@ cubeRootVolCoeffs {{ deltaCoeff 1; }}
                 "uniform 0", {
                     "inlet": _ZG, "outlet": _fixed("0"),
                     "upperWall": _ZG, "lowerWall": _ZG,
-                    "frontAndBack": _EMPTY})
+                    "frontAndBack": _EMPTY}, fmt, compress)
     write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
-                "uniform (0 0 0)", {
-                    "inlet": _fixed(f"({u_in} 0 0)"),
+                u_internal, {
+                    "inlet": (
+                        "        type            turbulentInlet;\n"
+                        f"        referenceField  uniform ({u_in} 0 0);\n"
+                        "        fluctuationScale (0.02 0.01 0.01);\n"
+                        "        alpha           0.1;\n"
+                        f"        value           uniform ({u_in} 0 0);\n")
+                    if tutorial else _fixed(f"({u_in} 0 0)"),
                     "outlet": "        type            inletOutlet;\n"
                               "        inletValue      uniform (0 0 0);\n"
                               "        value           uniform (0 0 0);\n",
                     "upperWall": _fixed("(0 0 0)"),
                     "lowerWall": _fixed("(0 0 0)"),
-                    "frontAndBack": _EMPTY})
+                    "frontAndBack": _EMPTY}, fmt, compress)
     write_field(case_dir, "0", "k", "volScalarField", "[0 2 -2 0 0 0 0]",
                 "uniform 2e-05", {
                     "inlet": _fixed("2e-05"),
@@ -4087,17 +4172,17 @@ cubeRootVolCoeffs {{ deltaCoeff 1; }}
                               "        inletValue      uniform 2e-05;\n"
                               "        value           uniform 2e-05;\n",
                     "upperWall": _fixed("0"), "lowerWall": _fixed("0"),
-                    "frontAndBack": _EMPTY})
+                    "frontAndBack": _EMPTY}, fmt, compress)
     write_field(case_dir, "0", "nut", "volScalarField", "[0 2 -1 0 0 0 0]",
                 "uniform 0", {
                     "inlet": _ZG, "outlet": _ZG, "upperWall": _ZG,
-                    "lowerWall": _ZG, "frontAndBack": _EMPTY})
+                    "lowerWall": _ZG, "frontAndBack": _EMPTY}, fmt, compress)
     if "SpalartAllmaras" in model:
         write_field(case_dir, "0", "nuTilda", "volScalarField",
                     "[0 2 -1 0 0 0 0]", "uniform 0", {
                         "inlet": _fixed("0"), "outlet": _ZG,
                         "upperWall": _fixed("0"), "lowerWall": _fixed("0"),
-                        "frontAndBack": _EMPTY})
+                        "frontAndBack": _EMPTY}, fmt, compress)
     return mesh
 
 
@@ -4280,4 +4365,126 @@ def pitz_daily_ras_case(case_dir: str, model: str, scale: int = 1,
                     "[0 0 -1 0 0 0 0]", "uniform 0",
                     bcs(_fixed(0), "        type            fWallFunction;"
                         "\n        value           uniform 0;\n"))
+    return mesh
+
+
+# ---------------------------------------------------------------------------
+# the rotating frame: SRFSimpleFoam and SRFPimpleFoam
+# ---------------------------------------------------------------------------
+
+def srf_box_case(case_dir: str, n: int = 16, *, pimple: bool = False,
+                 relative: bool = False, rpm: float = 60.0 / (2 * math.pi),
+                 end_time: float | None = None,
+                 delta_t: float | None = None, p_solver: str = "PCG",
+                 write_interval: int = 1000, fmt: str = "ascii",
+                 compress: bool = False, write_mesh: bool = True
+                 ) -> PolyMesh:
+    """A closed 0.1 m square box of fluid (n x n x 1 cells, centred on the
+    axis, frontAndBack empty) in a frame rotating about z at `rpm` (1
+    rad/s by default), laminar, nu 0.01: the JAX package's SRF test case
+    (tests/test_srf.py:22-111), SRFSimpleFoam (200 iterations) or with
+    pimple=True SRFPimpleFoam (deltaT 0.002 to 0.2 s).
+
+    The walls are SRFVelocity with inletValue 0 and `relative no` unless
+    relative=True: with `relative no` they stand still in the absolute
+    frame, so Urel starts at minus the frame velocity on them and the
+    fluid is set spinning against the frame (with `relative yes`, the
+    JAX test's, it stays at rest in the frame). p_solver 'PCG' (DIC) is
+    the JAX test's; 'GAMG' takes multigrid (the smoke's 1024 x 1024
+    box). fmt and compress as in pitz_daily_les_case."""
+    d = 0.1
+    mesh = box_mesh(n, n, 1, size=(d, d, 0.01),
+                    origin=(-d / 2, -d / 2, 0.0), patch_spec={
+                        "ymax": ("walls", "wall"),
+                        "xmin": ("walls", "wall"),
+                        "xmax": ("walls", "wall"),
+                        "ymin": ("walls", "wall"),
+                        "zmin": ("frontAndBack", "empty"),
+                        "zmax": ("frontAndBack", "empty"),
+                    })
+    if write_mesh:
+        write_polymesh(mesh, case_dir, fmt=fmt, compress=compress)
+    app = "SRFPimpleFoam" if pimple else "SRFSimpleFoam"
+    if delta_t is None:
+        delta_t = 0.002 if pimple else 1
+    if end_time is None:
+        end_time = 0.2 if pimple else 200
+    _write(os.path.join(case_dir, "system", "controlDict"),
+           foamfile_header("dictionary", "controlDict", "system"), f"""
+application     {app};
+startFrom       startTime;
+startTime       0;
+stopAt          endTime;
+endTime         {end_time!r};
+deltaT          {delta_t!r};
+writeControl    timeStep;
+writeInterval   {write_interval};
+writeFormat     {fmt};
+writeCompression {"compressed" if compress else "uncompressed"};
+""")
+    _write(os.path.join(case_dir, "system", "fvSchemes"),
+           foamfile_header("dictionary", "fvSchemes", "system"), """
+ddtSchemes      { default Euler; }
+gradSchemes     { default Gauss linear; }
+divSchemes      { default none; div(phi,Urel) Gauss upwind;
+                  div(phi,k) Gauss upwind; div(phi,epsilon) Gauss upwind; }
+laplacianSchemes { default Gauss linear orthogonal; }
+interpolationSchemes { default linear; }
+snGradSchemes   { default orthogonal; }
+""")
+    p_entry = ("solver GAMG; smoother GaussSeidel; "
+               "nCellsInCoarsestLevel 10;" if p_solver == "GAMG"
+               else "solver PCG; preconditioner DIC;")
+    algo = "PIMPLE" if pimple else "SIMPLE"
+    _write(os.path.join(case_dir, "system", "fvSolution"),
+           foamfile_header("dictionary", "fvSolution", "system"), f"""
+solvers
+{{
+    p {{ {p_entry} tolerance 1e-07; relTol 0.01; }}
+    pFinal {{ {p_entry} tolerance 1e-07; relTol 0; }}
+    Urel {{ solver smoothSolver; smoother symGaussSeidel;
+           tolerance 1e-07; relTol 0; }}
+    UrelFinal {{ solver smoothSolver; smoother symGaussSeidel;
+           tolerance 1e-07; relTol 0; }}
+}}
+{algo}
+{{
+    nOuterCorrectors 1;
+    nCorrectors     2;
+    nNonOrthogonalCorrectors 0;
+    pRefCell        0;
+    pRefValue       0;
+    residualControl {{ }}
+}}
+relaxationFactors
+{{
+    fields    {{ p 0.3; }}
+    equations {{ Urel 0.7; }}
+}}
+""")
+    _write(os.path.join(case_dir, "constant", "transportProperties"),
+           foamfile_header("dictionary", "transportProperties", "constant"),
+           "\nnu              nu [ 0 2 -1 0 0 0 0 ] 0.01;\n")
+    _write(os.path.join(case_dir, "constant", "RASProperties"),
+           foamfile_header("dictionary", "RASProperties", "constant"),
+           "\nRASModel        laminar;\nturbulence      off;\n")
+    _write(os.path.join(case_dir, "constant", "SRFProperties"),
+           foamfile_header("dictionary", "SRFProperties", "constant"), f"""
+SRFModel        rpm;
+origin          (0 0 0);
+axis            (0 0 1);
+rpmCoeffs       {{ rpm {rpm!r}; }}
+""")
+    write_field(case_dir, "0", "p", "volScalarField", "[0 2 -2 0 0 0 0]",
+                "uniform 0", {
+                    "walls": _ZG, "frontAndBack": _EMPTY}, fmt, compress)
+    write_field(case_dir, "0", "Urel", "volVectorField",
+                "[0 1 -1 0 0 0 0]", "uniform (0 0 0)", {
+                    "walls":
+                        "        type            SRFVelocity;\n"
+                        "        relative        "
+                        f"{'yes' if relative else 'no'};\n"
+                        "        inletValue      uniform (0 0 0);\n"
+                        "        value           uniform (0 0 0);\n",
+                    "frontAndBack": _EMPTY}, fmt, compress)
     return mesh

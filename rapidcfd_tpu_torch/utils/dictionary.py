@@ -381,12 +381,16 @@ def parse_file(path: str, *, include_dirs: tuple[str, ...] = ()) -> Dictionary:
 
 
 def foamfile_header(cls: str, obj: str, location: str = "",
-                    fmt: str = "ascii") -> str:
+                    fmt: str = "ascii", arch: str = "") -> str:
+    """The FoamFile header; arch (binary files) is the reference's
+    `"LSB;label=32;scalar=64"` word."""
     loc = f'    location    "{location}";\n' if location else ""
+    arch_ = f'    arch        "{arch}";\n' if arch else ""
     return (
         "FoamFile\n{\n"
         "    version     2.0;\n"
         f"    format      {fmt};\n"
+        f"{arch_}"
         f"    class       {cls};\n"
         f"{loc}"
         f"    object      {obj};\n"

@@ -60,39 +60,66 @@ def is_binary(raw: bytes) -> bool:
 _COUNT_RE = re.compile(rb"(\d+)\s*\(")
 
 
-def scan_list(raw: bytes, pos: int, ncomp: int, dtype_char: str):
+_ARCH_RE = re.compile(rb'arch\s+"([^"]*)"\s*;')
+
+
+def arch_widths(raw: bytes) -> tuple[int | None, int]:
+    """(label bytes, scalar bytes) from a binary file's `arch` header entry
+    (`"LSB;label=32;scalar=64"`, as the reference writes it). Without the
+    entry: (None, 8), labels then detected by width. A big-endian file or a
+    width other than 32 or 64 bits is refused by name."""
+    m = _ARCH_RE.search(raw[:2048])
+    if not m:
+        return None, 8
+    arch = m.group(1).decode("latin-1")
+    parts = dict(kv.split("=", 1) for kv in arch.split(";") if "=" in kv)
+    if "MSB" in arch.split(";"):
+        raise NotImplementedError(f"binary file of arch '{arch}': "
+                                  "big-endian (MSB) payloads are not read")
+    label = int(parts.get("label", 32))
+    scalar = int(parts.get("scalar", 64))
+    if label not in (32, 64) or scalar not in (32, 64):
+        raise NotImplementedError(
+            f"binary file of arch '{arch}': label={label}, scalar={scalar} "
+            "(32 or 64 bits are read)")
+    return label // 8, scalar // 8
+
+
+def scan_list(raw: bytes, pos: int, ncomp: int, dtype_char: str,
+              width: int | None = None):
     """Scan the next `N (raw)` binary list at/after pos.
-    dtype_char 'f' = doubles; 'i' = labels (width auto-detected against
-    the closing paren). Returns (np array (N,) or (N,ncomp), end_pos)."""
+    dtype_char 'f' = floats (doubles unless width=4); 'i' = labels (width
+    auto-detected against the closing paren unless given). Returns (np
+    array (N,) or (N,ncomp), end_pos)."""
     m = _COUNT_RE.search(raw, pos)
     if not m:
         raise ValueError("binary list: no count/paren found")
     n = int(m.group(1))
     start = m.end()
+    kind = "f" if dtype_char == "f" else "i"
     if n == 0:
         # empty list: `0 ( )` possibly with whitespace
         end = start
         while raw[end:end + 1] in (b" ", b"\n", b"\t", b"\r"):
             end += 1
-        dt = np.dtype("<f8" if dtype_char == "f" else "<i4")
+        dt = np.dtype(f"<{kind}{width or (8 if kind == 'f' else 4)}")
         arr = np.empty((0, ncomp) if ncomp > 1 else (0,), dt)
         return arr, end + 1
-    if dtype_char == "f":
-        widths = (8,)
-        mk = lambda w: np.dtype("<f8")
+    if width is not None:
+        widths = (width,)
     else:
-        widths = (4, 8)
-        mk = lambda w: np.dtype(f"<i{w}")
+        widths = (8,) if kind == "f" else (4, 8)
     for w in widths:
         end = start + n * ncomp * w
         if end < len(raw) and raw[end:end + 1] == b")":
-            arr = np.frombuffer(raw, mk(w), count=n * ncomp, offset=start)
+            arr = np.frombuffer(raw, np.dtype(f"<{kind}{w}"),
+                                count=n * ncomp, offset=start)
             if ncomp > 1:
                 arr = arr.reshape(n, ncomp)
             return arr, end + 1
     raise ValueError(
         f"binary list of {n} x {ncomp} {dtype_char}: closing paren not "
-        "at any candidate width")
+        f"at any candidate width {widths}")
 
 
 def fmt_list(arr: np.ndarray) -> bytes:
@@ -115,6 +142,7 @@ def decode_binary_dict(raw: bytes):
     """Rewrite a binary dictionary file (field files: internalField +
     per-patch values) into ascii text with `__binK__` placeholders.
     Returns (text, stash) where stash maps placeholder -> numpy array."""
+    label_w, scalar_w = arch_widths(raw)
     parts = []
     stash = {}
     pos = 0
@@ -126,13 +154,13 @@ def decode_binary_dict(raw: bytes):
         typ = m.group(1).decode()
         n = int(m.group(2))
         ncomp = NCOMP.get(typ)
-        dchar = "f"
+        dchar, width = "f", scalar_w
         if ncomp is None:
             if typ != "label":
                 raise NotImplementedError(
                     f"binary List<{typ}> not supported")
-            ncomp, dchar = 1, "i"
-        arr, end = scan_list(raw, m.start(2), ncomp, dchar)
+            ncomp, dchar, width = 1, "i", label_w
+        arr, end = scan_list(raw, m.start(2), ncomp, dchar, width)
         key = f"__bin{k}__"
         k += 1
         stash[key] = arr

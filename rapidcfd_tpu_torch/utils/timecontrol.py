@@ -82,6 +82,21 @@ def time_name(t: float) -> str:
     return f"{t:.6g}"
 
 
+#: the index of the Time last built or incremented (reference:
+#: Time::timeIndex()); boundary conditions that update once per time step
+#: (turbulentInlet) read it
+_CURRENT_INDEX = 0
+
+
+def current_time_index() -> int:
+    return _CURRENT_INDEX
+
+
+def _set_current_index(index: int) -> None:
+    global _CURRENT_INDEX
+    _CURRENT_INDEX = index
+
+
 class Time:
     def __init__(self, case_dir: str, control_dict: Dictionary | None = None):
         self.case_dir = case_dir
@@ -124,6 +139,7 @@ class Time:
             self.delta_t = u.scalar("deltaT", self.delta_t)
             self.delta_t0 = u.scalar("deltaT0", self.delta_t)
             self.time_index = int(u.scalar("index", 0))
+        _set_current_index(self.time_index)
 
         self.value = self.start_time
         self._stop_requested = False
@@ -203,6 +219,7 @@ class Time:
     def increment(self):
         self.delta_t0 = self.delta_t
         self.time_index += 1
+        _set_current_index(self.time_index)
         self.value += self.delta_t
         self._steps_since_write += 1
 

@@ -243,10 +243,11 @@ def test_non_newtonian_ico_foam_matches_jax(non_newtonian):
 
 def test_dispatcher_lists_32_mains():
     from rapidcfd_tpu_torch.__main__ import SOLVERS
-    assert len(SOLVERS) == 32
+    assert len(SOLVERS) == 34           # with SRFSimpleFoam, SRFPimpleFoam
     for name in ("nonNewtonianIcoFoam", "laplacianFoam",
                  "scalarTransportFoam", "potentialFoam", "porousSimpleFoam",
-                 "porousInterFoam", "rhoPorousSimpleFoam"):
+                 "porousInterFoam", "rhoPorousSimpleFoam", "SRFSimpleFoam",
+                 "SRFPimpleFoam"):
         assert name in SOLVERS
 
 

@@ -425,8 +425,8 @@ def test_limited_scheme_registry():
     for name in LIMITED:
         for word in (name, name + "V", name + "01"):
             assert word in tinterp.SCHEMES
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tinterp.scheme_weights(None, None, "QUICK", None)
+    with pytest.raises(NotImplementedError, match="not in the registry"):
+        tinterp.scheme_weights(None, None, "noSuchScheme", None)
 
 
 @pytest.mark.parametrize("layout", ["gdia", "ell"])

@@ -126,8 +126,11 @@ def test_port_runs_without_jax(tmp_path):
     step and the SchnerrSauer mixture (through the registry copy), and
     one step each of multiphaseInterFoam, driftFluxFoam,
     potentialFreeSurfaceFoam (waveSurfacePressure through the registry)
-    and cavitatingFoam, on the CPU pulls no jax module and no module of
-    the JAX package into the process."""
+    and cavitatingFoam, and one pisoFoam step of the LES tutorial case
+    written binary and compressed, through the dispatcher with its
+    function objects, and one SRFSimpleFoam iteration of the SRF box, on
+    the CPU pulls no jax module and no module of the JAX package into the
+    process."""
     d = str(tmp_path / "case")
     c = str(tmp_path / "cavity")
     s = str(tmp_path / "simple")
@@ -139,6 +142,7 @@ def test_port_runs_without_jax(tmp_path):
     rp = str(tmp_path / "transient_hot_channel")
     db = str(tmp_path / "dam_break")
     mp = str(tmp_path / "multiphase")
+    les, srf = str(tmp_path / "les_tutorial"), str(tmp_path / "srf_box")
     hr, bc, p1, bp, tf = (str(tmp_path / n) for n in (
         "hot_room", "boussinesq_cavity", "p1_cavity", "pimple_cavity",
         "thermo_channel"))
@@ -300,6 +304,22 @@ for mod, writer, kw in (
     case = mod.run({mp!r} + "/" + mod.__name__, device=cpu, dtype=f32,
                    write=False, max_steps=1)[0]
     assert len(case.step_log) == 1
+from rapidcfd_tpu_torch.__main__ import main as dispatch
+from rapidcfd_tpu_torch.solvers import srffoam
+dt = casegen.pitz_daily_les_dt(1)
+casegen.pitz_daily_les_case({les!r}, 1, tutorial=True, fmt="binary",
+                            compress=True, end_time=dt, write_interval=1)
+dispatch(["pisoFoam", "-case", {les!r}, "-device", "cpu"])
+import os
+assert os.path.isfile({les!r} + "/postProcessing/probes/0/p")
+written = [t for t in os.listdir({les!r})
+           if t not in ("0", "constant", "system", "postProcessing")]
+assert len(written) == 1 and os.path.isfile(
+    {les!r} + "/" + written[0] + "/UMean.gz")
+casegen.srf_box_case({srf!r}, 6)
+case = srffoam.run({srf!r}, device=cpu, dtype=f32, write=False,
+                   max_steps=1)[0]
+assert len(case.step_log) == 1
 print("NEW_FOREIGN_MODULES", sorted(foreign() - before))
 print("JAX_LEFT_OUT", not before and "jax" not in sys.modules)
 print("JAX_PRELOADED", bool(before))

@@ -450,7 +450,7 @@ def test_dispatcher_runs_the_multiphase_solvers(tmp_path):
     endTime."""
     from rapidcfd_tpu_torch import __main__ as cli
     from rapidcfd_tpu_torch import solver_dtype
-    assert len(cli.SOLVERS) == 32
+    assert len(cli.SOLVERS) == 34
     for name in NEW_SOLVERS:
         assert name in cli.SOLVERS
         assert solver_dtype(name) == torch.float32

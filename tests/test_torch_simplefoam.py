@@ -283,7 +283,8 @@ def _edited(path, old, new):
 
 def test_unported_options_raise(tmp_path):
     """A RAS model neither package has, an fvOptions type neither package
-    has and function objects raise and name themselves."""
+    has and a function object the port does not have (surfaces) raise and
+    name themselves."""
     d = str(tmp_path / "case")
     pitz_daily_case(d, scale=1)
     ras = os.path.join(d, "constant", "RASProperties")
@@ -298,7 +299,7 @@ def test_unported_options_raise(tmp_path):
     os.remove(os.path.join(d, "system", "fvOptions"))
     cdict = os.path.join(d, "system", "controlDict")
     with _edited(cdict, "runTimeModifiable true;",
-                 "runTimeModifiable true;\nfunctions { probes { type "
-                 "probes; } }"):
-        with pytest.raises(NotImplementedError, match="functionObjects"):
+                 "runTimeModifiable true;\nfunctions { cut { type "
+                 "surfaces; fields (p); } }"):
+        with pytest.raises(NotImplementedError, match="surfaces"):
             tsimple.run(d, device=CPU, dtype=F64, write=False, max_steps=1)
