@@ -330,7 +330,36 @@ Phases (any failure raises and the script exits non-zero):
    the box's Gauss planes; then SRFPimpleFoam on the 64 x 64 box in fp64,
    SRF_PIMPLE_STEPS steps on cuda and on cpu: Urel and p within
    LES_TUTORIAL_RTOL, iteration counts within one;
-46. a JSON line of kernel results: for each form of the kernel on each
+46. the mesh coupling's small cases in fp64, COUPLED_STEPS steps each on
+   cuda and on cpu (`_coupled_cases`): the 40-cell cyclic ring
+   (scalarTransportFoam), the periodic transport channel merged and
+   through a conformal cyclicAMI pair, the 8:12 non-conforming AMI
+   channel and the ACMI channel at shift 0.5 (laplacianFoam), the
+   fixedJump channel (laplacianFoam), the fan channel with T carried
+   through the fan (scalarTransportFoam), the fan in the periodic duct
+   (p fan on a kept pair) and the fanPressure inlet duct (laminar
+   pimpleFoam), and the periodic LES channel at
+   PERIODIC_SMALL (pimpleFoam, backward, U and k from seeds): fields
+   within COUPLED_RTOL, iteration counts equal, and the conformal AMI's
+   run within COUPLED_RTOL of the merged cyclic's;
+47. laplacianFoam across the 512:768 cyclicAMI interface of
+   `ami_channel_case` at AMI_CHANNEL (1,310,720 cells) in fp64, AMI_STEPS
+   steps of AMI_DT: T within AMI_PROFILE_TOL of the linear profile;
+   ms/step, the PCG iterations and the AMI weights' host seconds;
+48. the main path of this slice: pimpleFoam LES on the periodic channel
+   (`periodic_channel_case`, channel395 at 160 x 100 x 64 = 1,024,000
+   cells, its two cyclic pairs merged, ELL), written binary and
+   compressed, through the dispatcher (`rapidcfd_tpu_torch.__main__.
+   main(["pimpleFoam", "-case", D, "-precision", "fp32"])` in this
+   process) for PERIODIC_WARM + PERIODIC_TIMED steps, the fields written
+   at the last and U read back; fields finite, the bulk velocity within
+   PERIODIC_UBAR_RTOL of Ubar at every step: ms/step, cell-updates/s,
+   p's GAMG iterations and the fp32 stall guard's cuts, the driving
+   gradient per step, one profiled step's launches and busy share, set-up
+   by stage (the jump scan, the merge and RCM on the periodic graph among
+   them); no shift-MAC
+   launch on phases 46-48 (ELL);
+49. a JSON line of kernel results: for each form of the kernel on each
    main path's planes (its four forms at phase 3's shapes; both K = 7
    forms on the T-junction's, the hot room's and the porous duct's
    planes; K = 5, C = 3 on the forward step's; both K = 5 forms on the
@@ -1238,21 +1267,41 @@ def _profiled_iteration(step, state):
         *new, st = step(*state)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and "spin" not in e.key]
-    busy = sum(getattr(e, "self_device_time_total", 0.0) for e in kern)
+    kern = {}                           # name: [launches, device ns]
+    for name, ns in _device_events(prof):
+        if "spin" not in name:
+            c = kern.setdefault(name, [0, 0])
+            c[0] += 1
+            c[1] += ns
     mac = {}
-    for e in kern:
-        m = re.search(r"(mac_\w+|ref_kernel)(<[^>]*>)?", e.key)
+    for name, (count, _) in kern.items():
+        m = re.search(r"(mac_\w+|ref_kernel)(<[^>]*>)?", name)
         if m:
-            mac[m.group(0)] = mac.get(m.group(0), 0) + int(e.count)
-    top = sorted(kern, key=lambda e: -getattr(e, "self_device_time_total",
-                                              0.0))[:8]
-    top = [(e.key[:70], int(e.count),
-            getattr(e, "self_device_time_total", 0.0) / 1e3) for e in top]
-    return (tuple(new), st, sum(int(e.count) for e in kern), busy / 1e6,
-            wall, mac, top)
+            mac[m.group(0)] = mac.get(m.group(0), 0) + count
+    top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:8]
+    top = [(name[:70], count, ns / 1e6) for name, (count, ns) in top]
+    return (tuple(new), st, sum(c for c, _ in kern.values()),
+            sum(ns for _, ns in kern.values()) / 1e9, wall, mac, top)
+
+
+def _device_events(prof):
+    """(name, device ns) of each device event (kernel, copy, fill) of a
+    torch.profiler trace, as key_averages() counts them (its name filter
+    and demangling; an async record takes no device time), read from the
+    profiler's raw records: key_averages() first builds a Python object
+    per record, about a minute for a step of 400,000 launches."""
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA \
+                or _filter_name(e.name()) \
+                or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        timed = not (e.is_async() or e.start_thread_id()
+                     != e.end_thread_id())
+        out.append((_rewrite_name(e.name(), with_wildcard=True),
+                    e.end_ns() - e.start_ns() if timed else 0))
+    return out
 
 
 def _run_channel_path(tag: str, tmp: str, dims: dict, cells: int,
@@ -1359,8 +1408,8 @@ def _run_channel_path(tag: str, tmp: str, dims: dict, cells: int,
     return launches, readings
 
 
-# one timed window of 2 iterations: the whole smoke nears its 1200 s limit
-CHANNEL_WINDOWS = (1, 2)
+# one timed window of 1 iteration: the whole smoke nears its 1200 s limit
+CHANNEL_WINDOWS = (1, 1)
 DUCT_WINDOWS = (1, 3)               # one timed window of 3 iterations
 # (local continuity error in 1/s, max |U| in m/s) that no iteration may
 # reach. The channel's scales are u_in = 10 m/s and a 1 m duct; with p to
@@ -4513,7 +4562,8 @@ LES_SCALE = 16
 LES_CELLS = 1085440
 LES_N = 1792 * 640
 LES_OFFSETS = (-1792, -1, 0, 1, 1792)
-# timed steps after the first three (20 until the smoke neared its limit)
+# timed steps after the first three (20 until the smoke neared its limit;
+# the growth check below reads the last 11 records, so at least 9)
 LES_TIMED = 12
 # the flow starts from rest under a 10 m/s inlet: the impulsive start's
 # potential flow is singular at the step's corner, where max |U| is 4x the
@@ -4925,7 +4975,7 @@ def phase_ras_dispatch(tmp: str, smi: str) -> dict:
 # this slice (phases 43-45): the LES tutorial as OpenFOAM 2.3 publishes it
 # (turbulentInlet, probes, fieldAverage1) from binary compressed files
 # through the dispatcher, and the SRF mains on the rotating box
-LES_TUTORIAL_STEPS = 20
+LES_TUTORIAL_STEPS = 12              # 20 until the coupled phases
 LES_TUTORIAL_SMALL = 5              # the fp64 cuda/cpu steps
 LES_TUTORIAL_RTOL = 1e-8
 LES_TUTORIAL_SEED = 1792
@@ -4941,7 +4991,7 @@ LES_TUTORIAL_SPREAD = {"k": 1e-2, "nut": 1e-2}
 LES_TUTORIAL_UP_SPREAD = 1e-6
 SRF_N = 1024
 SRF_CELLS = SRF_N * SRF_N
-SRF_ITERATIONS = 20
+SRF_ITERATIONS = 12                 # 20 until the coupled phases
 SRF_PIMPLE = dict(n=64, steps=5)
 
 
@@ -5279,13 +5329,319 @@ def phase_srf(tmp: str, smi: str) -> dict:
     return launches
 
 
+# -- mesh coupling: cyclic, cyclicAMI, cyclicACMI and the jump BCs ------------
+
+#: the periodic LES channel (pimpleFoam/LES/channel395 at 160 x 100 x 64)
+PERIODIC = dict(nx=160, ny=100, nz=64)
+PERIODIC_CELLS = 160 * 100 * 64
+PERIODIC_WARM = 4                   # steps before the timed ones
+PERIODIC_TIMED = 20
+#: the bulk velocity's bound about Ubar at every step: the runs read
+#: within 0.05%, the prediction said 1%
+PERIODIC_UBAR_RTOL = 0.01
+#: its small form for cuda against cpu (fp64, backward, seeded U and k)
+PERIODIC_SMALL = dict(nx=20, ny=16, nz=12)
+#: the non-conforming AMI channel at full width: 1024 cells per block in
+#: x, 512 and 768 across, T's PCG to 1e-9 with room for its iterations
+AMI_CHANNEL = dict(nx=1024, ny1=512, ny2=768)
+AMI_CELLS = 1024 * (512 + 768)
+AMI_DT = 8.0                        # s; DT = 0.05 m2/s on a 1 m channel
+AMI_STEPS = 12
+AMI_MAX_ITER = 20000
+#: |T - (400 - 100 x)| after AMI_STEPS steps: the slowest mode decays by
+#: (1 + AMI_DT * 0.05 pi^2)^-12 ~ 4e-9 of its 100 K, so what is left is
+#: the solver's tolerance and the interface's interpolation
+AMI_PROFILE_TOL = 1e-3              # K
+COUPLED_RTOL = 1e-10
+COUPLED_STEPS = 5
+
+
+def _coupled_cases(tmp: str) -> list:
+    """The small coupled cases as (name, solver, writer): the 40-cell
+    ring, the periodic transport channel merged and through a conformal
+    cyclicAMI, the non-conforming AMI and ACMI channels, the fixedJump
+    channel, the fan channel with T carried through the fan, the fan duct
+    (p fan on a kept pair) and the fanPressure duct, the periodic LES
+    channel at PERIODIC_SMALL."""
+    from rapidcfd_tpu_torch.utils import casegen as cg
+    return [
+        ("ring (cyclic, scalarTransportFoam)", "scalarTransportFoam",
+         cg.cyclic_ring_case),
+        ("periodic channel, merged cyclic", "scalarTransportFoam",
+         lambda d: cg.periodic_transport_case(d, "cyclic")),
+        ("periodic channel, conformal cyclicAMI", "scalarTransportFoam",
+         lambda d: cg.periodic_transport_case(d, "ami")),
+        ("AMI channel 8:12 (laplacianFoam)", "laplacianFoam",
+         cg.ami_channel_case),
+        ("ACMI channel shift 0.5 (laplacianFoam)", "laplacianFoam",
+         lambda d: cg.acmi_channel_case(d, shift_frac=0.5)),
+        ("fixedJump channel (laplacianFoam)", "laplacianFoam",
+         lambda d: cg.jump_channel_case(d, "fixedJump", t_seed=1)),
+        ("fan channel, T carried through the fan (scalarTransportFoam)",
+         "scalarTransportFoam",
+         lambda d: cg.jump_channel_case(d, "fan", t_seed=1, u_flow=1.0)),
+        ("fan in the periodic duct (pimpleFoam)", "pimpleFoam",
+         cg.fan_channel_case),
+        ("fanPressure inlet duct (pimpleFoam)", "pimpleFoam",
+         cg.fan_pressure_channel_case),
+        ("periodic LES channel "
+         f"{PERIODIC_SMALL['nx']}x{PERIODIC_SMALL['ny']}x"
+         f"{PERIODIC_SMALL['nz']} (pimpleFoam, backward)", "pimpleFoam",
+         lambda d: cg.periodic_channel_case(
+             d, **PERIODIC_SMALL, n_steps=COUPLED_STEPS, fmt="ascii",
+             compress=False, u_seed=3, k_seed=4)),
+    ]
+
+
+def _coupled_run(solver: str, d: str, dev: str):
+    """(case, fields, iteration counts per step) of COUPLED_STEPS steps of
+    a small coupled case in fp64 on `dev`."""
+    from rapidcfd_tpu_torch.solvers import basic, pimplefoam
+    from rapidcfd_tpu_torch.utils.logging import captured
+    kw = dict(device=torch.device(dev), dtype=torch.float64, write=False,
+              max_steps=COUPLED_STEPS)
+    with captured():
+        if solver == "pimpleFoam":
+            case, U, p, _, ts = pimplefoam.run(d, **kw)
+            fields = dict(U=U.data, p=p.data,
+                          **{k: v.data for k, v in ts.items()})
+        else:
+            fn = (basic.run_laplacian_foam if solver == "laplacianFoam"
+                  else basic.run_scalar_transport_foam)
+            case, T = fn(d, **kw)[:2]
+            fields = dict(T=T.data)
+    return case, fields, [r["iterations"] for r in case.step_log]
+
+
+def phase_coupled_agreement(tmp: str):
+    """The small coupled cases in fp64, COUPLED_STEPS steps each on cuda
+    and on cpu: every field within COUPLED_RTOL of the cpu run's largest
+    magnitude, iteration counts equal; the conformal AMI's run within
+    COUPLED_RTOL of the merged cyclic's on each device."""
+    from rapidcfd_tpu_torch.utils.logging import captured
+    runs = {}
+    for name, solver, writer in _coupled_cases(tmp):
+        tag = f"[46] {name} fp64"
+        d = f"{tmp}/coupled_{len(runs)}"
+        with captured():
+            writer(d)
+        got = {dev: _coupled_run(solver, d, dev) for dev in ("cuda", "cpu")}
+        (cc, fc, ic), (_, fp, ip) = got["cuda"], got["cpu"]
+        errs = _field_errs(cc.maps, fc, fp)
+        check(all(np.isfinite(f.cpu().numpy()).all() for f in fc.values()),
+              f"{tag}: fields not finite on the card")
+        print(f"{tag}: cuda against cpu after {COUPLED_STEPS} steps, "
+              f"relative max|d|: " + ", ".join(f"{k} {v:.3e}"
+                                               for k, v in errs.items())
+              + f"; iterations equal: {ic == ip}; last step {ic[-1]}")
+        check(max(errs.values()) <= COUPLED_RTOL and ic == ip,
+              f"{tag}: cuda and cpu disagree: {errs}, {ic} / {ip}")
+        runs[name] = got
+    for dev in ("cuda", "cpu"):
+        (c1, f1, _), (c2, f2, _) = (
+            runs["periodic channel, merged cyclic"][dev],
+            runs["periodic channel, conformal cyclicAMI"][dev])
+        err = _rel(c1.maps.cells_to_file(f1["T"].cpu().numpy()),
+                   c2.maps.cells_to_file(f2["T"].cpu().numpy()))
+        print(f"[46] conformal cyclicAMI against merged cyclic on {dev}: "
+              f"relative max|d| {err:.3e}")
+        check(err <= COUPLED_RTOL, f"[46] conformal AMI and merged cyclic "
+              f"part on {dev}: {err}")
+
+
+def phase_ami_main(tmp: str, smi: str) -> dict:
+    """laplacianFoam across the non-conforming cyclicAMI of
+    ami_channel_case at AMI_CHANNEL (1,310,720 cells, a 512:768-face
+    interface) in fp64 on the card, AMI_STEPS implicit steps of AMI_DT:
+    T within AMI_PROFILE_TOL of the linear steady profile; ms/step, PCG
+    iterations, the AMI weights' host seconds. Returns the shift-MAC
+    launches by (K, C) over the run (the ELL path launches none)."""
+    from rapidcfd_tpu_torch.ops import gdia_mac as gm
+    from rapidcfd_tpu_torch.solvers import basic
+    from rapidcfd_tpu_torch.solvers.case import Case
+    from rapidcfd_tpu_torch.utils.casegen import ami_channel_case
+    from rapidcfd_tpu_torch.utils.logging import captured
+    tag = (f"[47] laplacianFoam AMI channel {AMI_CHANNEL['nx']}x"
+           f"({AMI_CHANNEL['ny1']}|{AMI_CHANNEL['ny2']}) fp64")
+    d = f"{tmp}/ami_main"
+    t0 = time.perf_counter()
+    with captured():
+        pm = ami_channel_case(d, **AMI_CHANNEL, delta_t=AMI_DT,
+                              end_time=AMI_STEPS * AMI_DT,
+                              max_iter=AMI_MAX_ITER, write_mesh=False)
+    t_write = time.perf_counter() - t0
+    gm.reset_launches()
+    t0 = time.perf_counter()
+    with captured():
+        case = Case(d, device=torch.device("cuda"), dtype=torch.float64,
+                    pmesh=pm)
+        case, T = basic.run_laplacian_foam(
+            d, device=torch.device("cuda"), dtype=torch.float64,
+            write=False, case=case)[:2]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(gm.LAUNCHES_BY_KC)
+    mesh = case.mesh
+    tabs = [t for t in mesh.ami if t is not None]
+    check(mesh.n_cells == AMI_CELLS and len(tabs) == 2
+          and len(case.step_seconds) == AMI_STEPS and mesh.gdia is None,
+          f"{tag}: {mesh.n_cells} cells, {len(tabs)} AMI tables, "
+          f"{len(case.step_seconds)} steps")
+    exact = 400.0 - 100.0 * mesh.C[:, 0]
+    err = float((T.data - exact).abs().max())
+    its = [r["iterations"][0][1] for r in case.step_log]
+    check(bool(torch.isfinite(T.data).all()) and err <= AMI_PROFILE_TOL,
+          f"{tag}: max |T - linear profile| {err} K > {AMI_PROFILE_TOL}")
+    check(not launches, f"{tag}: shift-MAC launched on an ELL path: "
+          f"{launches}")
+    med = statistics.median(case.step_seconds)
+    print(f"{tag}: {AMI_STEPS} steps of dt {AMI_DT} s, max |T - (400 - "
+          f"100 x)| {err:.3e} K (limit {AMI_PROFILE_TOL}); median "
+          f"{med * 1e3:.1f} ms/step (" + ", ".join(
+              f"{s * 1e3:.0f}" for s in case.step_seconds)
+          + f"); PCG iterations per step {its}; interface tables K = "
+          f"{tabs[0].w.shape[1]} and {tabs[1].w.shape[1]}; case written in "
+          f"{t_write:.2f} s; run {wall:.2f} s with set-up (" + ", ".join(
+              f"{k} {v:.2f} s" for k, v in case.setup_seconds.items())
+          + f"); {AMI_CELLS / med:.1f} cell-updates/s (card: {smi})")
+    del case, T, mesh, pm, exact
+    torch.cuda.empty_cache()
+    return launches
+
+
+_PGRAD_RE = re.compile(r"uncorrected Ubar = (\S+), pressure gradient = "
+                       r"(\S+)")
+
+
+def phase_periodic_main(tmp: str, smi: str) -> dict:
+    """The slice's main path: pimpleFoam LES on the periodic channel
+    (channel395 at PERIODIC, 1,024,000 cells, two cyclic pairs merged)
+    written binary and compressed, through the dispatcher in fp32 for
+    PERIODIC_WARM + PERIODIC_TIMED steps, the fields written at the last;
+    then one more step under torch.profiler. Fields finite, the bulk
+    velocity within PERIODIC_UBAR_RTOL of Ubar at every step; ms/step,
+    cell-updates/s, p's GAMG iterations and the solves the fp32 stall guard cut, the
+    driving gradient, launches and busy share, set-up by stage. Returns
+    the shift-MAC launches by (K, C) over the run (ELL: none)."""
+    from rapidcfd_tpu_torch.__main__ import main as dispatch
+    from rapidcfd_tpu_torch.ops import gdia_mac as gm
+    from rapidcfd_tpu_torch.solvers import pimplefoam
+    from rapidcfd_tpu_torch.utils.casegen import (CHANNEL395_UBAR,
+                                                  periodic_channel_case)
+    from rapidcfd_tpu_torch.utils.logging import captured
+    nx, ny, nz = PERIODIC["nx"], PERIODIC["ny"], PERIODIC["nz"]
+    tag = (f"[48] pimpleFoam LES periodic channel {nx}x{ny}x{nz} "
+           "(channel395, binary, compressed)")
+    d = f"{tmp}/periodic"
+    n = PERIODIC_WARM + PERIODIC_TIMED
+    t0 = time.perf_counter()
+    with captured():
+        periodic_channel_case(d, nx, ny, nz, n_steps=n)
+    t_write = time.perf_counter() - t0
+    kept = {}
+    run, make_step = pimplefoam.run, pimplefoam.make_step
+
+    def keep(*a, **k):
+        kept["out"] = run(*a, **k)
+        return kept["out"]
+
+    def keep_step(*a, **k):
+        kept["step"] = make_step(*a, **k)
+        return kept["step"]
+    pimplefoam.run, pimplefoam.make_step = keep, keep_step
+    gm.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with captured() as buf:
+            dispatch(["pimpleFoam", "-case", d, "-precision", "fp32"])
+    finally:
+        pimplefoam.run, pimplefoam.make_step = run, make_step
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(gm.LAUNCHES_BY_KC)
+    case, U, p, phi, ts = kept["out"]
+    log = buf.getvalue()
+    steps = len(case.step_seconds)
+    p_controls = (case.solver_controls("p"),
+                  case.solver_controls("p", final=True))
+    check(steps == n and "End" in log and "polyMesh: binary" in log
+          and case.mesh.gdia is None and case.mesh.n_cells == PERIODIC_CELLS
+          and [q.name for q in case.mesh.patches]
+          == ["bottomWall", "topWall"],
+          f"{tag}: {steps} steps on {case.mesh.n_cells} cells, patches "
+          f"{[q.name for q in case.mesh.patches]}, log tail {log[-600:]}")
+    check(not launches, f"{tag}: shift-MAC launched on an ELL path: "
+          f"{launches}")
+    for f in (U, p, *ts.values()):
+        check(bool(torch.isfinite(f.data).all()), f"{tag}: {f.name} not "
+              "finite")
+    drive = [(float(a), float(b)) for a, b in _PGRAD_RE.findall(log)]
+    check(len(drive) == n, f"{tag}: {len(drive)} driving-gradient lines")
+    V = case.mesh.V
+    ubulk = float((V * U.data[:, 0]).sum() / V.sum())
+    check(all(abs(u / CHANNEL395_UBAR - 1.0) <= PERIODIC_UBAR_RTOL
+              for u, _ in drive)
+          and abs(ubulk / CHANNEL395_UBAR - 1.0) <= PERIODIC_UBAR_RTOL,
+          f"{tag}: the bulk velocity left Ubar: {drive}, end {ubulk}")
+    # the written time directory reads back through the merged maps
+    with captured():
+        u_back = case.read_field("U", case.time.name)
+    err_back = float((u_back.data - U.data).abs().max())
+    check(err_back <= 1e-6 * float(U.data.abs().max()),
+          f"{tag}: U written and read back differs by {err_back}")
+    del u_back
+    # the p solves as logged (p, then pFinal, at each step), and those
+    # the fp32 stall guard cut: (step, initial, final residual, its)
+    p_solves = [(float(a), float(b), int(c)) for a, b, c in re.findall(
+        r"Solving for p, Initial residual = (\S+), Final residual = "
+        r"(\S+), No Iterations (\d+)", log)]
+    check(len(p_solves) == 2 * n, f"{tag}: {len(p_solves)} p solves")
+    cuts = [(i // 2 + 1,) + cut for i, sv in enumerate(p_solves)
+            for cut in _cut_solves([sv], [p_controls[i % 2]])]
+    state = (U, p, phi, ts, case.time.delta_t)
+    with captured():
+        _, _, n_launch, busy, pwall, _, top = _profiled_iteration(
+            kept["step"], state)
+    secs = case.step_seconds[PERIODIC_WARM:]
+    med = statistics.median(secs)
+    p_its = [[it for f_, it in r["iterations"] if f_ == "p"]
+             for r in case.step_log]
+    print(f"{tag} fp32 through the dispatcher: case written in "
+          f"{t_write:.2f} s; {n} steps in {wall:.2f} s with set-up and "
+          "the last step's write; set-up by stage: " + ", ".join(
+              f"{k} {v:.2f} s" for k, v in case.setup_seconds.items())
+          + f" (card: {smi})")
+    print(f"{tag} {PERIODIC_TIMED} timed steps (after {PERIODIC_WARM}): "
+          f"median {med * 1e3:.1f} ms/step, range {min(secs) * 1e3:.1f}-"
+          f"{max(secs) * 1e3:.1f} ms; {PERIODIC_CELLS / med:.1f} "
+          f"cell-updates/s; dt {case.time.delta_t:.4g} s, Courant max "
+          f"{case.step_log[-1]['co'][1]:.3f} (card: {smi})")
+    print(f"{tag} p GAMG iterations per solve by step: {p_its}; solves "
+          f"the fp32 stall guard cut (step, initial, final residual, "
+          f"iterations): {cuts}; p controls tolerance "
+          f"{p_controls[0].tolerance}/{p_controls[1].tolerance}, relTol "
+          f"{p_controls[0].rel_tol}/{p_controls[1].rel_tol}; U, k "
+          f"iterations last step: {case.step_log[-1]['iterations']}")
+    print(f"{tag} bulk velocity (uncorrected Ubar) and driving gradient by "
+          "step: " + "; ".join(f"{u:.6g} {g:.6g}" for u, g in drive)
+          + f"; end bulk {ubulk:.6g} m/s (Ubar {CHANNEL395_UBAR})")
+    print(f"{tag} profiled step: {n_launch} kernel launches, device busy "
+          f"{busy * 1e3:.1f} ms of {pwall * 1e3:.1f} ms wall "
+          f"({busy / pwall:.1%}); top kernels: " + "; ".join(
+              f"{k} x{c} {ms:.1f} ms" for k, c, ms in top))
+    del case, U, p, phi, ts, kept, state
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _timed(phase, *args):
     """Run one phase and print its wall time (host clock, set-up and
     checks included)."""
     t0 = time.perf_counter()
     out = phase(*args)
-    print(f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    line = f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s"
+    print(line, flush=True)
+    print(line, file=sys.stderr, flush=True)
     return out
 
 
@@ -5343,6 +5699,9 @@ def main():
         _timed(phase_les_tutorial_agreement, tmp)
         les_tutorial = _timed(phase_les_tutorial_main, tmp, smi)
         srf = _timed(phase_srf, tmp, smi)
+        _timed(phase_coupled_agreement, tmp)
+        ami = _timed(phase_ami_main, tmp, smi)
+        periodic = _timed(phase_periodic_main, tmp, smi)
     paths = {"simpleFoam pitzDaily x5": simple, "icoFoam pitzDaily x5": ico,
              "icoFoam cavity 384": cavity,
              "simpleFoam channel 160x80x80": channel,
@@ -5369,7 +5728,10 @@ def main():
                  ras["SpalartAllmaras"],
              "pisoFoam LES tutorial pitzDaily x16 (dispatcher, binary)":
                  les_tutorial,
-             "SRFSimpleFoam SRF box 1024x1024": srf}
+             "SRFSimpleFoam SRF box 1024x1024": srf,
+             "laplacianFoam AMI channel 1024x(512|768)": ami,
+             "pimpleFoam LES periodic channel 160x100x64 (dispatcher, "
+             "binary)": periodic}
     kernels = []
     for (K, c), what, main_path, times in (
             ((5, 3), "Gauss gradient", "simpleFoam pitzDaily x5", k[5, 3]),
@@ -5418,8 +5780,10 @@ def main():
             "main_path": main_path,
             "launches_by_path": {name: got.get((K, c), 0)
                                  for name, got in paths.items()}})
-    print(f"[time] whole smoke before its last lines: "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    line = (f"[time] whole smoke before its last lines: "
+            f"{time.perf_counter() - t_start:.1f} s")
+    print(line, flush=True)
+    print(line, file=sys.stderr, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

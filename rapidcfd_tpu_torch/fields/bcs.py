@@ -57,6 +57,11 @@ class BC:
     value_free = False
     #: the BC pins the solution level (the reference's needReference)
     fixes_level = False
+    #: an implicitly coupled interface (cyclicAMI): assembly puts the ghost
+    #: coefficient in boundary_coeffs and the matrix product applies it to
+    #: the partner's values (FvMatrix.coupled_mv; the reference's
+    #: updateMatrixInterfaces)
+    coupled = False
     #: dictionary word (written back by fields/io.py)
     word = ""
 
@@ -242,6 +247,71 @@ class Symmetry(BC):
 class Slip(Symmetry):
     """Inviscid wall (reference: derived/slip): the symmetry condition."""
     word = "slip"
+
+
+@dataclass(frozen=True)
+class CyclicAMI(BC):
+    """Arbitrary-mesh-interface coupling (rapidcfd_tpu/fields/bcs.py:
+    188-234; reference: cyclicAMIFvPatchField.H:54): the ghost value is
+    the overlap-weighted sum of the partner's face-cell values
+    (MeshArrays.ami_ghost), the face value interpolates owner and ghost
+    with the distance weight, and the matrix couples implicitly."""
+    preserves_type = True
+    value_free = True
+    coupled = True
+    word = "cyclicAMI"
+
+    def _t(self, mesh, patch):
+        t = mesh.ami_table(patch)
+        if t is None:
+            raise ValueError(f"{self.word} patch '{patch.name}' has no AMI "
+                             "table: is the partner patch missing?")
+        return t
+
+    def _ghost(self, mesh, patch, field, bd, env=None):
+        return mesh.ami_ghost(patch, field.data)
+
+    def evaluate(self, mesh, patch, field, bd, env=None):
+        t = self._t(mesh, patch)
+        psi_c = field.patch_internal(mesh, patch)
+        w = _bcast(t.w_face, psi_c)
+        return w * psi_c + (1.0 - w) * self._ghost(mesh, patch, field, bd,
+                                                   env)
+
+    def value_internal_coeff(self, mesh, patch, field, bd, env=None):
+        w = self._t(mesh, patch).w_face
+        if field.data.dim() > 1:
+            return w[:, None] * torch.ones(field.data.shape[1:],
+                                           dtype=w.dtype, device=w.device)
+        return w
+
+    def gradient_internal_coeff(self, mesh, patch, field, bd, env=None):
+        gic = -self._t(mesh, patch).dc
+        return gic[:, None] if field.data.dim() > 1 else gic
+
+    def snGrad(self, mesh, patch, field, bd, env=None):
+        t = self._t(mesh, patch)
+        psi_c = field.patch_internal(mesh, patch)
+        ghost = self._ghost(mesh, patch, field, bd, env)
+        return _bcast(t.dc, psi_c) * (ghost - psi_c)
+
+
+@dataclass(frozen=True)
+class CyclicACMI(CyclicAMI):
+    """A partially overlapping AMI (rapidcfd_tpu/fields/bcs.py:237-272;
+    reference: cyclicACMIFvPatchField.H:56). The face areas were
+    apportioned at mesh build (coupled faces mask*|Sf0|, the non-overlap
+    twins (1-mask)*|Sf0|), the matrix couples through the raw weights
+    (the coupled contribution only, cyclicACMIFvPatchField.C:217-244),
+    and evaluated values take the uncovered remainder from the
+    non-overlap patch's boundary values."""
+    word = "cyclicACMI"
+
+    def _ghost(self, mesh, patch, field, bd, env=None):
+        no = mesh.patches[self._t(mesh, patch).non_overlap]
+        return mesh.ami_ghost(
+            patch, field.data,
+            default=field.bvalues[no.bstart:no.bstart + no.size])
 
 
 @dataclass(frozen=True)
@@ -512,8 +582,13 @@ class TotalPressure(BC):
     fixes_level = True
     word = "totalPressure"
 
+    def _p0(self, mesh, patch, field, bd, env=None):
+        """The total pressure (fanPressure offsets it by its fan curve)."""
+        return bd["p0"]
+
     def evaluate(self, mesh, patch, field, bd, env=None):
-        p0 = torch.broadcast_to(bd["p0"], (patch.size,))
+        p0 = torch.broadcast_to(self._p0(mesh, patch, field, bd, env),
+                                (patch.size,))
         if env is None or "U" not in env or "phi" not in env:
             return p0
         u_b = env["U"].bvalues[patch.bstart:patch.bstart + patch.size]
@@ -719,7 +794,8 @@ BC_TYPES = {cls.word: cls for cls in (
     NutkWallFunction,
     KqRWallFunction, EpsilonWallFunction, OmegaWallFunction, FixedGradient,
     FixedFluxPressure, PrghPressure, MarshakRadiation,
-    NutUSpaldingWallFunction, V2WallFunction, FWallFunction)}
+    NutUSpaldingWallFunction, V2WallFunction, FWallFunction, CyclicAMI,
+    CyclicACMI)}
 BC_TYPES["nutWallFunction"] = NutkWallFunction
 BC_TYPES["nutUWallFunction"] = NutUSpaldingWallFunction
 BC_TYPES["nutLowReWallFunction"] = NutUSpaldingWallFunction
@@ -729,6 +805,9 @@ BC_TYPES["greyDiffusiveRadiation"] = MarshakRadiation
 #: the reference's plain `symmetry` patch field: the same condition (it
 #: is written back as symmetryPlane)
 BC_TYPES["symmetry"] = Symmetry
+#: a `cyclic` entry on a patch that exists on the device is a cyclic pair
+#: kept coupled (its partner carries a jump BC): the conformal AMI
+BC_TYPES["cyclic"] = CyclicAMI
 
 
 def make_bc(type_word: str, patch_idx: int, pd=None) -> BC:
@@ -737,7 +816,7 @@ def make_bc(type_word: str, patch_idx: int, pd=None) -> BC:
     (fields/bcs_derived.py's turbulentInlet, potentialFreeSurfaceFoam's
     waveSurfacePressure); any other word raises."""
     from ..utils.registry import lookup, registered_names
-    from . import bcs_derived  # noqa: F401  (registers its types)
+    from . import bcs_coupled, bcs_derived  # noqa: F401  (register types)
     cls = BC_TYPES.get(type_word)
     if cls is None and type_word in registered_names("fvPatchField"):
         cls = lookup("fvPatchField", type_word)
@@ -745,4 +824,6 @@ def make_bc(type_word: str, patch_idx: int, pd=None) -> BC:
         raise NotImplementedError(
             f"boundary condition '{type_word}' is not ported yet (ported: "
             f"{', '.join(sorted(BC_TYPES))})")
+    if hasattr(cls, "from_dict"):
+        return cls.from_dict(patch_idx, pd)
     return cls(patch_idx)

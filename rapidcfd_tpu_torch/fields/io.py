@@ -41,7 +41,55 @@ _BC_SWITCH_KEYS = ("relative", "setAverage")
 #: entries that are configuration words, not data
 _BC_WORD_KEYS = ("type", "mode", "patchType", "neighbourPatch",
                  "fieldName", "sampleMode", "samplePatch", "sampleRegion",
-                 "offsetMode", "interpolationScheme")
+                 "offsetMode", "interpolationScheme", "direction")
+
+#: the jump family's curve entries, read by _capture_jump_table
+_JUMP_KEYS = ("jumpTable", "fileName")
+_JUMP_TABLE_TYPES = ("fan", "fanPressure", "uniformJump", "uniformJumpAMI")
+
+
+def _read_foam_table(path: str):
+    """(x, y) of an OpenFOAM table file `((x y) ...)`, comments allowed
+    (rapidcfd_tpu/utils/function1.py:74-89)."""
+    import re
+    with open(path) as fh:
+        text = re.sub(r"//[^\n]*|/\*.*?\*/", " ", fh.read(), flags=re.S)
+    vals = np.array([float(x) for x in re.findall(r"[-+0-9.eE]+", text)])
+    rows = text.count("(") - 1
+    if rows <= 0 or vals.size % rows:
+        raise ValueError(f"{path}: malformed table")
+    arr = vals.reshape(rows, vals.size // rows)
+    return arr[:, 0], (arr[:, 1] if arr.shape[1] == 2 else arr[:, 1:])
+
+
+def _capture_jump_table(pd, bd: dict, npdt, case_dir: str):
+    """A fan or uniformJump jumpTable (constant, table or polynomial) or
+    a fanPressure fileName table as bd's jump_const, jump_times/
+    jump_values or jump_poly (rapidcfd_tpu/fields/io.py:69-99)."""
+    e = pd.lookup("jumpTable")
+    if isinstance(e, tuple) and len(e) >= 2:
+        kind = e[0]
+        if kind == "constant":
+            bd["jump_const"] = np.asarray(float(e[1]), npdt)
+        elif kind == "table":
+            bd["jump_times"] = np.asarray([r[0] for r in e[1]], npdt)
+            bd["jump_values"] = np.asarray([r[1] for r in e[1]], npdt)
+        elif kind == "polynomial":
+            bd["jump_poly"] = np.asarray(e[1], npdt)
+        else:
+            raise NotImplementedError(
+                f"jumpTable DataEntry type '{kind}' is not supported "
+                "(constant, table or polynomial)")
+    elif isinstance(e, (int, float)):
+        bd["jump_const"] = np.asarray(float(e), npdt)
+    fn = pd.lookup("fileName")
+    if fn is not None and "jump_times" not in bd:
+        path = str(fn).strip('"').replace("$FOAM_CASE", case_dir)
+        if not os.path.isabs(path):
+            path = os.path.join(case_dir, "constant", path)
+        x, y = _read_foam_table(path)
+        bd["jump_times"] = np.ascontiguousarray(x, npdt)
+        bd["jump_values"] = np.ascontiguousarray(y, npdt)
 
 
 def _boundary_data(pd, size: int, npdt, stash=None) -> dict:
@@ -54,7 +102,7 @@ def _boundary_data(pd, size: int, npdt, stash=None) -> dict:
     bd = {}
     for key in pd:
         entry = pd.lookup(key)
-        if key in _BC_WORD_KEYS:
+        if key in _BC_WORD_KEYS or key in _JUMP_KEYS:
             continue
         if key in _BC_SWITCH_KEYS:
             bd[key] = np.asarray(1.0 if pd.word(key) in ("yes", "true", "on",
@@ -142,6 +190,8 @@ def read_vol_field(case_dir: str, time: str, name: str, mesh: MeshArrays,
                            f"patch '{patch.name}'")
         bcs.append(make_bc(pd.word("type"), i, pd))
         bd = _boundary_data(pd, patch.size, npdt, stash)
+        if pd.word("type") in _JUMP_TABLE_TYPES:
+            _capture_jump_table(pd, bd, npdt, case_dir)
         if "value" in bd:
             bvalues[patch.bstart:patch.bstart + patch.size] = \
                 np.broadcast_to(bd["value"], (patch.size,) + data.shape[1:])
@@ -232,7 +282,17 @@ def write_vol_field(field: VolField, case_dir: str, time: str,
              "internalField   ", _body_value(data, prec, binary),
              ";\n\n", "boundaryField\n{\n"]
     bvals = field.bvalues.detach().cpu().numpy()
-    for bc, bd in zip(field.bcs, field.bcdata):
+    by_name = {mesh.patches[bc.patch].name: (bc, bd)
+               for bc, bd in zip(field.bcs, field.bcdata)}
+    for name, ptype, _, _ in maps.file_layout(mesh.n_boundary,
+                                               mesh.patches)[1]:
+        if name not in by_name:
+            # a merged cyclic patch: the reference's cyclic patch field
+            # holds its type alone
+            lines.append(f"    {name}\n    {{\n"
+                         f"        type            {ptype};\n    }}\n")
+            continue
+        bc, bd = by_name[name]
         patch = mesh.patches[bc.patch]
         lines.append(f"    {patch.name}\n    {{\n"
                      f"        type            {bc.word};\n")
@@ -241,7 +301,7 @@ def write_vol_field(field: VolField, case_dir: str, time: str,
             lines += ["        value           ",
                       _body_value(pb, prec, binary), ";\n"]
         for key, v in bd.items():
-            if key == "value":
+            if key == "value" or key.startswith("jump_"):
                 continue
             arr = v.detach().cpu().numpy()
             if arr.ndim == 0:
@@ -261,19 +321,24 @@ def write_surface_field(sf: SurfaceField, case_dir: str, time: str,
                         mesh: MeshArrays, maps: MeshMaps, prec: int = 8,
                         fmt: str = "ascii", compress: bool = False):
     """Write a face flux (e.g. phi) as a surfaceScalarField file in file
-    face order and orientation (padded dummy faces are dropped)."""
+    face order and orientation (padded dummy faces are dropped). Both
+    sides of a merged cyclic pair are written, the B side's flux the
+    negative of the A side's, under `type cyclic` as the reference writes
+    them (the JAX package's write fails on a merged mesh: its face map
+    indexes the file's faces into the merged mesh's)."""
     binary = fmt == "binary"
     data = maps.faces_to_file(sf.data.detach().cpu().numpy(), flux=True)
-    n_int = maps.n_file_faces - mesh.n_boundary
+    n_int, layout = maps.file_layout(mesh.n_boundary, mesh.patches)
+    merged = {p.name for p in mesh.patches}
     lines = [_header("surfaceScalarField", sf.name or "phi", time, fmt),
              f"\ndimensions      {_dims_str(sf.dims)};\n\n",
              "internalField   ", _body_value(data[:n_int], prec, binary),
              ";\n\n", "boundaryField\n{\n"]
-    for patch in mesh.patches:
-        start = n_int + patch.bstart
-        pb = data[start:start + patch.size]
-        lines += [f"    {patch.name}\n    {{\n"
-                  "        type            calculated;\n"
+    for name, ptype, start, size in layout:
+        pb = data[start:start + size]
+        word = "calculated" if name in merged else ptype
+        lines += [f"    {name}\n    {{\n"
+                  f"        type            {word};\n"
                   "        value           ", _body_value(pb, prec, binary),
                   ";\n    }\n"]
     lines.append("}\n")
@@ -289,17 +354,16 @@ def read_surface_field(case_dir: str, time: str, name: str,
     d = parse_file(os.path.join(case_dir, time, name))
     stash = getattr(d, "binstash", None)
     dims = d.lookup("dimensions", required=True)
-    n_int = maps.n_file_faces - mesh.n_boundary
+    n_int, layout = maps.file_layout(mesh.n_boundary, mesh.patches)
     data = np.zeros(maps.n_file_faces, npdt)
     data[:n_int] = _parse_value(d.lookup("internalField", required=True),
                                 n_int, npdt, stash)
     bfield = d.subdict("boundaryField")
-    for patch in mesh.patches:
-        pd = bfield.lookup(patch.name)
+    for name, _, start, size in layout:
+        pd = bfield.lookup(name)
         if pd is None or pd.lookup("value") is None:
             continue
-        start = n_int + patch.bstart
-        data[start:start + patch.size] = _parse_value(
-            pd.lookup("value"), patch.size, npdt, stash)
+        data[start:start + size] = _parse_value(pd.lookup("value"), size,
+                                                npdt, stash)
     return SurfaceField(torch.as_tensor(maps.faces_to_device(data, flux=True),
                                         device=mesh.device), dims, name)

@@ -1,8 +1,9 @@
 """Carry state from the JAX package into the port.
 
 Each function takes an object of the JAX package (a MeshArrays with its
-GAMG levels, on the ELL or the gdia layout, merged-cell ghost slots
-included; a VolField with its boundary-condition data and old-time
+GAMG levels and its cyclicAMI/ACMI tables, on the ELL or the gdia layout,
+merged-cell ghost slots included; the MeshMaps of a merged cyclic mesh;
+a VolField with its boundary-condition data and old-time
 levels and CrankNicolson ddt0 state (a compressible state too: slip and
 symmetryPlane BCs, the psi and rho old levels), a SurfaceField, an
 FvMatrix, a turbulence model's state dict (every RAS and LES model's
@@ -19,15 +20,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .fields import bcs_coupled
 from .fields.bcs import BC_TYPES
 from .fields.field import SurfaceField, VolField
 from .linalg.gamg import Level
 from .mesh.gdia import GaussPlanes, GdiaInfo, gauss_planes_from_numpy
-from .mesh.mesharrays import MeshArrays, Patch, _bnd_segments
+from .mesh.mesharrays import (AmiDevTable, MeshArrays, MeshMaps, Patch,
+                              _bnd_segments)
 from .ops.fvmatrix import FvMatrix
 from .utils.dimensions import DimensionSet
 
 _BC_BY_CLASS = {cls.__name__: cls for cls in BC_TYPES.values()}
+_BC_BY_CLASS.update((cls.__name__, cls) for cls in (
+    bcs_coupled.FixedJump, bcs_coupled.UniformJump, bcs_coupled.Fan,
+    bcs_coupled.FanPressure))
 
 
 def tensor(a, *, device, dtype=None) -> torch.Tensor:
@@ -116,7 +122,35 @@ def mesh_arrays(src, *, device, dtype) -> MeshArrays:
         n_internal=int(src.n_internal),
         patches=tuple(Patch(p.name, p.type, p.start, p.size, p.bstart)
                       for p in src.patches),
-        V_assemble=opt("V_assemble"), **layout, **bnd)
+        V_assemble=opt("V_assemble"),
+        ami=tuple(None if a is None else ami_table(a, device=device,
+                                                   dtype=dtype)
+                  for a in src.ami),
+        **layout, **bnd)
+
+
+def ami_table(src, *, device, dtype) -> AmiDevTable:
+    """The port's AmiDevTable of one patch's JAX table."""
+    def opt(a):
+        return None if a is None else tensor(a, device=device, dtype=dtype)
+    return AmiDevTable(
+        nbr_cells=tensor(src.nbr_cells, device=device),
+        w=tensor(src.w, device=device, dtype=dtype),
+        dc=tensor(src.dc, device=device, dtype=dtype),
+        w_face=tensor(src.w_face, device=device, dtype=dtype),
+        rot=opt(src.rot), owner=bool(src.owner), partner=int(src.partner),
+        mask=opt(src.mask), non_overlap=int(src.non_overlap))
+
+
+def mesh_maps(src, n_file_faces: int) -> MeshMaps:
+    """The port's MeshMaps of a JAX ELL mesh's maps (cell_perm and
+    face_perm, a merged mesh's included: its face_perm names the file's
+    A-side faces). The JAX maps keep neither face orientations nor the
+    merged pairs' B sides, so a flux carried across keeps the device
+    orientation."""
+    cell_perm = np.asarray(src.cell_perm, np.int64)
+    return MeshMaps(cell_perm, np.asarray(src.face_perm, np.int64),
+                    np.ones(cell_perm.size, bool), int(n_file_faces))
 
 
 def _bc(src_bc):
@@ -124,6 +158,8 @@ def _bc(src_bc):
     if cls is None:
         raise NotImplementedError(f"boundary condition "
                                   f"{type(src_bc).__name__} is not ported")
+    if cls is bcs_coupled.FanPressure:
+        return cls(int(src_bc.patch), int(src_bc.direction))
     return cls(int(src_bc.patch))
 
 

@@ -84,12 +84,15 @@ class SolverControls:
 
 
 def _amul_fn(mesh: MeshArrays, m: FvMatrix, diag):
-    """x -> diag*x + offdiag(x); diag and x may be (n,) or (n, m)
+    """x -> diag*x + offdiag(x) + the implicit interfaces' part
+    (FvMatrix.coupled_mv); diag and x may be (n,) or (n, m)
     (column-batched vector solves)."""
     off_mv = m.offdiag_mv(mesh)
+    cmv = m.coupled_mv(mesh)
 
     def amul(x):
-        return diag * x + off_mv(x)
+        out = diag * x + off_mv(x)
+        return out if cmv is None else cmv(x, out)
     return amul
 
 

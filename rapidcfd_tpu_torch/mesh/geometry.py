@@ -49,14 +49,18 @@ def face_centres_and_areas(mesh: PolyMesh) -> tuple[np.ndarray, np.ndarray]:
 
 
 def cell_centres_and_vols(mesh: PolyMesh, face_ctrs: np.ndarray,
-                          face_areas: np.ndarray
+                          face_areas: np.ndarray,
+                          nei_face_ctrs: np.ndarray | None = None
                           ) -> tuple[np.ndarray, np.ndarray]:
-    """Pyramid decomposition about the face-centre average (the cyclic
-    neighbour-centre variant of the JAX package is not ported)."""
+    """Pyramid decomposition about the face-centre average.
+    nei_face_ctrs: the internal faces' centres seen from the neighbour
+    cell, which differ from face_ctrs only at merged cyclic faces (the
+    neighbour's own face lies at the matched partner)."""
     nc = mesh.n_cells
     own, nei = mesh.owner, mesh.neighbour
     n_int = mesh.n_internal_faces
-    nei_face_ctrs = face_ctrs[:n_int]
+    if nei_face_ctrs is None:
+        nei_face_ctrs = face_ctrs[:n_int]
 
     c_est = np.zeros((nc, 3))
     n_cell_faces = np.zeros(nc)

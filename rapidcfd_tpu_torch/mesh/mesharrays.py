@@ -9,8 +9,11 @@ mesharrays.py). Two layouts:
 - the generalized-DIA lattice (`build_gdia_mesh_arrays`, mesh/gdia.py)
   for masked-lattice meshes.
 
-The structured-box layout and cyclic/AMI coupling are TPU layouts or
-later slices and are not ported.
+Mesh coupling is an ELL matter: matched cyclic pairs are merged into
+internal faces before the renumbering (mesh/cyclic.py), and cyclicAMI and
+cyclicACMI patches stay patches whose ghost values are overlap-weighted
+sums of the partner's face cells (mesh/ami.py, AmiDevTable). The
+structured-box layout is a TPU layout and is not ported.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from .geometry import (cell_centres_and_vols, cuthill_mckee,
                        face_centres_and_areas, interpolation_coeffs,
                        renumber_mesh)
 from .polymesh import PolyMesh
+from ..utils.dictionary import Dictionary
 
 
 @dataclass(frozen=True)
@@ -41,6 +45,37 @@ class Patch:
     @property
     def is_empty(self) -> bool:
         return self.type == "empty"
+
+    @property
+    def is_ami(self) -> bool:
+        return self.type in AMI_TYPES
+
+
+#: patch types of the implicitly coupled interfaces kept as patches, and of
+#: all coupled patches (a cyclic pair is merged into internal faces)
+AMI_TYPES = ("cyclicAMI", "cyclicACMI")
+COUPLED_TYPES = ("cyclic",) + AMI_TYPES
+
+
+@dataclass(frozen=True)
+class AmiDevTable:
+    """The coupling table of one cyclicAMI/cyclicACMI patch on the device:
+    its ghost values are w-weighted sums of the partner's face-cell
+    values (rapidcfd_tpu/mesh/mesharrays.py:59-80)."""
+    nbr_cells: torch.Tensor       # (size, K) int64 partner face cells
+    w: torch.Tensor               # (size, K) overlap weights
+    dc: torch.Tensor              # (size,) owner-ghost delta coefficient
+    w_face: torch.Tensor          # (size,) owner weight of the face value
+    rot: torch.Tensor | None = None   # (3, 3) vector transform
+    #: the owner side of the pair (the patch listed first): jump BCs add
+    #: +jump here and -jump on the other side (cyclicPolyPatch::owner())
+    owner: bool = True
+    partner: int = -1             # partner patch index
+    #: cyclicACMI: per-face covered fraction in [tol, 1-tol] (the rows of
+    #: w then sum to the raw coverage) and the non-overlap patch that
+    #: carries the (1 - mask) remainder
+    mask: torch.Tensor | None = None
+    non_overlap: int = -1
 
 
 @dataclass(frozen=True)
@@ -90,6 +125,9 @@ class MeshArrays:
     # GAMG agglomeration hierarchy (tuple of linalg.gamg.Level) attached by
     # linalg.precompute.attach_solver_layouts, or None
     gamg: tuple | None = None
+    # cyclicAMI/cyclicACMI tables, one entry per patch (None where not
+    # AMI); () when the mesh has no AMI interface
+    ami: tuple = ()
 
     @property
     def device(self) -> torch.device:
@@ -149,6 +187,31 @@ class MeshArrays:
                                       else v.index_select(0, pos))
         return data
 
+    def ami_table(self, p: Patch) -> AmiDevTable | None:
+        if not self.ami:
+            return None
+        return self.ami[self.patches.index(p)]
+
+    def ami_ghost(self, p: Patch, x: torch.Tensor,
+                  default: torch.Tensor | None = None) -> torch.Tensor:
+        """The partner-side ghost values at an AMI patch's faces: the
+        w-weighted sum of the partner face cells' values of x ((n,) or
+        (n, m)), a vector rotated by the coupled transform. On a
+        cyclicACMI patch the rows of w sum to the covered fraction, so
+        the sum alone is the coupled part (the reference's matrix-side
+        interpolate(pnf)); `default` adds the uncovered remainder,
+        (1 - mask) * default (its interpolate(pnf, defaultValues))."""
+        t = self.ami_table(p)
+        g = x[t.nbr_cells]
+        w = t.w[..., None] if x.dim() == 2 else t.w
+        g = (w * g).sum(1)
+        if t.rot is not None and x.dim() == 2 and x.shape[1] == 3:
+            g = g @ t.rot.T
+        if t.mask is not None and default is not None:
+            m = t.mask[:, None] if g.dim() == 2 else t.mask
+            g = g + (1.0 - m) * default
+        return g
+
     def patch_mag_sf(self, p: Patch) -> torch.Tensor:
         return self.mag_sf[p.start:p.start + p.size]
 
@@ -177,12 +240,19 @@ class MeshMaps:
     padded dummy faces map to this sentinel in face_perm). face_sign:
     -1.0 at device faces whose orientation is the reverse of the file's
     (renumbering or lattice re-orientation), +1.0 elsewhere; a face flux
-    changes sign with it."""
+    changes sign with it. A mesh with merged cyclic pairs also keeps
+    partner_face, the file face of the dropped B side of each merged
+    device face (-1 elsewhere), whose flux is the negative of the A
+    side's, and the file's layout: n_file_internal and file_patches,
+    (name, type, start, size) of every patch, the cyclic ones included."""
     cell_perm: np.ndarray
     face_perm: np.ndarray
     cell_primary: np.ndarray
     n_file_faces: int
     face_sign: np.ndarray | None = None
+    partner_face: np.ndarray | None = None
+    file_patches: tuple | None = None
+    n_file_internal: int | None = None
 
     @property
     def n_file_cells(self) -> int:
@@ -233,7 +303,21 @@ class MeshMaps:
         out = np.empty((self.n_file_faces,) + dev_order.shape[1:],
                        dev_order.dtype)
         out[self.face_perm[real]] = dev_order[real]
+        if self.partner_face is not None:
+            b = self.partner_face >= 0
+            out[self.partner_face[b]] = (-1.0 if flux else 1.0) \
+                * dev_order[b]
         return out
+
+    def file_layout(self, n_boundary: int, patches) -> tuple:
+        """(the file's internal face count, [(name, type, start, size)]
+        of the file's patches); on a mesh without merged pairs these are
+        the device patches."""
+        if self.file_patches is not None:
+            return self.n_file_internal, list(self.file_patches)
+        n_int = self.n_file_faces - n_boundary
+        return n_int, [(p.name, p.type, n_int + p.bstart, p.size)
+                       for p in patches]
 
 
 #: (id(mesh.owner), patch start) -> (mesh.owner, columns): the per-patch
@@ -324,6 +408,11 @@ def build_gdia_mesh_arrays(mesh: PolyMesh, lattice: dict, *, device,
     primary); internal faces become up to three full (n_lat,) offset
     planes with zero-area dummies.
     """
+    coupled = coupled_patch_names(mesh)
+    if coupled:
+        raise ValueError(
+            f"gdia: coupled patches {coupled} need the ELL layout (a merged "
+            "cyclic face joins cells that are no lattice neighbours)")
     nz, ny, nx = lattice["shape"]
     n_lat = nz * ny * nx
     slot_cell = np.asarray(lattice["slot_cell"], np.int64)
@@ -508,21 +597,98 @@ def build_ell(own: np.ndarray, nei: np.ndarray, nc: int, n_int: int,
                 internal_mask=internal_mask, K=K)
 
 
+def _patch_face_centres(mesh: PolyMesh, types) -> np.ndarray:
+    """(nFaces, 3) face centres, those of the patches of the given types
+    computed (face_centres_and_areas on those faces alone: each face's
+    centre is its own arithmetic, so the values are the whole mesh's) and
+    NaN elsewhere."""
+    faces = np.concatenate(
+        [np.arange(p.start_face, p.start_face + p.n_faces)
+         for p in mesh.patches if p.type in types]
+        + [np.zeros(0, np.int64)]).astype(np.int64)
+    off = mesh.face_offsets
+    sizes = off[faces + 1] - off[faces]
+    sub_off = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    face_of = np.repeat(np.arange(faces.size), sizes)
+    sub_fp = mesh.face_points[off[faces][face_of] + np.arange(sub_off[-1])
+                              - sub_off[face_of]]
+    sub = PolyMesh(mesh.points, sub_fp, sub_off, mesh.owner[faces],
+                   np.zeros(0, np.int64), [])
+    out = np.full((mesh.n_faces, 3), np.nan)
+    out[faces] = face_centres_and_areas(sub)[0]
+    return out
+
+
+def coupled_patch_names(mesh) -> list[str]:
+    """The cyclic, cyclicAMI and cyclicACMI patches of a PolyMesh."""
+    return [p.name for p in mesh.patches if p.type in COUPLED_TYPES]
+
+
+def keep_cyclic_pairs(mesh: PolyMesh, keep_cyclic) -> PolyMesh:
+    """A copy of the mesh whose cyclic pairs named in keep_cyclic (either
+    side) are conformal cyclicAMI pairs: the pairs that carry jump BCs,
+    which a merge would erase (reference: jumpCyclicFvPatchField with
+    `patchType cyclic`). A pair with no transform takes the translation
+    between its two sides' mean face centres, the rule the merge matches
+    by (a coincident fan baffle gets 0). The input mesh and its patch
+    dictionaries are left as they are (the JAX package writes the
+    transform into the caller's patches,
+    rapidcfd_tpu/mesh/mesharrays.py:416-418)."""
+    keep = set(keep_cyclic)
+    for p in mesh.patches:
+        if p.name in keep and p.type == "cyclic":
+            keep.add(p.extra.word("neighbourPatch", ""))
+    Cf0 = _patch_face_centres(mesh, ("cyclic",))
+    by_name = {p.name: p for p in mesh.patches}
+    patches = []
+    for p in mesh.patches:
+        if p.name not in keep or p.type != "cyclic":
+            patches.append(p)
+            continue
+        extra = Dictionary(p.extra)
+        if extra.word("transform", "none") == "none":
+            nbr = by_name[extra.word("neighbourPatch", "")]
+            ca = Cf0[p.start_face:p.start_face + p.n_faces]
+            cb = Cf0[nbr.start_face:nbr.start_face + nbr.n_faces]
+            extra["transform"] = "translational"
+            extra["separationVector"] = tuple(
+                float(x) for x in cb.mean(0) - ca.mean(0))
+        patches.append(dataclasses.replace(p, type="cyclicAMI",
+                                           extra=extra))
+    return dataclasses.replace(mesh, patches=patches)
+
+
 def build_mesh_arrays(mesh: PolyMesh, *, device, dtype,
-                      timings: dict | None = None
+                      timings: dict | None = None, keep_cyclic=()
                       ) -> tuple[MeshArrays, PolyMesh, MeshMaps]:
-    """Host pipeline of the padded-ELL layout: renumber -> geometry -> ELL
-    -> device. Returns (MeshArrays, renumbered PolyMesh, MeshMaps).
-    timings, when given, receives the host seconds of the renumbering
-    ("rcm"), of geometry and ELL ("mesh") and of the copy to the device
+    """Host pipeline of the padded-ELL layout: [keep_cyclic conversion]
+    -> cyclic merge -> renumber -> geometry -> ELL -> device. Returns
+    (MeshArrays, renumbered PolyMesh, MeshMaps). keep_cyclic names the
+    cyclic pairs that stay coupled patches (keep_cyclic_pairs); every
+    other cyclic pair is merged into internal faces before the
+    renumbering, so the periodic edges inform the bandwidth. timings,
+    when given, receives the host seconds of the merge ("merge"), the
+    renumbering ("rcm"), of geometry, AMI weights and ELL ("mesh", the
+    AMI weights also alone as "ami") and of the copy to the device
     ("upload")."""
-    coupled = [p.name for p in mesh.patches
-               if p.type in ("cyclic", "cyclicAMI", "cyclicACMI")]
-    if coupled:
-        raise NotImplementedError(
-            f"coupled patches {coupled}: cyclic and AMI interfaces are not "
-            "ported yet")
+    from .cyclic import cyclic_interpolation_override, merge_cyclic
     t0 = time.perf_counter()
+    if keep_cyclic:
+        mesh = keep_cyclic_pairs(mesh, keep_cyclic)
+    nf_file = mesh.n_faces
+    file_layout = (mesh.n_internal_faces,
+                   tuple((p.name, p.extra.word("_originalType", p.type)
+                          if p.extra else p.type, p.start_face, p.n_faces)
+                         for p in mesh.patches))
+    face_map0 = np.arange(nf_file, dtype=np.int64)
+    partner = a_cell = b_face = None
+    flip0 = np.zeros(nf_file, bool)
+    merged = any(p.type == "cyclic" for p in mesh.patches)
+    if merged:
+        mesh, face_map0, partner, a_cell, flip0, b_face = merge_cyclic(
+            mesh, _patch_face_centres(mesh, ("cyclic",)))
+    t_merge = time.perf_counter()
+
     nc0, nf0 = mesh.n_cells, mesh.n_faces
     cell_perm = np.arange(nc0, dtype=np.int64)
     face_perm = np.arange(nf0, dtype=np.int64)
@@ -530,11 +696,44 @@ def build_mesh_arrays(mesh: PolyMesh, *, device, dtype,
     if mesh.n_internal_faces > 0:
         cell_perm = cuthill_mckee(mesh)
         mesh, face_perm, face_flip = renumber_mesh(mesh, cell_perm)
+        if merged:
+            inv = np.empty(mesh.n_cells, dtype=np.int64)
+            inv[cell_perm] = np.arange(mesh.n_cells)
+            partner = partner[face_perm]
+            a_cell = a_cell[face_perm]
+            a_cell = np.where(a_cell >= 0, inv[np.maximum(a_cell, 0)], -1)
+    face_flip = face_flip ^ flip0[face_perm]
+    if merged:
+        b_face = b_face[face_perm]
+    face_perm = face_map0[face_perm]
     t1 = time.perf_counter()
 
     Cf, Sf = face_centres_and_areas(mesh)
-    C, V = cell_centres_and_vols(mesh, Cf, Sf)
+    t_ami = time.perf_counter()
+    raw_ami, area_scale = _ami_raw_tables(mesh)
+    t_ami = time.perf_counter() - t_ami
+    if area_scale is not None:
+        # cyclicACMI area apportioning before the cell geometry: coupled
+        # faces carry mask*|Sf0|, their non-overlap twins (1-mask)*|Sf0|
+        # (reference: cyclicACMIPolyPatch::resetAMI), so the twin pair
+        # counts the interface once in the cell volumes
+        Sf = Sf * area_scale[:, None]
+    own_ctrs, nei_ctrs = Cf, None
+    if merged:
+        n_int0 = mesh.n_internal_faces
+        own_ctrs = Cf.copy()
+        nei_ctrs = Cf[:n_int0].copy()
+        cyc = a_cell[:n_int0] >= 0
+        own_is_a = mesh.owner[:n_int0] == a_cell[:n_int0]
+        # the cell that does not hold the A geometry sees the partner
+        sel_o, sel_n = cyc & ~own_is_a, cyc & own_is_a
+        own_ctrs[:n_int0][sel_o] = partner[:n_int0][sel_o]
+        nei_ctrs[sel_n] = partner[:n_int0][sel_n]
+    C, V = cell_centres_and_vols(mesh, own_ctrs, Sf, nei_ctrs)
     coeffs = interpolation_coeffs(mesh, C, Cf, Sf)
+    if merged:
+        coeffs = cyclic_interpolation_override(mesh, partner, a_cell, C,
+                                               Cf, Sf, coeffs)
     nc, nf, n_int = mesh.n_cells, mesh.n_faces, mesh.n_internal_faces
     own, nei = mesh.owner, mesh.neighbour
     patches = tuple(Patch(p.name, p.type, p.start_face, p.n_faces,
@@ -567,13 +766,86 @@ def build_mesh_arrays(mesh: PolyMesh, *, device, dtype,
         cell_nbr=t(ell["cell_nbr"], idx),
         ell_coeff_idx=t(ell["ell_idx"], idx),
         internal_mask=t(ell["internal_mask"]), K=ell["K"],
+        ami=_build_ami(mesh, patches, raw_ami, coeffs["b_delta_coeffs"],
+                       n_int, t),
         **_bnd_tensors(own, patches, nf - n_int, t),
     )
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     if timings is not None:
-        timings.update(rcm=t1 - t0, mesh=t2 - t1,
+        timings.update(rcm=t1 - t_merge, mesh=t2 - t1,
                        upload=time.perf_counter() - t2)
-    maps = MeshMaps(cell_perm, face_perm, np.ones(nc, bool), nf,
+        if merged:
+            timings["merge"] = t_merge - t0
+        if raw_ami is not None:
+            timings["ami"] = t_ami
+    maps = MeshMaps(cell_perm, face_perm, np.ones(nc, bool), nf_file,
                     np.where(face_flip, -1.0, 1.0))
+    if merged:
+        maps = dataclasses.replace(
+            maps, partner_face=b_face, n_file_internal=file_layout[0],
+            file_patches=file_layout[1])
     return ma, mesh, maps
+
+
+def _ami_raw_tables(mesh: PolyMesh):
+    """(raw, area_scale): the host AMI/ACMI tables {patch index: AmiPair}
+    (None without AMI patches) and the (nFaces,) cyclicACMI area
+    multiplier, mask on the coupled faces and 1 - mask on their
+    non-overlap twins (reference: cyclicACMIPolyPatch.C:95-98), or None
+    without ACMI. The weights need points and faces only, so this runs
+    before the cell geometry, which the scaled areas must feed."""
+    if not any(p.type in AMI_TYPES for p in mesh.patches):
+        return None, None
+    from .ami import build_ami_tables
+    raw = build_ami_tables(mesh, None, None)
+    scale = None
+    for i, tab in raw.items():
+        if tab.mask is None:
+            continue
+        p = mesh.patches[i]
+        no = mesh.patches[tab.non_overlap]
+        if no.n_faces != p.n_faces:
+            raise ValueError(
+                f"cyclicACMI '{p.name}': nonOverlapPatch '{no.name}' "
+                f"size {no.n_faces} != patch size {p.n_faces}")
+        if scale is None:
+            scale = np.ones(mesh.n_faces)
+        scale[p.start_face:p.start_face + p.n_faces] = tab.mask
+        scale[no.start_face:no.start_face + no.n_faces] = 1.0 - tab.mask
+    return raw, scale
+
+
+def _build_ami(mesh: PolyMesh, patches, raw, b_dc, n_int, t) -> tuple:
+    """The device AMI tables of every patch (None where not AMI) from
+    the host tables and the delta coefficients across the interface: the
+    owner's distance plus the w-averaged distance on the partner side
+    (reference: cyclicAMIFvPatch::deltaCoeffs), renormalised by the
+    coverage on cyclicACMI. () without AMI patches."""
+    if raw is None:
+        return ()
+    out = []
+    for i, p in enumerate(patches):
+        if i not in raw:
+            out.append(None)
+            continue
+        tab = raw[i]
+        tgt = patches[tab.tgt]
+        tgt_cells = np.asarray(mesh.owner[tgt.start:tgt.start + tgt.size])
+        d_own = 1.0 / np.maximum(
+            b_dc[p.start - n_int:p.start - n_int + p.size], 1e-30)
+        d_tgt = 1.0 / np.maximum(
+            b_dc[tgt.start - n_int:tgt.start - n_int + tgt.size], 1e-30)
+        wsum = (np.maximum(tab.weights.sum(1), 1e-12)
+                if tab.mask is not None else 1.0)
+        d_ghost = (tab.weights * d_tgt[tab.nbr_idx]).sum(1) / wsum
+        dc = 1.0 / np.maximum(d_own + d_ghost, 1e-30)
+        w_face = d_ghost / np.maximum(d_own + d_ghost, 1e-30)
+        out.append(AmiDevTable(
+            nbr_cells=t(tgt_cells[tab.nbr_idx], torch.int64),
+            w=t(tab.weights), dc=t(dc), w_face=t(w_face),
+            rot=None if tab.rot is None else t(tab.rot),
+            owner=i < tab.tgt, partner=tab.tgt,
+            mask=None if tab.mask is None else t(tab.mask),
+            non_overlap=tab.non_overlap))
+    return tuple(out)

@@ -246,9 +246,18 @@ def _parse_boundary(body: str) -> list[BoundaryPatch]:
     for name, sub in d.items():
         if not isinstance(sub, Dictionary):
             continue
+        typ = sub.word("type")
+        if typ in CYCLIC_ALIASES:
+            # cyclicSlip (reference: cyclicSlipFvPatchField.H:31-33, its
+            # slip part acts on point motion only) and
+            # nonuniformTransformCyclic (per-face transforms, resolved
+            # geometrically by the merge) are cyclics; the spelling is
+            # kept for the write-back
+            sub["_originalType"] = typ
+            typ = "cyclic"
         patches.append(BoundaryPatch(
             name=str(name),
-            type=sub.word("type"),
+            type=typ,
             start_face=int(sub.scalar("startFace")),
             n_faces=int(sub.scalar("nFaces")),
             extra=sub,
@@ -256,6 +265,16 @@ def _parse_boundary(body: str) -> list[BoundaryPatch]:
     if len(patches) != n:
         raise ValueError(f"boundary: expected {n} patches, got {len(patches)}")
     return patches
+
+
+#: boundary types read as `cyclic` and written back under their own name
+CYCLIC_ALIASES = ("cyclicSlip", "nonuniformTransformCyclic")
+
+
+def _num(x) -> str:
+    """A number of a boundary entry, exactly (integers without a point)."""
+    x = float(x)
+    return str(int(x)) if x.is_integer() else repr(x)
 
 
 #: the binary files' `arch` entry: the widths foambin.fmt_list writes
@@ -325,15 +344,17 @@ def write_polymesh(mesh: PolyMesh, case_dir: str, fmt: str = "ascii",
     pb = [f"\n{len(mesh.patches)}\n("]
     for p in mesh.patches:
         extra = ""
+        ptype = p.extra.word("_originalType", p.type) if p.extra else p.type
         for k, v in (p.extra or {}).items():
-            if k in ("type", "nFaces", "startFace"):
+            if k in ("type", "nFaces", "startFace", "_originalType"):
                 continue
-            if isinstance(v, tuple):
-                vs = "(" + " ".join(f"{float(x):g}" for x in v) + ")"
+            if isinstance(v, (tuple, list)) and all(
+                    isinstance(x, (int, float)) for x in v):
+                vs = "(" + " ".join(_num(x) for x in v) + ")"
             else:
                 vs = str(v)
             extra += f"        {k}  {vs};\n"
-        pb.append(f"    {p.name}\n    {{\n        type            {p.type};\n"
+        pb.append(f"    {p.name}\n    {{\n        type            {ptype};\n"
                   f"{extra}"
                   f"        nFaces          {p.n_faces};\n"
                   f"        startFace       {p.start_face};\n    }}")

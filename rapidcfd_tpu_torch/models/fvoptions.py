@@ -340,6 +340,9 @@ class PressureGradientExplicitSource(Option):
         tiny = max(1e-300, torch.finfo(mesh.V.dtype).tiny)
         r_ave = (vw * (diag / mesh.V.clamp_min(tiny))).sum() / vw.sum()
         grad_p = self.grad_p + mag_err * r_ave
+        info(f"Pressure gradient source: uncorrected Ubar = "
+             f"{float((ubar_now * e).sum()):.6g}, pressure gradient = "
+             f"{float(grad_p):.6g}\n")
         return eqn.replace(source=eqn.source + vw[:, None] * grad_p * e)
 
 

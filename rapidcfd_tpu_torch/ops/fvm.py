@@ -214,6 +214,27 @@ def ddt(mesh: MeshArrays, vf: VolField, dt, scheme="Euler",
     return m.replace(diag=diag, source=src)
 
 
+def _apply_jumps(mesh: MeshArrays, vf: VolField, m: FvMatrix, env):
+    """Fold the jump BCs' offsets into the source (rapidcfd_tpu/ops/
+    fvm.py:49-64; reference: jumpCyclicFvPatchField::
+    updateInterfaceMatrix, the ghost shifted by the signed jump, pnf -=
+    jf): coupled_mv adds -boundary_coeffs*ghost to M*x, so the constant
+    part goes to the right-hand side as source -= boundary_coeffs*jump."""
+    items = []
+    for i, (patch, bc, bd) in enumerate(
+            zip(mesh.patches, vf.bcs, vf.bcdata)):
+        if not getattr(bc, "has_jump", False) or patch.size == 0:
+            continue
+        jf = bc.jump(mesh, patch, vf, bd, env)
+        cc = m.boundary_coeffs[i]
+        if cc.dim() > jf.dim():
+            jf = jf[:, None]
+        items.append((patch, -cc * jf))
+    if not items:
+        return m
+    return m.replace(source=mesh.add_at_patches(m.source, items))
+
+
 def div(mesh: MeshArrays, phi: SurfaceField, vf: VolField,
         scheme="linear", env=None) -> FvMatrix:
     """fvm::div(phi, psi) — Gauss convection (reference:
@@ -244,12 +265,26 @@ def div(mesh: MeshArrays, phi: SurfaceField, vf: VolField,
             ics.append(m.internal_coeffs[i])
             bcs_.append(m.boundary_coeffs[i])
             continue
+        phi_b = phi.data[patch.start:patch.start + patch.size]
+        if bc.coupled:
+            # an implicit interface, upwinded (rapidcfd_tpu/ops/fvm.py:
+            # 259-275): the interior runs the requested scheme, the
+            # coupled face takes the owner value on outflow and the ghost
+            # on inflow; boundary_coeffs holds the ghost coefficient
+            up = (phi_b >= 0.0).to(phi_b.dtype)
+            shape = (patch.size,) + tuple(vf.data.shape[1:])
+            if vf.data.dim() > 1:
+                up, phi_b = up[:, None], phi_b[:, None]
+            ics.append(torch.broadcast_to(phi_b * up, shape))
+            bcs_.append(torch.broadcast_to(-phi_b * (1.0 - up), shape))
+            continue
         vic, vbc = bc.value_coeffs(mesh, patch, vf, bd, env=env)
-        phi_b = _ext(phi.data[patch.start:patch.start + patch.size], vbc)
+        phi_b = _ext(phi_b, vbc)
         ics.append(phi_b * vic * torch.ones_like(vbc))
         bcs_.append(-phi_b * vbc)
-    return m.replace(diag=diag, lower=lower, upper=upper,
-                     internal_coeffs=tuple(ics), boundary_coeffs=tuple(bcs_))
+    m = m.replace(diag=diag, lower=lower, upper=upper,
+                  internal_coeffs=tuple(ics), boundary_coeffs=tuple(bcs_))
+    return _apply_jumps(mesh, vf, m, env)
 
 
 def _gamma_faces(mesh, gamma):
@@ -291,6 +326,14 @@ def laplacian(mesh: MeshArrays, gamma, vf: VolField,
             continue
         gb = g_f[patch.start:patch.start + patch.size] \
             * mesh.patch_mag_sf(patch)
+        if bc.coupled:
+            # an implicit interface: snGrad = dc*(ghost - psi_c); the
+            # ghost's coefficient goes to boundary_coeffs (= -gb*dc)
+            gic = bc.gradient_internal_coeff(mesh, patch, vf, bd, env)
+            gbx = _ext(gb, gic) * gic
+            ics.append(gbx)
+            bcs_.append(gbx)
+            continue
         gic, gbc = bc.gradient_coeffs(mesh, patch, vf, bd, env)
         gb = _ext(gb, gbc)
         ics.append(gb * gic * torch.ones_like(gbc))
@@ -298,7 +341,7 @@ def laplacian(mesh: MeshArrays, gamma, vf: VolField,
     m = m.replace(diag=diag, lower=g_int, upper=g_int,
                   internal_coeffs=tuple(ics), boundary_coeffs=tuple(bcs_))
     if not corrected:
-        return m
+        return _apply_jumps(mesh, vf, m, env)
 
     # explicit non-orthogonal correction gamma_f*|Sf|*(k . grad_f psi);
     # it belongs to the operator, so it leaves the source. On gdia meshes
@@ -312,8 +355,9 @@ def laplacian(mesh: MeshArrays, gamma, vf: VolField,
     corr = _ext(g_f[:n_int] * mesh.mag_sf[:n_int], corr) * corr
     full = torch.cat([corr, corr.new_zeros((mesh.n_boundary,)
                                            + corr.shape[1:])])
-    return m.replace(
+    m = m.replace(
         source=m.source - fvc.surface_sum_faces(mesh, full, raw=True))
+    return _apply_jumps(mesh, vf, m, env)
 
 
 # ---------------------------------------------------------------------------

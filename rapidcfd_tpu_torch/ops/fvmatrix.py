@@ -137,18 +137,61 @@ class FvMatrix:
             return (c * g).sum(1)
         return mv
 
+    def _coupled_flags(self) -> tuple:
+        """Per patch: True where the patch couples implicitly (cyclicAMI):
+        its boundary_coeffs multiply the partner's ghost values inside the
+        matrix product instead of folding into the source."""
+        return tuple(bc.coupled for bc in self.psi.bcs)
+
+    def coupled_mv(self, mesh: MeshArrays):
+        """(x, out) -> out plus the implicit-interface part of M*x: at
+        every coupled patch, -boundary_coeffs * ghost(x) added at the
+        face cells (the reference's updateMatrixInterfaces). None when
+        the matrix has no coupled patch."""
+        items = [(p, i) for i, (p, cpl) in enumerate(
+            zip(mesh.patches, self._coupled_flags())) if cpl and p.size]
+        if not items:
+            return None
+
+        def mv(x, out):
+            adds = []
+            for p, i in items:
+                cc = self.boundary_coeffs[i]
+                if x.dim() == 1 and cc.dim() > 1:
+                    cc = cc[:, 0]
+                adds.append((p, -cc * mesh.ami_ghost(p, x)))
+            return mesh.add_at_patches(out, adds)
+        return mv
+
+    def _ghost_sources(self, mesh: MeshArrays, psi):
+        """(patch, boundary_coeffs) of every non-empty patch, a coupled
+        patch's multiplied by the ghost values of psi."""
+        return [(p, bc * mesh.ami_ghost(p, psi) if cpl else bc)
+                for p, bc, cpl in zip(mesh.patches, self.boundary_coeffs,
+                                      self._coupled_flags())
+                if not (p.is_empty or p.size == 0)]
+
+    def _system_items(self, mesh: MeshArrays, cmpt):
+        """(diag items, source items) of the patch coefficients (one
+        component's, unless cmpt is None); a coupled patch's boundary
+        coefficients stay out of the source."""
+        d_items, s_items = [], []
+        for p, ic, bc, cpl in zip(mesh.patches, self.internal_coeffs,
+                                  self.boundary_coeffs,
+                                  self._coupled_flags()):
+            if p.is_empty or p.size == 0:
+                continue
+            d_items.append((p, ic if cmpt is None else ic[:, cmpt]))
+            if not cpl:
+                s_items.append((p, bc if cmpt is None else bc[:, cmpt]))
+        return d_items, s_items
+
     def component_system_all(self, mesh: MeshArrays):
         """(diag (n,m), source (n,m)) for a column-batched vector solve
         (patch internal coeffs may differ per component)."""
         m_comp = self.source.shape[1]
         diag = self.diag[:, None].expand(self.diag.shape[0], m_comp)
-        d_items, s_items = [], []
-        for p, ic, bc in zip(mesh.patches, self.internal_coeffs,
-                             self.boundary_coeffs):
-            if p.is_empty or p.size == 0:
-                continue
-            d_items.append((p, ic))
-            s_items.append((p, bc))
+        d_items, s_items = self._system_items(mesh, None)
         diag = mesh.add_at_patches(diag, d_items)
         src = mesh.add_at_patches(self.source, s_items)
         diag, src = self._gdia_fold_system(mesh, diag, src)
@@ -158,13 +201,7 @@ class FvMatrix:
         """(diag, source) for one component with the patch coefficients
         folded in (reference: addBoundaryDiag/addBoundarySource)."""
         src = self.source if cmpt is None else self.source[:, cmpt]
-        d_items, s_items = [], []
-        for p, ic, bc in zip(mesh.patches, self.internal_coeffs,
-                             self.boundary_coeffs):
-            if p.is_empty or p.size == 0:
-                continue
-            d_items.append((p, ic if cmpt is None else ic[:, cmpt]))
-            s_items.append((p, bc if cmpt is None else bc[:, cmpt]))
+        d_items, s_items = self._system_items(mesh, cmpt)
         diag = mesh.add_at_patches(self.diag, d_items)
         src = mesh.add_at_patches(src, s_items)
         diag, src = self._gdia_fold_system(mesh, diag, src)
@@ -221,9 +258,7 @@ class FvMatrix:
         from .fvc import _extrapolated
         psi = self.psi.data
         h = self.source - self.offdiag_mv(mesh)(psi)
-        items = [(p, bc) for p, bc in zip(mesh.patches, self.boundary_coeffs)
-                 if not (p.is_empty or p.size == 0)]
-        h = mesh.add_at_patches(h, items)
+        h = mesh.add_at_patches(h, self._ghost_sources(mesh, psi))
         g = mesh.gdia
         if g is not None:
             h = gd.sync(g, gd.fold(g, h))
@@ -234,11 +269,17 @@ class FvMatrix:
     def H1(self, mesh: MeshArrays) -> VolField:
         """-(row sum of the off-diagonal coefficients)/V, i.e. H at psi = 1
         without the source (reference: lduMatrix::H1 and fvMatrix::H1; the
-        SIMPLEC denominator 1/(1/rAU - H1)). Only coupled patches add to
-        it, and the port has none: the row sums alone, folded and synced
-        on gdia meshes."""
+        SIMPLEC denominator 1/(1/rAU - H1)): the row sums, and at coupled
+        patches the boundary coefficients (the reference adds
+        boundaryCoeffs.component(0) there only); folded and synced on
+        gdia meshes."""
         from .fvc import _extrapolated
         h = -self.offdiag_mv(mesh)(torch.ones_like(self.diag))
+        h = mesh.add_at_patches(h, [
+            (p, bc[..., 0] if bc.dim() > 1 else bc)
+            for p, bc, cpl in zip(mesh.patches, self.boundary_coeffs,
+                                  self._coupled_flags())
+            if cpl and not (p.is_empty or p.size == 0)])
         g = mesh.gdia
         if g is not None:
             h = gd.sync(g, gd.fold(g, h))
@@ -257,12 +298,15 @@ class FvMatrix:
             raise TypeError("flux() only valid for scalar matrices")
         own_v, nei_v = face_own_nei(mesh, psi)
         parts = [self.upper * nei_v - self.lower * own_v]
-        for p, ic, bc in zip(mesh.patches, self.internal_coeffs,
-                             self.boundary_coeffs):
+        for p, ic, bc, cpl in zip(mesh.patches, self.internal_coeffs,
+                                  self.boundary_coeffs,
+                                  self._coupled_flags()):
             if p.is_empty:
                 parts.append(torch.zeros((p.size,), dtype=psi.dtype,
                                          device=psi.device))
                 continue
+            if cpl:
+                bc = bc * mesh.ami_ghost(p, psi)
             parts.append(ic * mesh.patch_cell_values(p, psi) - bc)
         return SurfaceField(torch.cat(parts), self.dims,
                             f"flux({self.psi.name})")

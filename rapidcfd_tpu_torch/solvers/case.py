@@ -11,19 +11,82 @@ are explicit arguments.
 from __future__ import annotations
 
 import os
+import re
 import time
 
 import torch
 
 from ..fields.io import read_vol_field, write_vol_field
 from ..linalg.solvers import SolverControls
-from ..mesh.mesharrays import build_gdia_mesh_arrays, build_mesh_arrays
+from ..mesh.mesharrays import (build_gdia_mesh_arrays, build_mesh_arrays,
+                               coupled_patch_names)
 from ..mesh.polymesh import read_polymesh
 from ..ops.fvm import old_levels
-from ..utils.dictionary import Dictionary, parse_file
+from ..utils import foambin
+from ..utils.dictionary import (Dictionary, ParseError, parse_dictionary,
+                                parse_file)
 from ..utils.logging import info
 from ..utils.timecontrol import Time
 from ..utils.unstructured import detect_lattice
+
+#: patch-field types that keep their cyclic pair a coupled interface
+#: instead of merging it (the reference's jumpCyclic family with
+#: `patchType cyclic`)
+_JUMP_BC_TYPES = ("fan", "fixedJump", "uniformJump")
+
+
+def _boundary_field(path: str) -> Dictionary | None:
+    """A field file's boundaryField dictionary. The text from the
+    `boundaryField` keyword on is parsed alone, so an ascii internalField
+    is not tokenised (a binary one is cut out by the decoder); where that
+    part does not parse alone (a macro or #include defined above it), the
+    whole file is parsed."""
+    raw = foambin.read_raw(path)
+    if foambin.is_binary(raw):
+        text, _ = foambin.decode_binary_dict(raw)
+    else:
+        text = raw.decode("latin-1")
+    m = re.search(r"^\s*boundaryField\b", text, re.M)
+    if m is not None:
+        case_dir = os.path.dirname(os.path.dirname(os.path.abspath(path)))
+        try:
+            return parse_dictionary(text[m.start():], path=path,
+                                    include_dirs=(case_dir,)
+                                    ).subdict("boundaryField")
+        except ParseError:
+            pass
+    return parse_file(path).subdict("boundaryField")
+
+
+def scan_jump_patches(pmesh, case_dir: str, time_name: str) -> tuple:
+    """The cyclic patches that carry a jump-family BC in a field of the
+    start time (rapidcfd_tpu/solvers/case.py:29-53): those pairs stay
+    coupled patches, since fan curves and jumps live on the interface a
+    merge would erase. A file that does not parse is logged by name and
+    skipped."""
+    cyc = {p.name for p in pmesh.patches if p.type == "cyclic"}
+    tdir = os.path.join(case_dir, time_name)
+    if not cyc or not os.path.isdir(tdir):
+        return ()
+    names = set()
+    for fn in sorted(os.listdir(tdir)):
+        path = os.path.join(tdir, fn)
+        if not os.path.isfile(path):
+            continue
+        try:
+            bf = _boundary_field(path)
+        except Exception as e:
+            info(f"--> FOAM Warning : {path} was not read for jump "
+                 f"boundary conditions on the cyclic patches: {e}\n")
+            continue
+        if not bf:
+            continue
+        for pname in cyc:
+            pd = bf.lookup(pname)
+            if isinstance(pd, Dictionary) \
+                    and pd.word("type", "") in _JUMP_BC_TYPES:
+                names.add(pname)
+    return tuple(sorted(names))
 
 
 class Case:
@@ -38,20 +101,30 @@ class Case:
         sends it to the ELL path too. A full box lattice (no dead slot)
         takes the ELL path too unless gdia_box=True, which routes it onto
         gdia (the JAX package sends full boxes to its structured-box
-        layout, which is not ported)."""
+        layout, which is not ported). A mesh with coupled patches takes
+        the ELL path: detection finds no lattice in it, and gdia_box or a
+        given lattice raises, naming the patches. A cyclic pair with a
+        jump BC in a start-time field stays coupled (scan_jump_patches);
+        every other is merged."""
         self.dir = case_dir
         self.device = device
         self.dtype = dtype
         self.time = Time(case_dir)
-        #: host seconds of the set-up stages (mesh read and build; the
-        #: GAMG hierarchy and the wall distance are added by the solver's
-        #: make_step and the turbulence model)
+        #: host seconds of the set-up stages (mesh read, the jump scan on
+        #: a mesh with coupled patches, and the build; the GAMG hierarchy
+        #: and the wall distance are added by the solver's make_step and
+        #: the turbulence model)
         self.setup_seconds: dict[str, float] = {}
         info(f"Create time\n\nCreate mesh for time = {self.time.name}\n")
         if pmesh is None:
             t0 = time.perf_counter()
             pmesh = read_polymesh(case_dir)
             self.setup_seconds["read"] = time.perf_counter() - t0
+        coupled = coupled_patch_names(pmesh)
+        if coupled and (gdia_box or lattice is not None):
+            raise ValueError(
+                f"coupled patches {coupled} cannot take the gdia layout "
+                "(-gdiaBox): a coupled mesh runs on the ELL layout")
         if lattice is None and gdia_auto:
             t0 = time.perf_counter()
             lattice = detect_lattice(pmesh, full_box=gdia_box)
@@ -66,9 +139,13 @@ class Case:
                 pmesh, lattice, device=device, dtype=dtype)
             self.setup_seconds["gdia"] = time.perf_counter() - t0
         else:
+            t0 = time.perf_counter()
+            keep = scan_jump_patches(pmesh, case_dir, self.time.name)
+            if coupled:
+                self.setup_seconds["scan"] = time.perf_counter() - t0
             self.mesh, self.pmesh, self.maps = build_mesh_arrays(
                 pmesh, device=device, dtype=dtype,
-                timings=self.setup_seconds)
+                timings=self.setup_seconds, keep_cyclic=keep)
         self.fv_schemes = parse_file(
             os.path.join(case_dir, "system", "fvSchemes"))
         self.fv_solution = parse_file(

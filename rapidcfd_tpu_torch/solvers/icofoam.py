@@ -42,10 +42,15 @@ def continuity_errors(mesh, phi: SurfaceField):
 def piso_step(mesh, U: VolField, p: VolField, phi: SurfaceField, dt, nu,
               *, div_scheme, lap_corr, u_controls, p_controls,
               p_final_controls, n_correctors: int, n_non_orth: int,
-              p_ref_cell, p_ref_value, p_ref_weight=1.0):
-    """One PISO timestep."""
+              p_ref_cell, p_ref_value, p_ref_weight=1.0, t=None):
+    """One PISO timestep. t, the end-of-step time, goes into the U
+    equation's env for the boundary conditions that follow a table of
+    time (uniformJump), as the JAX package's icoFoam hands it
+    (rapidcfd_tpu/solvers/icofoam.py:57-59)."""
     U = U.store_old()
     env = {"phi": phi, "dt": dt}
+    if t is not None:
+        env["t"] = t
 
     # momentum predictor (UEqn.H)
     UEqn = (fvm.ddt(mesh, U, dt)
@@ -86,7 +91,8 @@ def piso_step(mesh, U: VolField, p: VolField, phi: SurfaceField, dt, nu,
 
 def make_step(case: Case, nu, n_correctors: int, n_non_orth: int,
               p_ref_cell: int, p_ref_value: float):
-    """step(U, p, phi, dt) -> (U, p, phi, stats) on the case's mesh. nu
+    """step(U, p, phi, dt, t=None) -> (U, p, phi, stats) on the case's
+    mesh, t the end-of-step time (0 where None, as in the JAX package). nu
     is a Dimensioned constant, or a callable U -> VolField evaluated at
     the start of each step (a non-Newtonian viscosity model).
     p_ref_cell is fvSolution's pRefCell, a cell label of the mesh as
@@ -111,10 +117,10 @@ def make_step(case: Case, nu, n_correctors: int, n_non_orth: int,
 
     nu_fn = nu if callable(nu) else (lambda U: nu)
 
-    def step(U, p, phi, dt):
+    def step(U, p, phi, dt, t=None):
         from ..ops.interpolation import set_current_dt
         set_current_dt(dt)
-        return piso_step(mesh, U, p, phi, dt, nu_fn(U), **kw)
+        return piso_step(mesh, U, p, phi, dt, nu_fn(U), t=t, **kw)
 
     return step
 
@@ -128,10 +134,10 @@ def make_chained_step(case: Case, nu, n_correctors: int, n_non_orth: int,
     step = make_step(case, nu, n_correctors, n_non_orth, p_ref_cell,
                      p_ref_value)
 
-    def steps(U, p, phi, dt):
+    def steps(U, p, phi, dt, t0=0.0):
         window = []
-        for _ in range(chain):
-            U, p, phi, stats = step(U, p, phi, dt)
+        for k in range(chain):
+            U, p, phi, stats = step(U, p, phi, dt, t0 + (k + 1) * dt)
             window.append(stats)
         return U, p, phi, _stack_stats(window)
 
@@ -214,7 +220,8 @@ def run(case_dir: str, *, device: torch.device, dtype: torch.dtype,
     while case.time.loop():
         t0 = _time.perf_counter()
         info(f"Time = {case.time.name}\n")
-        U, p, phi, stats = step(U, p, phi, case.time.delta_t)
+        U, p, phi, stats = step(U, p, phi, case.time.delta_t,
+                                case.time.value)
 
         log_courant(*stats["co"])
         for cmpt, perf in zip("xyz", stats["u_perf"]):

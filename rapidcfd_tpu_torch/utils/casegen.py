@@ -1919,53 +1919,51 @@ def merge_disjoint_meshes(m1: PolyMesh, m2: PolyMesh) -> PolyMesh:
     """Concatenate two meshes into one (no topological connection —
     interfaces between them are coupled via cyclicAMI patch pairs).
     Same-named patches merge; patch metadata comes from whichever mesh
-    defines the name first."""
-    np1, nc1 = len(m1.points), m1.n_cells
+    defines the name first. By array operations: the face order of the
+    JAX package's face loop (m1's internal faces, m2's, then each patch
+    name's faces, m1's before m2's)."""
+    np1, nc1, nf1 = len(m1.points), m1.n_cells, m1.n_faces
     pts = np.concatenate([m1.points, m2.points])
-
-    def faces_of(m):
-        return [m.face_points[m.face_offsets[i]:m.face_offsets[i + 1]]
-                for i in range(m.n_faces)]
-    f1, f2 = faces_of(m1), faces_of(m2)
-    int_faces = f1[:m1.n_internal_faces] \
-        + [f + np1 for f in f2[:m2.n_internal_faces]]
-    owners = list(m1.owner[:m1.n_internal_faces]) \
-        + list(m2.owner[:m2.n_internal_faces] + nc1)
-    neighbours = list(m1.neighbour) + list(m2.neighbour + nc1)
-
+    fp = np.concatenate([m1.face_points, m2.face_points + np1])
+    off = np.concatenate([m1.face_offsets,
+                          m2.face_offsets[1:] + m1.face_offsets[-1]])
+    own = np.concatenate([m1.owner, m2.owner + nc1])
+    order = [np.arange(m1.n_internal_faces),
+             nf1 + np.arange(m2.n_internal_faces)]
     groups: dict[str, tuple[str, object, list]] = {}
-    for m, poff, coff in ((m1, 0, 0), (m2, np1, nc1)):
-        fs = faces_of(m)
+    for m, base in ((m1, 0), (m2, nf1)):
         for p in m.patches:
-            g = groups.setdefault(p.name, (p.type, p.extra, []))
-            for k in range(p.n_faces):
-                f = p.start_face + k
-                g[2].append((fs[f] + poff, int(m.owner[f]) + coff))
-
-    all_faces = list(int_faces)
-    patches = []
+            groups.setdefault(p.name, (p.type, p.extra, []))[2].append(
+                base + np.arange(p.start_face, p.start_face + p.n_faces))
+    patches, start = [], m1.n_internal_faces + m2.n_internal_faces
     for name, (typ, extra, lst) in groups.items():
-        start = len(all_faces)
-        for fpts, own in lst:
-            all_faces.append(fpts)
-            owners.append(own)
-        patches.append(BoundaryPatch(name, typ, start, len(lst), extra))
-
-    flat = np.concatenate(all_faces)
-    offsets = np.zeros(len(all_faces) + 1, dtype=np.int64)
-    np.cumsum([len(f) for f in all_faces], out=offsets[1:])
-    return PolyMesh(pts, flat, offsets, np.asarray(owners, np.int64),
-                    np.asarray(neighbours, np.int64), patches)
+        n = int(sum(a.size for a in lst))
+        patches.append(BoundaryPatch(name, typ, start, n, extra))
+        order += lst
+        start += n
+    order = np.concatenate(order).astype(np.int64)
+    sizes = np.diff(off)[order]
+    offsets = np.zeros(order.size + 1, dtype=np.int64)
+    np.cumsum(sizes, out=offsets[1:])
+    face_of = np.repeat(np.arange(order.size), sizes)
+    flat = fp[off[order][face_of] + np.arange(offsets[-1])
+              - offsets[face_of]]
+    return PolyMesh(pts, flat, offsets, own[order],
+                    np.concatenate([m1.neighbour, m2.neighbour + nc1]),
+                    patches)
 
 
 def ami_channel_case(case_dir: str, ny1: int = 8, ny2: int = 12,
                      nx: int = 6, end_time: float = 0.5,
                      delta_t: float = 0.01, t_left: float = 400.0,
-                     t_right: float = 300.0):
+                     t_right: float = 300.0, max_iter: int = 1000,
+                     write_mesh: bool = True) -> PolyMesh:
     """laplacianFoam conduction across a NON-CONFORMING cyclicAMI
     interface: two blocks of different y-resolution joined at x=0.5.
     The steady solution is linear in x, so any interface error shows
-    directly (reference test analog: AMI tutorials)."""
+    directly (reference test analog: AMI tutorials). max_iter is T's
+    PCG maxIter; write_mesh=False skips writing the polyMesh (the
+    returned PolyMesh then goes to Case(pmesh=))."""
     from ..utils.dictionary import Dictionary as _D
     L, H = 1.0, 0.2
     mk = lambda name: _D()
@@ -1988,7 +1986,8 @@ def ami_channel_case(case_dir: str, ny1: int = 8, ny2: int = 12,
                 p.extra["neighbourPatch"] = nbr
                 p.extra["transform"] = "none"
     mesh = merge_disjoint_meshes(m1, m2)
-    write_polymesh(mesh, case_dir)
+    if write_mesh:
+        write_polymesh(mesh, case_dir)
 
     _write(os.path.join(case_dir, "system", "controlDict"),
            foamfile_header("dictionary", "controlDict", "system"), f"""
@@ -2021,10 +2020,11 @@ solvers
         preconditioner  DIC;
         tolerance       1e-09;
         relTol          0;
+        maxIter         %d;
     }
 }
 SIMPLE { nNonOrthogonalCorrectors 0; }
-""")
+""" % max_iter)
     _write(os.path.join(case_dir, "constant", "transportProperties"),
            foamfile_header("dictionary", "transportProperties",
                            "constant"), """
@@ -2039,6 +2039,7 @@ DT              DT [0 2 -1 0 0 0 0] 0.05;
                  "walls": "        type            zeroGradient;\n",
                  "fb": "        type            empty;\n",
                  '"(ami1|ami2)"': "        type            cyclicAMI;\n"})
+    return mesh
 
 
 def duplicate_patch(mesh: PolyMesh, name: str, new_name: str,
@@ -4487,4 +4488,507 @@ rpmCoeffs       {{ rpm {rpm!r}; }}
                         "        inletValue      uniform (0 0 0);\n"
                         "        value           uniform (0 0 0);\n",
                     "frontAndBack": _EMPTY}, fmt, compress)
+    return mesh
+
+
+# ---------------------------------------------------------------------------
+# mesh coupling: cyclic rings and channels, jump pairs, the periodic LES
+# channel
+# ---------------------------------------------------------------------------
+
+_BASIC_SCHEMES = """
+ddtSchemes      {{ default Euler; }}
+gradSchemes     {{ default Gauss linear; }}
+divSchemes      {{ default none; {div} }}
+laplacianSchemes {{ default Gauss linear orthogonal; }}
+interpolationSchemes {{ default linear; }}
+snGradSchemes   {{ default orthogonal; }}
+"""
+
+
+def _basic_dicts(case_dir: str, app: str, end_time: float, delta_t: float,
+                 div: str, solver: str, dt_coeff: float):
+    """controlDict, fvSchemes, fvSolution (T by `solver`) and DT of a
+    laplacianFoam or scalarTransportFoam case."""
+    _write(os.path.join(case_dir, "system", "controlDict"),
+           foamfile_header("dictionary", "controlDict", "system"), f"""
+application {app}; startFrom startTime; startTime 0;
+stopAt endTime; endTime {end_time!r}; deltaT {delta_t!r};
+writeControl timeStep; writeInterval 100000; writeFormat ascii;
+""")
+    _write(os.path.join(case_dir, "system", "fvSchemes"),
+           foamfile_header("dictionary", "fvSchemes", "system"),
+           _BASIC_SCHEMES.format(div=div))
+    _write(os.path.join(case_dir, "system", "fvSolution"),
+           foamfile_header("dictionary", "fvSolution", "system"), f"""
+solvers {{ T {{ {solver} relTol 0; }} }}
+SIMPLE {{ nNonOrthogonalCorrectors 0; }}
+""")
+    _write(os.path.join(case_dir, "constant", "transportProperties"),
+           foamfile_header("dictionary", "transportProperties", "constant"),
+           f"\nDT              DT [0 2 -1 0 0 0 0] {dt_coeff!r};\n")
+
+
+def _cell_values(values: np.ndarray) -> str:
+    from ..fields.io import _body_value
+    return _body_value(np.asarray(values, float), 17)
+
+
+def cyclic_ring_case(case_dir: str, n: int = 40,
+                     end_time: float = 1.0) -> PolyMesh:
+    """scalarTransportFoam around a periodic ring (tests/test_cyclic.py's
+    case): n cells on 1 x 0.05 x 0.05 m, left and right a cyclic pair,
+    the rest empty; a Gaussian blob of T at x = 0.25 advected by U = (1 0
+    0) with vanLeer, DT 0, deltaT 0.005, PBiCGStab/DILU to 1e-10."""
+    mesh = box_mesh(n, 1, 1, size=(1.0, 0.05, 0.05), patch_spec={
+        "xmin": ("left", "cyclic", "right"),
+        "xmax": ("right", "cyclic", "left"),
+        "ymin": ("sides", "empty"), "ymax": ("sides", "empty"),
+        "zmin": ("fb", "empty"), "zmax": ("fb", "empty")})
+    write_polymesh(mesh, case_dir)
+    _basic_dicts(case_dir, "scalarTransportFoam", end_time, 0.005,
+                 "div(phi,T) Gauss vanLeer;",
+                 "solver PBiCGStab; preconditioner DILU; tolerance 1e-10;",
+                 0.0)
+    x = _cell_centres(mesh)[:, 0]
+    cyc = "        type            cyclic;\n"
+    bnd = {"sides": _EMPTY, "fb": _EMPTY, "left": cyc, "right": cyc}
+    write_field(case_dir, "0", "T", "volScalarField", "[0 0 0 1 0 0 0]",
+                _cell_values(np.exp(-((x - 0.25) / 0.08) ** 2)), bnd)
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                "uniform (1 0 0)", bnd)
+    return mesh
+
+
+def periodic_transport_case(case_dir: str, kind: str = "cyclic",
+                            end_time: float = 0.5) -> PolyMesh:
+    """tests/test_ami.py's periodic transport channel: 24 x 4 x 1 cells
+    on 1 x 0.2 x 0.05 m, inlet and outlet a `cyclic` pair (merged) or, with
+    kind='ami', a conformal `cyclicAMI` pair with the translational
+    separation; zeroGradient walls; a Gaussian blob of T at x = 0.3
+    advected by U = (1 0 0), upwind, DT 0, deltaT 0.005."""
+    typ = "cyclicAMI" if kind == "ami" else "cyclic"
+    mesh = box_mesh(24, 4, 1, size=(1.0, 0.2, 0.05), patch_spec={
+        "xmin": ("inlet", typ), "xmax": ("outlet", typ),
+        "ymin": ("walls", "wall"), "ymax": ("walls", "wall"),
+        "zmin": ("fb", "empty"), "zmax": ("fb", "empty")})
+    for p in mesh.patches:
+        if p.name in ("inlet", "outlet"):
+            sign = 1.0 if p.name == "inlet" else -1.0
+            p.extra["neighbourPatch"] = "outlet" if sign > 0 else "inlet"
+            if kind == "ami":
+                p.extra["transform"] = "translational"
+                p.extra["separationVector"] = (sign, 0.0, 0.0)
+    write_polymesh(mesh, case_dir)
+    _basic_dicts(case_dir, "scalarTransportFoam", end_time, 0.005,
+                 "div(phi,T) Gauss upwind;",
+                 "solver PBiCGStab; preconditioner DILU; tolerance 1e-10;",
+                 0.0)
+    x = _cell_centres(mesh)[:, 0]
+    cpl = f"        type            {typ};\n"
+    write_field(case_dir, "0", "T", "volScalarField", "[0 0 0 1 0 0 0]",
+                _cell_values(np.exp(-((x - 0.3) / 0.08) ** 2)),
+                {"walls": _ZG, "fb": _EMPTY, '"(inlet|outlet)"': cpl})
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                "uniform (1 0 0)",
+                {"walls": _fixed("(1 0 0)"), "fb": _EMPTY,
+                 '"(inlet|outlet)"': cpl})
+    return mesh
+
+
+#: the jump BCs of tests/test_jump_bcs.py on the pair's T, by name
+JUMP_BCS = {
+    "fixedJump": "        type            fixedJump;\n"
+                 "        patchType       cyclic;\n"
+                 "        jump            uniform 10;\n"
+                 "        value           uniform 0;\n",
+    "uniformJump": "        type            uniformJump;\n"
+                   "        patchType       cyclic;\n"
+                   "        jumpTable       constant 10;\n"
+                   "        value           uniform 0;\n",
+    "fan": "        type            fan;\n"
+           "        patchType       cyclic;\n"
+           "        jumpTable       polynomial ((100 1)(-50 2));\n"
+           "        value           uniform 0;\n",
+    # a jumpTable that ramps from 10 at t = 0 to 60 at t = 1
+    "uniformJumpRamp": "        type            uniformJump;\n"
+                       "        patchType       cyclic;\n"
+                       "        jumpTable       table ((0 10) (1 60));\n"
+                       "        value           uniform 0;\n",
+    # a zero jump: the pair is kept coupled and nothing else changes
+    "zeroJump": "        type            fixedJump;\n"
+                "        patchType       cyclic;\n"
+                "        jump            uniform 0;\n"
+                "        value           uniform 0;\n",
+    # no jump at all: the pair is merged
+    "cyclic": "        type            cyclic;\n",
+}
+
+
+def _jump_channel_mesh(case_dir: str, inout: str = "cyclic") -> PolyMesh:
+    """The 24 x 4 x 1-cell channel of tests/test_jump_bcs.py on 1 x 0.2 x
+    0.05 m: inlet and outlet a cyclic pair (or, with inout='patch', two
+    open patches), walls at y = 0 and 0.2, fb empty."""
+    mesh = box_mesh(24, 4, 1, size=(1.0, 0.2, 0.05), patch_spec={
+        "xmin": ("inlet", inout), "xmax": ("outlet", inout),
+        "ymin": ("walls", "wall"), "ymax": ("walls", "wall"),
+        "zmin": ("fb", "empty"), "zmax": ("fb", "empty")})
+    if inout == "cyclic":
+        for p in mesh.patches:
+            if p.name in ("inlet", "outlet"):
+                p.extra["neighbourPatch"] = ("outlet" if p.name == "inlet"
+                                             else "inlet")
+    write_polymesh(mesh, case_dir)
+    return mesh
+
+
+def jump_channel_case(case_dir: str, bc: str = "fixedJump",
+                      end_time: float = 30.0,
+                      t_seed: int | None = None,
+                      u_flow: float | None = None) -> PolyMesh:
+    """tests/test_jump_bcs.py's periodic conduction channel: 24 x 4 x 1
+    cells on 1 x 0.2 x 0.05 m, inlet and outlet a cyclic pair whose T
+    carries JUMP_BCS[bc] (a jump keeps the pair coupled; 'cyclic' merges
+    it), zeroGradient walls; laplacianFoam, DT 0.05, deltaT 0.05, PCG/DIC
+    to 1e-12. T starts uniform 0, or with t_seed from a numpy-seeded field
+    (standard deviation 1). With u_flow, T is carried by the uniform
+    velocity (u_flow 0 0), whose U says `cyclic` on the pair:
+    scalarTransportFoam, div(phi,T) upwind, PBiCGStab/DILU to 1e-12."""
+    mesh = _jump_channel_mesh(case_dir)
+    if u_flow is None:
+        _basic_dicts(case_dir, "laplacianFoam", end_time, 0.05, "",
+                     "solver PCG; preconditioner DIC; tolerance 1e-12;",
+                     0.05)
+    else:
+        _basic_dicts(case_dir, "scalarTransportFoam", end_time, 0.05,
+                     "div(phi,T) Gauss upwind;",
+                     "solver PBiCGStab; preconditioner DILU; "
+                     "tolerance 1e-12;", 0.05)
+        u = f"({u_flow!r} 0 0)"
+        write_field(case_dir, "0", "U", "volVectorField",
+                    "[0 1 -1 0 0 0 0]", f"uniform {u}",
+                    {"walls": _fixed(u), "fb": _EMPTY,
+                     '"(inlet|outlet)"': JUMP_BCS["cyclic"]})
+    t0 = "uniform 0" if t_seed is None else _cell_values(
+        np.random.default_rng(t_seed).standard_normal(mesh.n_cells))
+    write_field(case_dir, "0", "T", "volScalarField", "[0 0 0 1 0 0 0]", t0,
+                {"walls": _ZG, "fb": _EMPTY,
+                 '"(inlet|outlet)"': JUMP_BCS[bc]})
+    return mesh
+
+
+#: the p entries of fan_channel_case's pair, by name: a fan whose curve
+#: is 30 at zero flow (what the pressure solve evaluates, as in the JAX
+#: package: ROADMAP Queue 3), a zero jump, or a merged pair
+FAN_P_BCS = {
+    "fan": "        type            fan;\n"
+           "        patchType       cyclic;\n"
+           "        jumpTable       polynomial ((30 0)(100 1)(-50 2));\n"
+           "        value           uniform 0;\n",
+    "zeroJump": JUMP_BCS["zeroJump"],
+    "cyclic": JUMP_BCS["cyclic"],
+}
+
+#: U on fan_channel_case's pair: a zero vector jump (a type the JAX
+#: package couples on a kept pair) or `cyclic`
+FAN_U_BCS = {
+    "zeroJump": "        type            fixedJump;\n"
+                "        patchType       cyclic;\n"
+                "        jump            uniform (0 0 0);\n"
+                "        value           uniform (0 0 0);\n",
+    "cyclic": JUMP_BCS["cyclic"],
+    # a jump in U that follows a table of time: (0 0 0) at t = 0, (2 0 0)
+    # at t = 1
+    "uniformJumpRamp": "        type            uniformJump;\n"
+                       "        patchType       cyclic;\n"
+                       "        jumpTable       table ((0 (0 0 0)) "
+                       "(1 (2 0 0)));\n"
+                       "        value           uniform (0 0 0);\n",
+}
+
+
+def _pimple_channel_dicts(case_dir: str, n_steps: int, delta_t: float,
+                          nu: float):
+    """controlDict, fvSchemes (Euler, upwind), fvSolution (PCG/DIC p to
+    1e-12, smoothSolver U to 1e-12; PIMPLE 1 outer, 2 correctors and PISO
+    2 correctors, pRefCell 0) and a laminar transport of the small
+    pimpleFoam (or icoFoam) channels."""
+    _write(os.path.join(case_dir, "system", "controlDict"),
+           foamfile_header("dictionary", "controlDict", "system"), f"""
+application pimpleFoam; startFrom startTime; startTime 0;
+stopAt endTime; endTime {n_steps * delta_t!r}; deltaT {delta_t!r};
+writeControl timeStep; writeInterval 100000; writeFormat ascii;
+""")
+    _write(os.path.join(case_dir, "system", "fvSchemes"),
+           foamfile_header("dictionary", "fvSchemes", "system"), """
+ddtSchemes { default Euler; }
+gradSchemes { default Gauss linear; }
+divSchemes { default none; div(phi,U) Gauss upwind; }
+laplacianSchemes { default Gauss linear orthogonal; }
+interpolationSchemes { default linear; }
+snGradSchemes { default orthogonal; }
+""")
+    _write(os.path.join(case_dir, "system", "fvSolution"),
+           foamfile_header("dictionary", "fvSolution", "system"), """
+solvers
+{
+    p { solver PCG; preconditioner DIC; tolerance 1e-12; relTol 0; }
+    pFinal { solver PCG; preconditioner DIC; tolerance 1e-12; relTol 0; }
+    U { solver smoothSolver; smoother symGaussSeidel; tolerance 1e-12;
+        relTol 0; }
+}
+PIMPLE { nOuterCorrectors 1; nCorrectors 2;
+         nNonOrthogonalCorrectors 0; momentumPredictor yes;
+         pRefCell 0; pRefValue 0; }
+PISO { nCorrectors 2; nNonOrthogonalCorrectors 0; pRefCell 0;
+       pRefValue 0; }
+""")
+    _write_transport(case_dir, nu)
+    _write(os.path.join(case_dir, "constant", "RASProperties"),
+           foamfile_header("dictionary", "RASProperties", "constant"),
+           "\nRASModel        laminar;\nturbulence      off;\n")
+
+
+def fan_channel_case(case_dir: str, p_bc: str = "fan",
+                     u_bc: str = "zeroJump", n_steps: int = 5,
+                     delta_t: float = 0.005,
+                     u_seed: int | None = None) -> PolyMesh:
+    """A fan in a periodic duct: tests/test_jump_bcs.py's channel with the
+    pair carrying FAN_P_BCS[p_bc] on p and FAN_U_BCS[u_bc] on U; no-slip
+    walls, U starting at (1 0 0) (with u_seed, plus a numpy-seeded
+    in-plane perturbation of standard deviation 0.2), nu 0.01; laminar
+    pimpleFoam (Euler, upwind) for n_steps of delta_t."""
+    mesh = _jump_channel_mesh(case_dir)
+    _pimple_channel_dicts(case_dir, n_steps, delta_t, 0.01)
+    u0 = "uniform (1 0 0)"
+    if u_seed is not None:
+        u = np.zeros((mesh.n_cells, 3))
+        u[:, :2] = 0.2 * np.random.default_rng(u_seed).standard_normal(
+            (mesh.n_cells, 2))
+        u[:, 0] += 1.0
+        u0 = _cell_values(u)
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                u0,
+                {"walls": _fixed("(0 0 0)"), "fb": _EMPTY,
+                 '"(inlet|outlet)"': FAN_U_BCS[u_bc]})
+    write_field(case_dir, "0", "p", "volScalarField", "[0 2 -2 0 0 0 0]",
+                "uniform 0",
+                {"walls": _ZG, "fb": _EMPTY,
+                 '"(inlet|outlet)"': FAN_P_BCS[p_bc]})
+    return mesh
+
+
+def fan_pressure_channel_case(case_dir: str, n_steps: int = 5,
+                              delta_t: float = 0.005) -> PolyMesh:
+    """A fan drawing from the ambient into an open duct: the channel of
+    tests/test_jump_bcs.py with a fanPressure inlet (direction in, p0 10,
+    the curve the table constant/fanCurve) and p 0 at the outlet; U
+    pressureInletOutletVelocity in, zeroGradient out, no-slip walls,
+    starting at (0.5 0 0), nu 0.01; laminar pimpleFoam (Euler, upwind)
+    for n_steps of delta_t."""
+    mesh = _jump_channel_mesh(case_dir, "patch")
+    _pimple_channel_dicts(case_dir, n_steps, delta_t, 0.01)
+    _write(os.path.join(case_dir, "constant", "fanCurve"), "",
+           "(\n    (0 0)\n    (0.01 2)\n    (0.05 6)\n)\n")
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                "uniform (0.5 0 0)",
+                {"inlet": "        type            "
+                          "pressureInletOutletVelocity;\n"
+                          "        value           uniform (0 0 0);\n",
+                 "outlet": _ZG, "walls": _fixed("(0 0 0)"), "fb": _EMPTY})
+    write_field(case_dir, "0", "p", "volScalarField", "[0 2 -2 0 0 0 0]",
+                "uniform 0",
+                {"inlet": "        type            fanPressure;\n"
+                          "        direction       in;\n"
+                          "        fileName        \"fanCurve\";\n"
+                          "        p0              uniform 10;\n"
+                          "        value           uniform 10;\n",
+                 "outlet": _fixed("0"), "walls": _ZG, "fb": _EMPTY})
+    return mesh
+
+
+def _two_sided_grading(n: int, length: float, ratio: float) -> np.ndarray:
+    """n + 1 node coordinates on [0, length], graded toward both ends:
+    two halves of n/2 cells whose widths grow geometrically by `ratio`
+    (last over first) toward the middle (blockMesh's two blocks with
+    simpleGrading ratio and 1/ratio)."""
+    half = n // 2
+    r = ratio ** (1.0 / (half - 1)) if half > 1 else 1.0
+    w = r ** np.arange(half)
+    w *= 0.5 * length / w.sum()
+    lo = np.concatenate([[0.0], np.cumsum(w)])
+    return np.concatenate([lo, length - lo[-2::-1]])
+
+
+#: OpenFOAM's pimpleFoam/LES/channel395: the bulk velocity the driving
+#: pressure gradient holds, the viscosity (Re_tau 395), and the wall
+#: grading of each half channel (blockMeshDict simpleGrading 10.7028)
+CHANNEL395_UBAR = 0.1335
+CHANNEL395_NU = 2e-05
+CHANNEL395_GRADING = 10.7028
+
+
+def periodic_channel_case(case_dir: str, nx: int = 160, ny: int = 100,
+                          nz: int = 64, *, n_steps: int = 20,
+                          delta_t: float | None = None,
+                          ddt: str = "backward", u_seed: int = 0,
+                          p_solver: str = "GAMG", fmt: str = "binary",
+                          compress: bool = True,
+                          write_mesh: bool = True,
+                          k_seed: int | None = None) -> PolyMesh:
+    """pimpleFoam LES in a periodic channel, after OpenFOAM's
+    pimpleFoam/LES/channel395 tutorial: a 4 x 2 x 2 m box, walls at y = 0
+    and y = 2 (bottomWall, topWall), cyclic pairs joining x-min to x-max
+    (inout1/inout2) and z-min to z-max (sides1/sides2); nx x ny x nz
+    cells (160 x 100 x 64 = 1,024,000 by default; the tutorial's
+    40 x 50 x 30), each half channel graded 10.7028 toward its wall.
+    nu 2e-5; pressureGradientExplicitSource in system/fvOptions holds
+    Ubar (0.1335 0 0); LES oneEqEddy with the cubeRootVol delta; ddt
+    backward (ddt=); div(phi,U) Gauss linear, div(phi,k) Gauss
+    limitedLinear 1, laplacians Gauss linear corrected; p by GAMG
+    (p_solver=) with relTol 0.05 (pFinal 0), U and k by smoothSolver
+    symGaussSeidel to 1e-5; PIMPLE 1 outer and 2 pressure correctors,
+    pRefCell 0. U starts at Ubar plus a numpy-seeded perturbation (u_seed;
+    standard deviations 0.1 Ubar streamwise, 0.05 Ubar across), k at
+    1e-5 (m/s)^2; both 0 on the walls. deltaT holds the bulk Courant
+    number at the tutorial's 0.27 (0.2 s at nx = 40) unless given;
+    endTime is n_steps steps; the mesh and the fields are written in
+    fmt, gzipped under compress, and the controlDict asks for the same.
+
+    Where it departs from the tutorial: the eddy viscosity is the field
+    nut (OpenFOAM 2.3 writes nuSgs) and k starts uniform, not from the
+    tutorial's perturbed field; pRefCell is 0 (the tutorial's 1001 is a
+    cell of its own mesh). k_seed starts k from a numpy-seeded field
+    (10% standard deviation about 1e-5) in place of the uniform one,
+    where limitedLinear's r is a ratio of rounding residues that no two
+    evaluation orders share."""
+    xs = np.linspace(0.0, 4.0, nx + 1)
+    ys = _two_sided_grading(ny, 2.0, CHANNEL395_GRADING)
+    zs = np.linspace(0.0, 2.0, nz + 1)
+    from .unstructured import box_mesh_fast
+    mesh = box_mesh_fast(nx, ny, nz, coords=(xs, ys, zs), patch_spec={
+        "xmin": ("inout1", "cyclic", "inout2"),
+        "xmax": ("inout2", "cyclic", "inout1"),
+        "ymin": ("bottomWall", "wall"), "ymax": ("topWall", "wall"),
+        "zmin": ("sides1", "cyclic", "sides2"),
+        "zmax": ("sides2", "cyclic", "sides1")})
+    if write_mesh:
+        write_polymesh(mesh, case_dir, fmt=fmt, compress=compress)
+    dt = 0.2 * 40 / nx if delta_t is None else delta_t
+    _write(os.path.join(case_dir, "system", "controlDict"),
+           foamfile_header("dictionary", "controlDict", "system"), f"""
+application     pimpleFoam;
+startFrom       startTime;
+startTime       0;
+stopAt          endTime;
+endTime         {n_steps * dt!r};
+deltaT          {dt!r};
+writeControl    timeStep;
+writeInterval   {n_steps};
+purgeWrite      0;
+writeFormat     {fmt};
+writePrecision  6;
+writeCompression {"compressed" if compress else "uncompressed"};
+runTimeModifiable true;
+""")
+    _write(os.path.join(case_dir, "system", "fvSchemes"),
+           foamfile_header("dictionary", "fvSchemes", "system"), f"""
+ddtSchemes      {{ default {ddt}; }}
+gradSchemes     {{ default Gauss linear; }}
+divSchemes
+{{
+    default         none;
+    div(phi,U)      Gauss linear;
+    div(phi,k)      Gauss limitedLinear 1;
+    div((nuEff*dev(T(grad(U))))) Gauss linear;
+}}
+laplacianSchemes {{ default Gauss linear corrected; }}
+interpolationSchemes {{ default linear; }}
+snGradSchemes   {{ default corrected; }}
+""")
+    p_dict = ("solver GAMG; smoother GaussSeidel; "
+              "nCellsInCoarsestLevel 10;" if p_solver == "GAMG"
+              else "solver PCG; preconditioner DIC;")
+    _write(os.path.join(case_dir, "system", "fvSolution"),
+           foamfile_header("dictionary", "fvSolution", "system"), f"""
+solvers
+{{
+    p {{ {p_dict} tolerance 1e-06; relTol 0.05; }}
+    pFinal {{ {p_dict} tolerance 1e-06; relTol 0; }}
+    "(U|k)"
+    {{
+        solver          smoothSolver;
+        smoother        symGaussSeidel;
+        tolerance       1e-05;
+        relTol          0;
+    }}
+    "(U|k)Final"
+    {{
+        solver          smoothSolver;
+        smoother        symGaussSeidel;
+        tolerance       1e-05;
+        relTol          0;
+    }}
+}}
+PIMPLE
+{{
+    nOuterCorrectors 1;
+    nCorrectors     2;
+    nNonOrthogonalCorrectors 0;
+    pRefCell        0;
+    pRefValue       0;
+}}
+""")
+    _write_transport(case_dir, CHANNEL395_NU)
+    _write(os.path.join(case_dir, "constant", "turbulenceProperties"),
+           foamfile_header("dictionary", "turbulenceProperties", "constant"),
+           """
+simulationType  LESModel;
+LESModel        oneEqEddy;
+turbulence      on;
+printCoeffs     on;
+delta           cubeRootVol;
+oneEqEddyCoeffs
+{
+    delta           cubeRootVol;
+    cubeRootVolCoeffs { deltaCoeff 1; }
+}
+cubeRootVolCoeffs { deltaCoeff 1; }
+""")
+    _write(os.path.join(case_dir, "system", "fvOptions"),
+           foamfile_header("dictionary", "fvOptions", "system"), f"""
+momentumSource
+{{
+    type            pressureGradientExplicitSource;
+    active          on;
+    selectionMode   all;
+    fields          ( U );
+    Ubar            ({CHANNEL395_UBAR} 0 0);
+}}
+""")
+    from ..fields.io import _body_value
+    rng = np.random.default_rng(u_seed)
+    n = mesh.n_cells
+    u = np.stack([CHANNEL395_UBAR * (1.0 + 0.1 * rng.standard_normal(n)),
+                  0.05 * CHANNEL395_UBAR * rng.standard_normal(n),
+                  0.05 * CHANNEL395_UBAR * rng.standard_normal(n)], 1)
+    cyc = "        type            cyclic;\n"
+    walls = {"bottomWall": _fixed("(0 0 0)"), "topWall": _fixed("(0 0 0)")}
+    cycs = {name: cyc for name in ("inout1", "inout2", "sides1", "sides2")}
+    write_field(case_dir, "0", "U", "volVectorField", "[0 1 -1 0 0 0 0]",
+                _body_value(u, 17, binary=fmt == "binary"),
+                {**walls, **cycs}, fmt, compress)
+    write_field(case_dir, "0", "p", "volScalarField", "[0 2 -2 0 0 0 0]",
+                "uniform 0", {"bottomWall": _ZG, "topWall": _ZG, **cycs},
+                fmt, compress)
+    k0 = "uniform 1e-05" if k_seed is None else _body_value(
+        1e-5 * (1.0 + 0.1 * np.random.default_rng(k_seed).standard_normal(
+            n)), 17, binary=fmt == "binary")
+    write_field(case_dir, "0", "k", "volScalarField", "[0 2 -2 0 0 0 0]",
+                k0, {"bottomWall": _fixed("0"),
+                                  "topWall": _fixed("0"), **cycs},
+                fmt, compress)
+    write_field(case_dir, "0", "nut", "volScalarField", "[0 2 -1 0 0 0 0]",
+                "uniform 0", {"bottomWall": _ZG, "topWall": _ZG, **cycs},
+                fmt, compress)
     return mesh

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..mesh.geometry import cell_centres_and_vols, face_centres_and_areas
+from ..mesh.mesharrays import COUPLED_TYPES
 from ..mesh.polymesh import BoundaryPatch, PolyMesh
 from .dictionary import Dictionary
 
@@ -579,11 +580,13 @@ def detect_lattice(mesh: PolyMesh, full_box: bool = False) -> dict | None:
     MINUS blanked cells). Returns the lattice dict consumed by
     build_gdia_mesh_arrays (dead slots marked), or None when the mesh is
     not of this class or, unless full_box, is a full box (no dead
-    slot). How the patches split the boundary does not matter."""
+    slot). How the patches split the boundary does not matter. A mesh
+    with coupled patches (cyclic, cyclicAMI, cyclicACMI) is no lattice:
+    a merged cyclic face joins cells that are no lattice neighbours."""
     n_cells = mesh.n_cells
     if n_cells == 0:
         return None
-    if any(p.type in ("cyclicAMI", "cyclicACMI") for p in mesh.patches):
+    if any(p.type in COUPLED_TYPES for p in mesh.patches):
         return None
     Cf, Sf = face_centres_and_areas(mesh)
     C, _ = cell_centres_and_vols(mesh, Cf, Sf)

@@ -356,17 +356,20 @@ def test_written_time_directory_reads_back(tmp_path):
 
 
 def test_non_lattice_mesh_is_refused():
-    """A mesh that is not a masked lattice goes to the padded-ELL build,
-    which does not port cyclic coupling yet: a box with a cyclic pair
-    raises instead of running as if the pair were walls."""
+    """A box with a cyclic pair is refused as a lattice (it would run as
+    if the pair were walls) and goes to the padded-ELL build, which
+    merges the pair into internal faces."""
     from rapidcfd_tpu_torch.mesh.mesharrays import build_mesh_arrays
     from rapidcfd_tpu_torch.utils.casegen import box_mesh
+    from rapidcfd_tpu_torch.utils.unstructured import detect_lattice
     pm = box_mesh(6, 4, 1, patch_spec={
         "xmin": ("left", "cyclic", "right"),
         "xmax": ("right", "cyclic", "left"),
         "ymin": ("walls", "wall"), "ymax": ("walls", "wall"),
         "zmin": ("frontAndBack", "empty"),
         "zmax": ("frontAndBack", "empty")})
-    with pytest.raises(NotImplementedError, match="cyclic"):
-        build_mesh_arrays(pm, device=torch.device("cpu"),
-                          dtype=torch.float64)
+    assert detect_lattice(pm, full_box=True) is None
+    ma, _, _ = build_mesh_arrays(pm, device=torch.device("cpu"),
+                                 dtype=torch.float64)
+    assert ma.n_internal == pm.n_internal_faces + 4
+    assert [p.name for p in ma.patches] == ["walls", "frontAndBack"]

@@ -15,6 +15,7 @@ as the device row of file cell 0, as the port maps pRefCell.
 from __future__ import annotations
 
 import contextlib
+import sys
 
 import jax
 import numpy as np
@@ -202,3 +203,39 @@ def counts_close(port_its, jax_its) -> bool:
         if any(abs(a - b) > 1 for (_, a), (_, b) in zip(ps, js)):
             return False
     return True
+
+
+def basic_pair(fn: str, d: str, steps: int = 5):
+    """((JAX case, JAX T), JAX counts, (port case, port T), port counts)
+    of `steps` steps of a basic solver (fn: run_laplacian_foam or
+    run_scalar_transport_foam) on the padded ELL in both packages, fp64.
+    The JAX package's basic solvers return their perf before their last
+    output, so its recorder hands its_of each jitted call's whole
+    output."""
+    from rapidcfd_tpu.solvers import basic as jbasic
+    from rapidcfd_tpu_torch.solvers import basic as tbasic
+
+    class WholeOut(RecordingJax):
+        def jit(self, f, **kw):
+            jitted = jax.jit(f, **kw)
+
+            def recorded(*a):
+                out = jitted(*a)
+                self.record.append(self.its_of(out))
+                return out
+            return recorded
+
+    def run(case_dir, write, max_steps):
+        return getattr(jbasic, fn)(case_dir, write=write,
+                                   max_steps=max_steps)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sys.modules[__name__], "RecordingJax", WholeOut)
+        mp.setattr(jbasic, "run", run, raising=False)
+        jout, jits = run_jax(jbasic, d, steps, "ell",
+                             lambda out: [("T", int(out[1][0][2]))])
+    tcase = port_case(d, "ell")
+    with captured():
+        tout = getattr(tbasic, fn)(d, device=CPU, dtype=F64, write=False,
+                                   case=tcase, max_steps=steps)
+    return (jout[0], jout[1]), jits, (tout[0], tout[1]), \
+        [s["iterations"] for s in tcase.step_log]
